@@ -1,0 +1,55 @@
+"""spfresh-1b per-shard geometry — the paper's SPACEV1B regime.
+
+One LIRE shard per device holds ~2M live vectors (≈8M replica slots) with
+int8 payloads.  The shard-mesh cells of the reference are not ported; this
+module carries the per-shard configs and the serving step shapes.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.core.types import LireConfig
+
+CONFIG = LireConfig(
+    dim=100,                      # SPACEV byte vectors
+    block_size=32,
+    max_blocks_per_posting=4,     # posting capacity 128
+    num_blocks=262_144,           # 838 MB int8 payload / device
+    num_postings_cap=65_536,
+    num_vectors_cap=4_194_304,    # 4M handles / shard
+    vector_dtype="int8",
+    scan_dtype="bfloat16",
+    split_limit=96,
+    merge_limit=12,
+    merge_fanout=4,
+    reassign_range=64,            # paper default (Fig. 11)
+    reassign_budget=256,
+    replica_count=4,
+    replica_rng=1.15,
+    nprobe=64,                    # paper: search nearest 64 postings
+    jobs_per_round=8,
+    maintain_policy="drift",
+    maintain_alpha=4.0,
+    maintain_beta=1.0,
+)
+
+SMOKE = LireConfig(
+    dim=16, block_size=8, max_blocks_per_posting=8, num_blocks=1024,
+    num_postings_cap=128, num_vectors_cap=4096, split_limit=48,
+    merge_limit=6, merge_fanout=4, reassign_range=8, reassign_budget=128,
+    replica_count=2, nprobe=8, jobs_per_round=4,
+)
+
+SEARCH_Q = 1024   # queries per search micro-batch
+UPDATE_B = 4096   # rows per insert batch
+PROBE_CHUNK = 0
+
+# The production search path: batch-dedup paged scan with a static page
+# budget (overflow drops the highest-numbered pages, counted by
+# ``dedup_pages``).
+CONFIG_PAGED = dataclasses.replace(
+    CONFIG,
+    use_pallas_scan=True,
+    scan_schedule="batched",
+    scan_page_budget=32_768,
+)

@@ -1,0 +1,70 @@
+"""Carry index state between the JAX package and the port.
+
+Both packages hold the same leaves under the same names.  The exchange
+format is a flat ``{"pool.blocks": ndarray, "centroids": ndarray, ...}``
+map of numpy arrays, named by attribute path; ``rng`` is the reference's
+raw ``(2,)`` uint32 PRNG key.  bfloat16 leaves travel as their uint16 bit
+patterns (numpy has no bfloat16 of its own).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.types import IndexState, LireConfig, make_empty_state
+from repro_torch.utils.tree import tensor_leaves
+
+
+def _to_tensor(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    arr = np.array(arr, order="C")        # a copy; keeps 0-d leaves 0-d
+    if like.dtype == torch.bfloat16:
+        bits = arr.view(np.uint16).view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16).to(like.device)
+    if arr.dtype.name == "bfloat16":
+        raise TypeError("bfloat16 leaf given for a non-bfloat16 tensor")
+    return torch.from_numpy(arr).to(device=like.device, dtype=like.dtype)
+
+
+def state_from_numpy(cfg: LireConfig, leaves: dict, *, device="cuda") -> IndexState:
+    """The port's ``IndexState`` holding ``leaves`` on ``device``.
+
+    Every tensor leaf of the port's state must be present with the same
+    shape; dtypes are the port's own (which are the reference's)."""
+    template = make_empty_state(cfg, device=device)
+    want = tensor_leaves(template)
+    missing = sorted(set(want) - set(leaves))
+    if missing:
+        raise KeyError(f"leaves missing from the exchange map: {missing}")
+    got = {}
+    for name, like in want.items():
+        arr = np.asarray(leaves[name])
+        if tuple(arr.shape) != tuple(like.shape):
+            raise ValueError(f"{name}: shape {arr.shape} != {tuple(like.shape)}")
+        got[name] = _to_tensor(arr, like)
+    return _rebuild(template, got)
+
+
+def _rebuild(template, got: dict, prefix: str = ""):
+    updates = {}
+    for f in dataclasses.fields(template):
+        v = getattr(template, f.name)
+        name = f"{prefix}{f.name}"
+        if isinstance(v, torch.Tensor):
+            updates[f.name] = got[name]
+        elif dataclasses.is_dataclass(v):
+            updates[f.name] = _rebuild(v, got, name + ".")
+    return dataclasses.replace(template, **updates)
+
+
+def state_to_numpy(state: IndexState) -> dict[str, np.ndarray]:
+    """Inverse of :func:`state_from_numpy` (bfloat16 → uint16 bits)."""
+    out = {}
+    for name, t in tensor_leaves(state).items():
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            out[name] = t.view(torch.int16).numpy().view(np.uint16)
+        else:
+            out[name] = t.numpy()
+    return out

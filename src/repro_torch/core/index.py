@@ -1,0 +1,379 @@
+"""SPFreshIndex — the user-facing index object.
+
+Composition (paper Fig. 5):
+  * offline build      — SPANN hierarchical balanced clustering + closure
+                         replication (§3.1), vectorised on the device;
+  * foreground Updater — ``insert`` / ``delete`` (``lire.insert_batch`` /
+                         ``lire.delete_batch``);
+  * Searcher           — ``search`` (``lire.search``).
+
+The background Local Rebuilder (split / merge / reassign), the WAL and
+snapshots are not ported yet: an insert whose primary append fails raises
+``NotImplementedError`` where the reference would run maintenance.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.core import lire
+from repro_torch.core.clustering import hierarchical_balanced_kmeans
+from repro_torch.core.distance import pairwise_sql2, stable_topk
+from repro_torch.core.types import (
+    IndexState,
+    LireConfig,
+    make_empty_state,
+    resolve_device,
+)
+from repro_torch.storage import codec as pcodec
+
+_INSERT_CHUNK = 256
+_QUERY_CHUNK = 64
+
+
+def _group_rank_np(keys: np.ndarray) -> np.ndarray:
+    """Rank of each entry among equal keys, in input order."""
+    order = np.argsort(keys, kind="stable")
+    sk = keys[order]
+    pos = np.arange(keys.size)
+    first = np.ones(keys.size, bool)
+    first[1:] = sk[1:] != sk[:-1]
+    start = np.maximum.accumulate(np.where(first, pos, 0))
+    rank = np.empty(keys.size, np.int64)
+    rank[order] = pos - start
+    return rank
+
+
+def _build_routing(vectors, centroids, assign, cfg: LireConfig, *, device,
+                   chunk: int = 8192) -> tuple[np.ndarray, np.ndarray]:
+    """Vector → posting membership: the primary (from the clustering) plus
+    SPANN closure replicas (top-R centroids within the replica_rng ratio).
+
+    Returns ``(pid, vid)`` membership pairs sorted in fill order: per
+    posting, primaries in vid order, then replicas in (vid, j) order.  A
+    replica candidate (vid, j) lands in posting p iff p is not the vid's
+    primary, ``d_j <= replica_rng² · d_min``, and its rank among p's
+    qualifying candidates in (vid, j) order is below ``cap − primaries(p)``
+    — the outcome of the reference's sequential loop."""
+    n = vectors.shape[0]
+    p = centroids.shape[0]
+    assign = np.asarray(assign, np.int64)
+    pid_parts = [assign]
+    vid_parts = [np.arange(n, dtype=np.int64)]
+    grp_parts = [np.zeros(n, np.int64)]
+    if cfg.replica_count > 1 and p > 1:
+        r = min(cfg.replica_count, p)
+        cen = torch.as_tensor(np.asarray(centroids, np.float32)).to(device)
+        cen_sqn = torch.sum(cen * cen, dim=-1)
+        factor = float(cfg.replica_rng) ** 2
+        idx_parts, ok_parts = [], []
+        for start in range(0, n, chunk):
+            xs = torch.as_tensor(np.asarray(vectors[start:start + chunk], np.float32)).to(device)
+            d, idx = stable_topk(pairwise_sql2(xs, cen, cen_sqn), r)
+            prim = torch.as_tensor(assign[start:start + chunk]).to(device)
+            ok = (idx != prim[:, None]) & (d <= factor * d[:, :1])
+            idx_parts.append(idx.cpu().numpy())
+            ok_parts.append(ok.cpu().numpy())
+        idx = np.concatenate(idx_parts).reshape(-1)
+        ok = np.concatenate(ok_parts).reshape(-1)
+        cand_pid = idx[ok]
+        cand_vid = np.repeat(np.arange(n, dtype=np.int64), r)[ok]
+        n_prim = np.bincount(assign, minlength=p)
+        room = np.maximum(cfg.posting_capacity - n_prim, 0)
+        lands = _group_rank_np(cand_pid) < room[cand_pid]
+        pid_parts.append(cand_pid[lands])
+        vid_parts.append(cand_vid[lands])
+        grp_parts.append(np.ones(int(lands.sum()), np.int64))
+    pid = np.concatenate(pid_parts)
+    vid = np.concatenate(vid_parts)
+    grp = np.concatenate(grp_parts)
+    order = np.lexsort((grp, pid))        # stable: in-group order kept
+    return pid[order], vid[order]
+
+
+def _state_from_clustering(cfg: LireConfig, vectors, centroids, assign, *,
+                           seed: int = 0, device="cuda") -> IndexState:
+    """Routing + fill: the deterministic part of the build, given a
+    clustering ``(centroids (P, d), assign (n,))``.
+
+    Each posting keeps its first ``cap`` members; blocks are handed out
+    in pid order, ``ceil(len/BS)`` per posting.  Every posting's
+    ``(scale, zero)`` is trained from its members (all codecs, as the
+    reference does)."""
+    dev = resolve_device(device)
+    vectors = np.asarray(vectors, np.float32)
+    centroids = np.asarray(centroids, np.float32)
+    d = vectors.shape[1]
+    p = centroids.shape[0]
+    if p > cfg.num_postings_cap:
+        raise ValueError(
+            f"build produced {p} postings > cap {cfg.num_postings_cap}; "
+            "raise num_postings_cap or split_limit"
+        )
+    bs, mb = cfg.block_size, cfg.max_blocks_per_posting
+    cap = cfg.posting_capacity
+    mem_pid, mem_vid = _build_routing(vectors, centroids, assign, cfg, device=dev)
+    rank = _group_rank_np(mem_pid)
+    keep = rank < cap
+    mem_pid, mem_vid, rank = mem_pid[keep], mem_vid[keep], rank[keep]
+
+    lens = np.bincount(mem_pid, minlength=p)[:p]
+    nb = (lens + bs - 1) // bs
+    blk_start = np.cumsum(nb) - nb
+    n_used = int(nb.sum())
+    if n_used > cfg.num_blocks:
+        raise ValueError("num_blocks too small for the build")
+    bid = blk_start[mem_pid] + rank // bs
+    slot = rank % bs
+
+    # per-posting (scale, zero) from the members' value range, in float64
+    # then f32: the arithmetic of codec.np_train_scale_zero, vectorised
+    post_scale = np.ones((cfg.num_postings_cap,), np.float32)
+    post_zero = np.zeros((cfg.num_postings_cap,), np.float32)
+    nz = lens > 0
+    if nz.any():
+        rows = vectors[mem_vid]
+        seg = np.cumsum(lens) - lens
+        hi = np.maximum.reduceat(rows.max(axis=1), seg[nz]).astype(np.float64)
+        lo = np.minimum.reduceat(rows.min(axis=1), seg[nz]).astype(np.float64)
+        zero = (hi + lo) * 0.5
+        rng = hi - lo
+        scale = np.where(rng > 0, rng / 254.0, 1.0)
+        post_scale[np.flatnonzero(nz)] = scale.astype(np.float32)
+        post_zero[np.flatnonzero(nz)] = zero.astype(np.float32)
+
+    state = make_empty_state(cfg, seed=seed, device=dev)
+    pool = state.pool
+    t_bid = torch.as_tensor(bid).to(dev)
+    t_slot = torch.as_tensor(slot).to(dev)
+    raw = torch.as_tensor(vectors).to(dev)[torch.as_tensor(mem_vid).to(dev)]
+    if cfg.codec == "int8":
+        ps = torch.as_tensor(post_scale).to(dev)[torch.as_tensor(mem_pid).to(dev)][:, None]
+        pz = torch.as_tensor(post_zero).to(dev)[torch.as_tensor(mem_pid).to(dev)][:, None]
+        payload = pcodec.encode(raw, ps, pz)
+    else:
+        payload = raw.to(pool.blocks.dtype)
+    blocks = pool.blocks.clone()
+    blocks[t_bid, t_slot] = payload
+    blocks_exact = pool.blocks_exact
+    if blocks_exact is not None:
+        blocks_exact = blocks_exact.clone()
+        blocks_exact[t_bid, t_slot] = raw
+    block_vid = pool.block_vid.clone()
+    block_vid[t_bid, t_slot] = torch.as_tensor(mem_vid).to(dev).to(torch.int32)
+
+    posting_blocks = np.full((cfg.num_postings_cap, mb), -1, np.int32)
+    b_idx = np.arange(mb)[None, :]
+    posting_blocks[:p] = np.where(b_idx < nb[:, None], blk_start[:, None] + b_idx, -1)
+    posting_len = np.zeros((cfg.num_postings_cap,), np.int32)
+    posting_len[:p] = lens
+    free_stack = np.zeros((cfg.num_blocks,), np.int32)
+    free_stack[: cfg.num_blocks - n_used] = np.arange(n_used, cfg.num_blocks)
+    pid_stack = np.zeros((cfg.num_postings_cap,), np.int32)
+    pid_stack[: cfg.num_postings_cap - p] = np.arange(p, cfg.num_postings_cap)
+    cen = np.zeros((cfg.num_postings_cap, d), np.float32)
+    cen[:p] = centroids
+    cvalid = np.zeros((cfg.num_postings_cap,), bool)
+    cvalid[:p] = True
+
+    def t(a):
+        return torch.as_tensor(a).to(dev)
+
+    pool = pool.replace(
+        blocks=blocks,
+        blocks_exact=blocks_exact,
+        block_vid=block_vid,
+        posting_blocks=t(posting_blocks),
+        posting_len=t(posting_len),
+        free_stack=t(free_stack),
+        free_top=torch.tensor(cfg.num_blocks - n_used, dtype=torch.int32, device=dev),
+        post_scale=t(post_scale),
+        post_zero=t(post_zero),
+    )
+    return state.replace(
+        pool=pool,
+        centroids=t(cen),
+        centroid_sqn=t(np.sum(cen * cen, axis=-1)),
+        centroid_valid=t(cvalid),
+        pid_free_stack=t(pid_stack),
+        pid_free_top=torch.tensor(cfg.num_postings_cap - p, dtype=torch.int32, device=dev),
+    )
+
+
+def build_state(cfg: LireConfig, vectors, *, seed: int = 0,
+                build_posting_size: int | None = None, device="cuda") -> IndexState:
+    """Offline SPANN-style build → a ready IndexState on ``device``."""
+    cfg.validate()
+    dev = resolve_device(device)
+    vectors = np.asarray(vectors, np.float32)
+    n, d = vectors.shape
+    if d != cfg.dim:
+        raise ValueError(f"vectors have d={d}, config dim={cfg.dim}")
+    if n > cfg.num_vectors_cap:
+        raise ValueError(f"{n} vectors > num_vectors_cap {cfg.num_vectors_cap}")
+    target = build_posting_size or max(cfg.merge_limit + 1, int(cfg.split_limit * 0.6))
+    centroids, assign = hierarchical_balanced_kmeans(
+        vectors, max_posting_size=target, seed=seed, device=dev
+    )
+    return _state_from_clustering(cfg, vectors, centroids, assign, seed=seed, device=dev)
+
+
+# ---------------------------------------------------------------------------
+# Step functions (the serving pipeline's fixed-shape entry points)
+# ---------------------------------------------------------------------------
+
+def search_step(k: int, nprobe: int | None, probe_chunk: int = 0,
+                use_pallas_scan: bool | None = None,
+                scan_schedule: str | None = None, with_access: bool = False):
+    """``(state, queries (B, d)) -> (dists (B, k), vids (B, k)[, hist])``."""
+    return functools.partial(
+        lire.search, k=k, nprobe=nprobe, probe_chunk=probe_chunk,
+        use_pallas_scan=use_pallas_scan, scan_schedule=scan_schedule,
+        with_access=with_access,
+    )
+
+
+def insert_step():
+    """``(state, vecs, vids, valid) -> (state, landed)``."""
+    return lire.insert_batch
+
+
+def delete_step():
+    """``(state, vids, valid) -> state``."""
+    return lire.delete_batch
+
+
+def _pad_to(x: np.ndarray, size: int, fill=0) -> np.ndarray:
+    pad = size - x.shape[0]
+    if pad <= 0:
+        return x
+    width = [(0, pad)] + [(0, 0)] * (x.ndim - 1)
+    return np.pad(x, width, constant_values=fill)
+
+
+class SPFreshIndex:
+    """Stateful host wrapper over the functional LIRE ops."""
+
+    def __init__(self, state: IndexState):
+        self.state = state
+
+    @classmethod
+    def build(cls, cfg: LireConfig, vectors, *, seed: int = 0,
+              device="cuda") -> "SPFreshIndex":
+        return cls(build_state(cfg, vectors, seed=seed, device=device))
+
+    def _t(self, x, dtype=None) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x)).to(device=self.state.device, dtype=dtype)
+
+    # ---------------------------- Updater -----------------------------
+    def insert(self, vecs, vids) -> None:
+        """Insert in ``_INSERT_CHUNK``-row batches.  Raises
+        ``NotImplementedError`` if a primary append fails: the reference
+        would run the Local Rebuilder there, which is not ported yet."""
+        vecs = np.asarray(vecs, np.float32)
+        vids = np.asarray(vids, np.int32)
+        for s in range(0, len(vids), _INSERT_CHUNK):
+            v = vecs[s:s + _INSERT_CHUNK]
+            i = vids[s:s + _INSERT_CHUNK]
+            nvalid = len(i)
+            valid = np.arange(_INSERT_CHUNK) < nvalid
+            landed = self.insert_padded(
+                _pad_to(v, _INSERT_CHUNK), _pad_to(i, _INSERT_CHUNK, fill=-1), valid
+            )[:nvalid]
+            if not landed.all():
+                raise NotImplementedError(
+                    f"{int((~landed).sum())} rows hit a full posting; the "
+                    "maintenance round that splits it comes with a later slice"
+                )
+
+    def delete(self, vids) -> None:
+        vids = np.asarray(vids, np.int32)
+        for s in range(0, len(vids), _INSERT_CHUNK):
+            i = vids[s:s + _INSERT_CHUNK]
+            valid = np.arange(_INSERT_CHUNK) < len(i)
+            self.delete_padded(_pad_to(i, _INSERT_CHUNK, fill=-1), valid)
+
+    def maintain(self, *args, **kwargs) -> int:
+        raise NotImplementedError("the Local Rebuilder comes with a later slice")
+
+    # ---------------------------- Searcher -----------------------------
+    def search(self, queries, k: int, *, nprobe=None, probe_chunk: int = 0,
+               use_pallas_scan=None, scan_schedule=None):
+        queries = np.asarray(queries, np.float32)
+        nq = queries.shape[0]
+        out_d, out_v = [], []
+        for s in range(0, nq, _QUERY_CHUNK):
+            q = _pad_to(queries[s:s + _QUERY_CHUNK], _QUERY_CHUNK)
+            d, v = self.search_padded(
+                q, k, nprobe=nprobe or self.state.cfg.nprobe,
+                probe_chunk=probe_chunk, use_pallas_scan=use_pallas_scan,
+                scan_schedule=scan_schedule,
+            )
+            out_d.append(d)
+            out_v.append(v)
+        return np.concatenate(out_d)[:nq], np.concatenate(out_v)[:nq]
+
+    def search_padded(self, queries, k: int, *, nprobe=None, probe_chunk: int = 0,
+                      use_pallas_scan=None, scan_schedule=None,
+                      with_access: bool = False, qvalid=None):
+        """One fixed-shape search dispatch; numpy results."""
+        step = search_step(k, nprobe, probe_chunk, use_pallas_scan,
+                           scan_schedule, with_access)
+        q = self._t(queries, torch.float32)
+        if qvalid is None:
+            out = step(self.state, q)
+        else:
+            out = step(self.state, q, qvalid=self._t(qvalid, torch.bool))
+        return tuple(x.cpu().numpy() for x in out)
+
+    def insert_padded(self, vecs, vids, valid) -> np.ndarray:
+        """One insert dispatch; returns the landed mask."""
+        self.state, landed = insert_step()(
+            self.state, self._t(vecs, torch.float32), self._t(vids, torch.int32),
+            self._t(valid, torch.bool),
+        )
+        return landed.cpu().numpy()
+
+    def delete_padded(self, vids, valid) -> None:
+        self.state = delete_step()(
+            self.state, self._t(vids, torch.int32), self._t(valid, torch.bool)
+        )
+
+    # ---------------------------- Accounting ---------------------------
+    def backlog(self) -> int:
+        """Rebuild backlog: postings currently over the split limit."""
+        lens = self.state.pool.posting_len
+        return int(((lens > self.state.cfg.split_limit) & self.state.centroid_valid).sum())
+
+    def stats(self) -> dict:
+        s = self.state.stats
+        out = {f.name: int(getattr(s, f.name)) for f in s.__dataclass_fields__.values()}
+        out["n_postings"] = int(self.state.n_postings)
+        out["used_blocks"] = int(self.state.pool.num_blocks_cap - self.state.pool.free_top)
+        tel = self.state.telemetry
+        valid = self.state.centroid_valid
+        out["access_total"] = int(tel.access_count[valid].sum())
+        out["update_total"] = int(tel.update_count[valid].sum())
+        out["drift_norm_total"] = float(
+            np.linalg.norm(tel.drift_vec[valid].cpu().numpy(), axis=-1).sum()
+        )
+        return out
+
+    def memory_bytes(self) -> dict:
+        """Resource accounting analogous to paper Fig. 7(d)."""
+        st = self.state
+
+        def nbytes(t):
+            return t.numel() * t.element_size() if t is not None else 0
+
+        in_mem = sum(nbytes(t) for t in (
+            st.centroids, st.centroid_sqn, st.centroid_valid, st.versions,
+            st.pool.posting_blocks, st.pool.posting_len, st.pool.free_stack,
+            st.pid_free_stack,
+        ))
+        hot = nbytes(st.pool.blocks) + nbytes(st.pool.post_scale) + nbytes(st.pool.post_zero)
+        cold = nbytes(st.pool.blocks_exact)
+        on_disk = hot + cold + nbytes(st.pool.block_vid) + nbytes(st.pool.block_ver)
+        return {"memory": in_mem, "disk": on_disk, "hot": hot, "cold": cold}

@@ -1,0 +1,111 @@
+"""Build and load the CUDA kernels of ``kernels/csrc`` (Hopper, ``sm_90a``).
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
+with a plain C interface, loaded with ``ctypes``.  Libraries go into
+``build/kernels/`` at the root of the checkout (listed in ``.gitignore``),
+named by a hash of their source, so an edited source is rebuilt and an
+unchanged one is reused.  Nothing is built at import time:
+:func:`library` builds on first use, and :func:`build_all` builds every
+source at once, one ``nvcc`` process each, all started together.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+_C = ctypes.c_int
+_P = ctypes.c_void_p
+# argtypes of every C entry point, by library
+SIGNATURES = {
+    "l2_topk": {
+        # q, c, csq, out_d, out_i, Q, P, d, k, block_p, stream
+        "l2_topk_tiles_f32": [_P, _P, _P, _P, _P, _C, _C, _C, _C, _C, _P],
+    },
+    "posting_scan": {
+        # table, q, blocks, dtype, bias, out_d, out_i, Q, NB, BS, d, k, stream
+        "scan_per_query_topk": [_P, _P, _P, _C, _P, _P, _P, _C, _C, _C, _C, _C, _P],
+        # ids, q, blocks, dtype, bias, out_d, out_i, NB, Q, BS, d, k, stream
+        "scan_batched_topk": [_P, _P, _P, _C, _P, _P, _P, _C, _C, _C, _C, _C, _P],
+    },
+}
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def _lib_path(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
+    out = _lib_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    log = BUILD_DIR / f"{name}.log"
+    cmd = [nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    with open(log, "w") as fh:
+        proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT)
+    return proc, tmp, out
+
+
+def _finish(name: str, started) -> None:
+    if started is None:
+        return
+    proc, tmp, out = started
+    rc = proc.wait()
+    log = (BUILD_DIR / f"{name}.log").read_text()
+    if rc != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu (exit {rc}):\n{log}")
+    os.replace(tmp, out)
+
+
+def build_all() -> dict[str, str]:
+    """Compile every kernel source in parallel; returns each library's
+    ``nvcc`` log (``-Xptxas -v``: registers, shared memory, spills)."""
+    started = {name: _start(name) for name in SIGNATURES}
+    for name, s in started.items():
+        _finish(name, s)
+    logs = {}
+    for name in SIGNATURES:
+        log = BUILD_DIR / f"{name}.log"
+        logs[name] = log.read_text() if log.exists() else "(cached build)"
+    return logs
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library ``lib<name>``, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    _finish(name, _start(name))
+    lib = ctypes.CDLL(str(_lib_path(name)))
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    _LIBS[name] = lib
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}")

@@ -1,0 +1,101 @@
+"""The port's boundary: it imports no JAX and nothing of the reference, and
+its entry points run on the card unless the caller asks for the CPU."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path) -> set[str]:
+    out = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            out.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            out.add(node.module)
+    return out
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_neither_jax_nor_the_reference(path):
+    bad = {m for m in _imported_modules(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")}
+    assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
+
+
+def test_importing_the_port_loads_no_jax():
+    modules = sorted(
+        ".".join(p.relative_to(REPO / "src").with_suffix("").parts).removesuffix(".__init__")
+        for p in PORT.rglob("*.py")
+    )
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('clean', len(sys.modules))\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "clean" in proc.stdout
+
+
+def _tiny_cfg():
+    from repro_torch.core.types import LireConfig
+
+    return LireConfig(dim=8, block_size=4, max_blocks_per_posting=4,
+                      num_blocks=64, num_postings_cap=32, num_vectors_cap=256,
+                      split_limit=12, merge_limit=3, replica_count=2, nprobe=2)
+
+
+@pytest.mark.parametrize("entry", ["SPFreshIndex.build", "build_state", "make_empty_state"])
+def test_entry_points_default_to_the_card(entry):
+    """Without ``device=`` an entry point runs on CUDA; on a machine with
+    no card it raises rather than falling back to the CPU."""
+    from repro_torch.core.index import SPFreshIndex, build_state
+    from repro_torch.core.types import make_empty_state
+
+    cfg = _tiny_cfg()
+    x = np.random.default_rng(0).normal(size=(40, 8)).astype(np.float32)
+    call = {
+        "SPFreshIndex.build": lambda: SPFreshIndex.build(cfg, x).state,
+        "build_state": lambda: build_state(cfg, x),
+        "make_empty_state": lambda: make_empty_state(cfg),
+    }[entry]
+    if torch.cuda.is_available():
+        assert call().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_explicit_cpu_runs_the_plain_path():
+    from repro_torch.core.index import SPFreshIndex
+
+    x = np.random.default_rng(1).normal(size=(40, 8)).astype(np.float32)
+    idx = SPFreshIndex.build(_tiny_cfg(), x, device="cpu")
+    assert idx.state.device.type == "cpu"
+    _, v = idx.search(x[:3], 2)
+    assert v.shape == (3, 2)
+
+
+def test_spflint_still_clean_with_the_port_in_src():
+    """spflint parses all of src/; the port adds no finding and no
+    pallas_call site (its kernels are CUDA C++)."""
+    from repro.analysis import run_all
+
+    result = run_all(REPO / "src")
+    assert [f.render() for f in result["findings"]] == []
+    assert len(result["vmem_table"]) == 7            # the reference's seven
+    assert not any("repro_torch" in r["file"] for r in result["vmem_table"])

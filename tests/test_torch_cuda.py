@@ -1,0 +1,124 @@
+"""The port's CUDA kernels on the card, held against their plain versions.
+
+Every test here needs an NVIDIA GPU and skips without one (the kernels
+have no CPU mode).  The file imports no JAX, so it also runs on a machine
+that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import lire
+from repro_torch.core.index import SPFreshIndex
+from repro_torch.core.types import LireConfig
+from repro_torch.kernels.l2_topk import kernel as LK
+from repro_torch.kernels.posting_scan import kernel as SK
+from repro_torch.utils.tree import map_tensors
+
+pytestmark = pytest.mark.cuda
+
+BIG = 3.0e38
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def assert_kmin_close(kd, ki, pd, pi, *, atol=1e-4, rtol=1e-5):
+    """Kernel vs plain: live distances close, dead in both, index
+    mismatches only at distance ties (f32 sums in another order)."""
+    kd, ki, pd, pi = (x.cpu().numpy() for x in (kd, ki, pd, pi))
+    live = pd < BIG / 2
+    assert ((kd < BIG / 2) == live).all()
+    np.testing.assert_allclose(kd[live], pd[live], rtol=rtol, atol=atol)
+    swap = (ki != pi) & live
+    assert (np.abs(kd - pd)[swap] <= atol + rtol * np.abs(pd[swap])).all()
+
+
+def _blocks(gen, n, bs, d, dtype, dev):
+    if dtype == torch.int8:
+        return torch.randint(-127, 128, (n, bs, d), generator=gen, dtype=torch.int8).to(dev)
+    return torch.randn(n, bs, d, generator=gen).to(dtype).to(dev)
+
+
+@pytest.mark.parametrize("q_n,p_n,block_p,k,d", [
+    (37, 1024, 512, 64, 100), (5, 384, 128, 5, 16), (64, 512, 512, 1, 8),
+])
+def test_l2_topk_tiles_kernel_matches_plain(card, q_n, p_n, block_p, k, d):
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn(q_n, d, generator=gen).to(card)
+    c = torch.randn(p_n, d, generator=gen).to(card)
+    c[1::9] = c[0]                                   # exact ties
+    csq = torch.sum(c * c, dim=1)
+    csq[::4] = BIG
+    csq = csq[None].contiguous()
+    before = LK.LAUNCHES["l2_topk_tiles"]
+    kd, ki = LK.l2_topk_tiles(q, c, csq, k=k, block_p=block_p)
+    torch.cuda.synchronize()
+    assert LK.LAUNCHES["l2_topk_tiles"] == before + 1
+    assert_kmin_close(kd, ki, *LK.l2_topk_tiles_plain(q, c, csq, k=k, block_p=block_p))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("bs,k", [(32, 10), (8, 8), (16, 1)])
+def test_scan_kernels_match_plain(card, dtype, bs, k):
+    gen = torch.Generator().manual_seed(1)
+    blocks = _blocks(gen, 64, bs, 100, dtype, card)
+    q = (torch.randn(9, 100, generator=gen) * (64 if dtype == torch.int8 else 1)).to(card)
+    table = torch.randint(0, 64, (9, 12), generator=gen, dtype=torch.int32).to(card)
+    bias = torch.where(torch.rand(9, 12, bs, generator=gen) < 0.3, BIG, 0.0).to(card)
+    bias[0, 0] = BIG                                 # an all-dead page
+    atol = 1e-2 if dtype == torch.int8 else 1e-4
+    kd, ki = SK.scan_per_query_topk(table, q, blocks, bias, k=k)
+    torch.cuda.synchronize()
+    assert_kmin_close(kd, ki, *SK.scan_per_query_topk_plain(table, q, blocks, bias, k=k), atol=atol)
+    ids = torch.arange(0, 60, 5, dtype=torch.int32, device=card)
+    ub = bias[1, : ids.shape[0]].contiguous()
+    kd, ki = SK.scan_batched_topk(ids, q, blocks, ub, k=k)
+    torch.cuda.synchronize()
+    assert_kmin_close(kd, ki, *SK.scan_batched_topk_plain(ids, q, blocks, ub, k=k), atol=atol)
+
+
+def test_wrappers_raise_instead_of_falling_back(card):
+    blocks = torch.zeros((4, 8, 10), device=card)            # d % 4 != 0
+    with pytest.raises(ValueError):
+        SK.scan_batched_topk(torch.zeros(2, dtype=torch.int32, device=card),
+                             torch.zeros(3, 10, device=card), blocks,
+                             torch.zeros(2, 8, device=card), k=4)
+    with pytest.raises(ValueError):                           # mixed devices
+        LK.l2_topk_tiles(torch.zeros(4, 8, device=card), torch.zeros(128, 8),
+                         torch.zeros(1, 128), k=4, block_p=128)
+
+
+def test_index_on_the_card_matches_the_cpu_path(card):
+    """The same index searched through the kernels on the card and through
+    the plain versions on the CPU: tie-tolerant agreement."""
+    rng = np.random.default_rng(3)
+    centers = rng.normal(size=(12, 16)).astype(np.float32)
+    base = (centers[rng.integers(0, 12, 800)] + 0.05 * rng.normal(size=(800, 16))).astype(np.float32)
+    cfg = LireConfig(dim=16, block_size=8, max_blocks_per_posting=16, num_blocks=2048,
+                     num_postings_cap=256, num_vectors_cap=8192, split_limit=48,
+                     merge_limit=6, replica_count=2, nprobe=8, use_pallas_nav=True,
+                     use_pallas_scan=True)
+    cpu = SPFreshIndex.build(cfg, base, device="cpu")
+    gpu = SPFreshIndex(map_tensors(lambda x: x.to(card), cpu.state))
+    q = base[:48] + 0.01 * rng.normal(size=(48, 16)).astype(np.float32)
+    for sched in ("per_query", "batched"):
+        d0, v0 = cpu.search(q, 10, scan_schedule=sched)
+        d1, v1 = gpu.search(q, 10, scan_schedule=sched)
+        np.testing.assert_allclose(d0, d1, atol=1e-4)
+        assert (np.abs(d0 - d1)[v0 != v1] < 1e-4).all()
+    ids = np.arange(5000, 5032, dtype=np.int32)
+    gpu.insert(q[:32], ids)
+    _, got = gpu.search(q[:32], 5, scan_schedule="batched")
+    assert all(ids[i] in got[i] for i in range(32))
+    stats = lire.scan_page_stats(gpu.state, torch.as_tensor(q, device=card))
+    assert int(stats["overflow"]) == 0
+    assert dataclasses.is_dataclass(gpu.state)

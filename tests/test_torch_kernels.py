@@ -1,0 +1,235 @@
+"""Port vs reference for the three kernels of the search path and their ops.
+
+On the CPU each kernel wrapper runs its plain PyTorch version; the
+reference's Pallas kernels run in interpret mode, as the reference's own
+kernel tests run them.  The CUDA kernels themselves are held against the
+same plain versions on the card by ``tests/test_torch_cuda.py`` (skipped
+where there is no card) and by ``chip_smoke.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.l2_topk.kernel import l2_topk_tiles as r_tiles
+from repro.kernels.l2_topk.ops import l2_topk as r_l2_topk
+from repro.kernels.posting_scan import kernel as RK
+from repro.kernels.posting_scan import ops as rops
+from repro_torch.kernels.l2_topk import kernel as TLK
+from repro_torch.kernels.l2_topk.ops import l2_topk
+from repro_torch.kernels.l2_topk.ref import l2_topk_ref
+from repro_torch.kernels.posting_scan import kernel as TK
+from repro_torch.kernels.posting_scan import ops as tops
+from repro_torch.kernels.posting_scan.ref import (
+    scan_batched_topk_ref,
+    scan_per_query_topk_ref,
+)
+
+BIG = 3.0e38
+# The f32 expansion ||q||^2 - 2q.x + ||x||^2 cancels to ~eps * ||q||^2 and
+# the implementations sum in different orders: 1e-4 absolute on unit-scale
+# data, plus 1e-5 relative for the byte-scale (int8) payloads.
+TOL = 1e-4
+RTOL = 1e-5
+
+
+def t(x, dtype=None):
+    return torch.as_tensor(np.array(x), dtype=dtype)
+
+
+def assert_tie_tolerant(d0, i0, d1, i1, tol=TOL, rtol=RTOL):
+    """Distances close; index mismatches only where the two report a
+    distance tie within the tolerance.  Dead candidates (>= BIG/2) must be
+    dead in both and may carry any index."""
+    d0, d1, i0, i1 = map(np.asarray, (d0, d1, i0, i1))
+    live = d0 < BIG / 2
+    assert ((d1 < BIG / 2) == live).all()
+    np.testing.assert_allclose(d0[live], d1[live], rtol=rtol, atol=tol)
+    bad = (i0 != i1) & live
+    gap = tol + rtol * np.abs(d0)
+    assert (np.abs(d0 - d1)[bad] <= gap[bad]).all(), (i0[bad], i1[bad])
+
+
+# ---------------------------------------------------------------------------
+# l2_topk (centroid navigation)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("q_n,p_n,d,k", [
+    (5, 300, 16, 8),       # ragged Q, ragged P (one padded tile)
+    (33, 1100, 12, 4),     # several 512 tiles, last one ragged
+    (1, 64, 8, 64),        # k == P
+    (17, 700, 32, 20),
+])
+def test_l2_topk_matches_reference(rng, q_n, p_n, d, k):
+    q = rng.normal(size=(q_n, d)).astype(np.float32)
+    c = rng.normal(size=(p_n, d)).astype(np.float32)
+    c[1::7] = c[0]                          # exact duplicate centroids: ties
+    valid = rng.random(size=p_n) < 0.8
+    valid[0] = True
+    rd, ri = r_l2_topk(jnp.asarray(q), jnp.asarray(c), jnp.asarray(valid),
+                       k=k, interpret=True)
+    td, ti = l2_topk(t(q), t(c), t(valid), k=k)
+    assert ti.dtype == torch.int32
+    assert_tie_tolerant(np.asarray(rd), np.asarray(ri), td.numpy(), ti.numpy())
+    # the duplicates tie exactly in both: lowest index first, same ids
+    ref_d, ref_i = l2_topk_ref(t(q), t(c), t(valid), k=k)
+    assert_tie_tolerant(ref_d.numpy(), ref_i.numpy(), td.numpy(), ti.numpy())
+    assert (ti.numpy()[td.numpy() >= BIG / 2] == -1).all()
+
+
+def test_l2_topk_all_invalid_and_few_valid(rng):
+    q = rng.normal(size=(3, 8)).astype(np.float32)
+    c = rng.normal(size=(130, 8)).astype(np.float32)
+    valid = np.zeros(130, bool)
+    valid[[5, 77]] = True
+    td, ti = l2_topk(t(q), t(c), t(valid), k=4)
+    rd, ri = r_l2_topk(jnp.asarray(q), jnp.asarray(c), jnp.asarray(valid),
+                       k=4, interpret=True)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ri))
+    assert set(ti.numpy()[:, :2].reshape(-1).tolist()) <= {5, 77}
+    assert (ti.numpy()[:, 2:] == -1).all()
+
+
+@pytest.mark.parametrize("block_p,k", [(128, 5), (256, 16), (512, 64)])
+def test_l2_topk_tiles_plain_matches_pallas(rng, block_p, k):
+    q = rng.normal(size=(16, 24)).astype(np.float32)
+    c = rng.normal(size=(2 * block_p, 24)).astype(np.float32)
+    csq = np.sum(c * c, axis=1)
+    csq[::3] = BIG
+    rd, ri = r_tiles(jnp.asarray(q), jnp.asarray(c), jnp.asarray(csq[None]),
+                     k=k, block_q=8, block_p=block_p, interpret=True)
+    td, ti = TLK.l2_topk_tiles(t(q), t(c), t(csq[None]), k=k, block_p=block_p)
+    assert td.shape == (16, 2 * k) and ti.dtype == torch.int32
+    assert_tie_tolerant(np.asarray(rd), np.asarray(ri), td.numpy(), ti.numpy())
+
+
+def test_l2_topk_tiles_rejects_bad_tiling(rng):
+    q = t(rng.normal(size=(4, 8)).astype(np.float32))
+    c = t(rng.normal(size=(100, 8)).astype(np.float32))
+    with pytest.raises(ValueError):
+        TLK.l2_topk_tiles(q, c, torch.zeros(1, 100), k=4, block_p=100)
+
+
+# ---------------------------------------------------------------------------
+# fused paged scans (both schedules)
+# ---------------------------------------------------------------------------
+
+def _payload(rng, shape, dtype):
+    if dtype == "int8":
+        x = rng.integers(-127, 128, size=shape).astype(np.int8)
+        return jnp.asarray(x), t(x), 1.0 / 64     # scale the queries to match
+    x = rng.normal(size=shape).astype(np.float32)
+    if dtype == "bfloat16":
+        r = jnp.asarray(x, jnp.bfloat16)
+        return r, t(np.asarray(r.astype(jnp.float32))).to(torch.bfloat16), 1.0
+    return jnp.asarray(x), t(x), 1.0
+
+
+DTYPES = ["float32", "bfloat16", "int8"]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("q_n,n_blocks,bs,d,nb,k", [
+    (4, 32, 8, 16, 6, 4),
+    (3, 16, 8, 32, 5, 8),
+    (2, 24, 32, 100, 3, 10),   # the spfresh-1b page geometry
+])
+def test_scan_per_query_topk_matches(rng, dtype, q_n, n_blocks, bs, d, nb, k):
+    rblk, tblk, s = _payload(rng, (n_blocks, bs, d), dtype)
+    q = (rng.normal(size=(q_n, d)) / s).astype(np.float32)
+    table = rng.integers(-1, n_blocks, size=(q_n, nb)).astype(np.int32)
+    table[0, 0] = -1                                    # an absent page
+    live = rng.random(size=(q_n, nb, bs)) < 0.7
+    live[-1, -1] = False                                # an all-dead page
+    rd, ri = rops.scan_posting_blocks_topk(
+        jnp.asarray(q), jnp.asarray(table), jnp.asarray(live), rblk,
+        k=k, interpret=True,
+    )
+    td, ti = tops.scan_posting_blocks_topk(t(q), t(table), t(live), tblk, k=k)
+    assert td.shape == (q_n, nb, k) and ti.dtype == torch.int32
+    assert_tie_tolerant(np.asarray(rd), np.asarray(ri), td.numpy(), ti.numpy())
+    assert (td.numpy()[0, 0] >= BIG / 2).all()
+    assert (td.numpy()[-1, -1] >= BIG / 2).all()
+    # the plain version against the diff² oracle on the same candidates
+    bias = np.where(live & (table >= 0)[..., None], 0.0, BIG).astype(np.float32)
+    od, oi = scan_per_query_topk_ref(t(np.maximum(table, 0)), t(q), tblk, t(bias), k)
+    assert_tie_tolerant(od.numpy(), oi.numpy(), td.numpy(), ti.numpy())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("q_n,n_blocks,bs,d,nb,k", [
+    (4, 32, 8, 16, 6, 4),
+    (9, 64, 16, 32, 12, 10),
+    (5, 24, 32, 100, 7, 10),
+])
+def test_scan_batched_topk_matches(rng, dtype, q_n, n_blocks, bs, d, nb, k):
+    rblk, tblk, s = _payload(rng, (n_blocks, bs, d), dtype)
+    q = (rng.normal(size=(q_n, d)) / s).astype(np.float32)
+    uniq = np.sort(rng.choice(n_blocks, size=nb, replace=False)).astype(np.int32)
+    uniq[-2:] = -1                                      # budget padding
+    live = rng.random(size=(nb, bs)) < 0.7
+    live[0] = False                                     # an all-dead page
+    rd, ri = rops.scan_unique_blocks_topk(
+        jnp.asarray(q), jnp.asarray(uniq), jnp.asarray(live), rblk,
+        k=k, interpret=True,
+    )
+    td, ti = tops.scan_unique_blocks_topk(t(q), t(uniq), t(live), tblk, k=k)
+    assert td.shape == (nb, q_n, k)
+    assert_tie_tolerant(np.asarray(rd), np.asarray(ri), td.numpy(), ti.numpy())
+    assert (td.numpy()[-2:] >= BIG / 2).all() and (td.numpy()[0] >= BIG / 2).all()
+    bias = np.where(live & (uniq >= 0)[:, None], 0.0, BIG).astype(np.float32)
+    od, oi = scan_batched_topk_ref(t(np.maximum(uniq, 0)), t(q), tblk, t(bias), k)
+    assert_tie_tolerant(od.numpy(), oi.numpy(), td.numpy(), ti.numpy())
+
+
+def test_scan_plain_versions_match_pallas_kernels(rng):
+    """The kernel-level wrappers against the reference kernels directly."""
+    blocks = rng.normal(size=(16, 8, 12)).astype(np.float32)
+    q = rng.normal(size=(3, 12)).astype(np.float32)
+    table = rng.integers(0, 16, size=(3, 4)).astype(np.int32)
+    bias = np.where(rng.random(size=(3, 4, 8)) < 0.3, BIG, 0.0).astype(np.float32)
+    rd, ri = RK.scan_per_query_topk(jnp.asarray(table), jnp.asarray(q),
+                                    jnp.asarray(blocks), jnp.asarray(bias),
+                                    k=5, interpret=True)
+    td, ti = TK.scan_per_query_topk(t(table), t(q), t(blocks), t(bias), k=5)
+    assert_tie_tolerant(np.asarray(rd), np.asarray(ri), td.numpy(), ti.numpy())
+    ids = np.array([3, 0, 9], np.int32)
+    ub = bias[0, :3]
+    rd, ri = RK.scan_batched_topk(jnp.asarray(ids), jnp.asarray(q),
+                                  jnp.asarray(blocks), jnp.asarray(ub),
+                                  k=5, interpret=True)
+    td, ti = TK.scan_batched_topk(t(ids), t(q), t(blocks), t(ub), k=5)
+    assert_tie_tolerant(np.asarray(rd), np.asarray(ri), td.numpy(), ti.numpy())
+
+
+@pytest.mark.parametrize("bad", ["bs", "k", "d", "dtype"])
+def test_scan_wrappers_enforce_the_kernel_contract(rng, bad):
+    bs, d, k, dt = 8, 12, 4, torch.float32
+    if bad == "bs":
+        bs = 40
+    elif bad == "k":
+        k = 9
+    elif bad == "d":
+        d = 10
+    else:
+        dt = torch.float16
+    blocks = torch.zeros((4, bs, d), dtype=dt)
+    with pytest.raises(ValueError):
+        TK.scan_batched_topk(torch.zeros(2, dtype=torch.int32), torch.zeros(3, d),
+                             blocks, torch.zeros(2, bs), k=k)
+
+
+# ---------------------------------------------------------------------------
+# dedup_pages (exact)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("trial", range(6))
+def test_dedup_pages_matches_exactly(rng, trial):
+    n_blocks = int(rng.integers(8, 64))
+    n = int(rng.integers(4, 128))
+    budget = int(rng.integers(1, 24)) if trial % 2 else 2 * n   # overflow / not
+    pages = rng.integers(-1, n_blocks, size=n).astype(np.int32)
+    want = rops.dedup_pages(jnp.asarray(pages), budget=budget, num_blocks=n_blocks)
+    got = tops.dedup_pages(t(pages), budget=budget, num_blocks=n_blocks)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
