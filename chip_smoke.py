@@ -7,16 +7,27 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 1. Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc
    for sm_90a (one nvcc per source, in parallel) and prints the card.
-2. Holds each kernel against its plain PyTorch version on the card, at the
-   spfresh-1b shapes and at ragged small shapes, and times both.
-3. Drives the main path through ``SPFreshIndex`` at the full spfresh-1b
-   per-shard geometry (``CONFIG_PAGED`` with kernel navigation): build
-   from N=1,000,000 int8-valued vectors, search under both scan schedules,
-   insert, delete, search again; asserts navigation against its plain
-   version, recall at nprobe 1 and 64, schedule agreement, delete and
-   insert visibility and insert determinism, and that every kernel of the
-   path launched during that run; times the kernels inside one search
-   per schedule.
+2. Holds each of the seven kernels against its plain PyTorch version on
+   the card, at the spfresh-1b shapes and at ragged small shapes, and times
+   both and the shortest composition of library calls for the same
+   function.
+3. Drives two main paths through ``SPFreshIndex`` at the full spfresh-1b
+   per-shard geometry (``CONFIG_PAGED`` with kernel navigation), each from
+   N=1,000,000 int8-valued vectors of one seed, the first path's state
+   freed before the second is built:
+   * ``fp32``: the bytes stored as they are; build, search under both
+     scan schedules, insert four batches, delete, search again;
+   * ``int8``: the int8 codec with the exact fp32 rerank
+     (``rerank_factor=4``, the reference's int8 cell,
+     ``benchmarks/bench_search_path.py:43`` ``CODEC_CELLS``); build,
+     search under both schedules, insert one batch, delete, search again.
+   Each asserts navigation against its plain version, recall at nprobe 1
+   and 64, agreement with the gather oracle and between the schedules,
+   delete and insert visibility and insert determinism, and (``int8``)
+   that every returned distance is the exact one; the launch counts are
+   reset before each path and read after it, and every kernel of the path
+   must have launched.  The kernels are timed inside one search per
+   schedule.
 4. Prints the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
 
@@ -28,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -47,12 +59,19 @@ F32_FLOP_PER_S = 67e12
 N_BASE = 1_000_000
 
 # Recall@10 of the JAX reference on the same generator at N=20,000 on the
-# CPU, by nprobe (scripts/reference_recall.py); the port must reach each
-# minus 0.05.  The generator's neighbourhoods are far apart, so recall is
-# near 1 from nprobe 1 on: nprobe=1 holds the first probe of every query,
-# and check_navigation holds all 64.
-REFERENCE_RECALL_20K = {1: 0.98994140625, 64: 0.9981445312499999}
+# CPU, by codec cell and nprobe (scripts/reference_recall.py); the port
+# must reach each minus 0.05.  The generator's neighbourhoods are far
+# apart, so recall is near 1 from nprobe 1 on: nprobe=1 holds the first
+# probe of every query, and check_navigation holds all 64.
+REFERENCE_RECALL_20K = {
+    "fp32": {1: 0.98994140625, 64: 0.9981445312499999},
+    "int8": {1: 0.99169921875, 64: 1.0},
+}
 RECALL_MARGIN = 0.05
+
+# The kernel table's numbering (PERF.md): #1 .. #7.
+KERNEL_ORDER = ("l2_topk_tiles", "scan_per_query", "scan_batched", "scan_per_query_topk",
+                "scan_per_query_topk_q8", "scan_batched_topk", "scan_batched_topk_q8")
 
 
 def log(*a):
@@ -186,19 +205,125 @@ def _pool(torch, gen, n_blocks, bs, d, dtype):
     return (torch.randn(n_blocks, bs, d, device="cuda", generator=gen) * 4).to(dtype)
 
 
-def phase_scan_per_query(torch, gen, results):
-    from repro_torch.kernels.posting_scan import kernel as K
+def _page_sz(torch, gen, lead):
+    """Per-page (scale, zero) of byte-valued postings: ranges of ~64-128
+    byte units over 254 levels, centres within a few dozen units."""
+    scale = 0.25 + 0.25 * torch.rand(*lead, device="cuda", generator=gen)
+    zero = 20.0 * torch.randn(*lead, device="cuda", generator=gen)
+    return torch.stack([scale, zero], dim=-1).contiguous()
 
-    dev = "cuda"
-    # spfresh-1b per_query schedule: Q=1024, NB=nprobe*MB=256, BS=32, d=100
-    q_n, nb, bs, d, k, n_blocks = 1024, 256, 32, 100, 10, 262_144
-    blocks = _pool(torch, gen, n_blocks, bs, d, torch.int8)
-    q = torch.randn(q_n, d, device=dev, generator=gen) * 32
-    table = torch.randint(0, n_blocks, (q_n, nb), device=dev, generator=gen,
+
+def compare_dense(kd, pd, *, rtol=RTOL, atol=1e-2):
+    """Kernel vs plain full distances within ``atol + rtol*|d|``; returns
+    the max abs error."""
+    err = (kd - pd).abs()
+    max_err = float(err.max()) if err.numel() else 0.0
+    check(bool((err <= atol + rtol * pd.abs()).all()),
+          f"distance mismatch beyond tolerance (max abs err {max_err})")
+    return max_err
+
+
+# The library yardsticks: the shortest composition of PyTorch calls for
+# each scan's function (page gather, [dequant,] cdist squared, [bias,
+# top-k]).  Timed here only; the port never calls them.
+LIB_TEXT = {
+    "scan_per_query": "gather + cdist^2",
+    "scan_batched": "gather + cdist^2",
+    "scan_per_query_topk": "gather + cdist^2 + bias + topk",
+    "scan_batched_topk": "gather + cdist^2 + bias + topk",
+    "scan_per_query_topk_q8": "gather + dequant + cdist^2 + bias + topk",
+    "scan_batched_topk_q8": "gather + dequant + cdist^2 + bias + topk",
+}
+
+
+def lib_per_query(torch, table, q, blocks, bias=None, page_sz=None, k=None):
+    """``(Q, NB, BS)`` distances, or their per-page k-min with ``bias``."""
+    q_n, nb = table.shape
+    _, bs, d = blocks.shape
+    pages = blocks[table.long()].float()                  # (Q, NB, BS, d)
+    if page_sz is not None:
+        pages = pages * page_sz[..., 0, None, None] + page_sz[..., 1, None, None]
+    dist = torch.cdist(q[:, None, :], pages.reshape(q_n, nb * bs, d)).square_()
+    dist = dist.reshape(q_n, nb, bs)
+    if bias is None:
+        return dist
+    return torch.topk(dist + bias, k, dim=-1, largest=False)
+
+
+def lib_batched(torch, ids, q, blocks, bias=None, page_sz=None, k=None):
+    """``(Q, NB, BS)`` distances (the kernel's ``(NB, Q, BS)`` transposed),
+    or the per-(page, query) k-min with ``bias``: one 2-D cdist keeps the
+    k-min on the contiguous last axis."""
+    nb = ids.shape[0]
+    _, bs, d = blocks.shape
+    pages = blocks[ids.long()].float()                     # (NB, BS, d)
+    if page_sz is not None:
+        pages = pages * page_sz[:, 0, None, None] + page_sz[:, 1, None, None]
+    dist = torch.cdist(q, pages.reshape(nb * bs, d)).square_().reshape(-1, nb, bs)
+    if bias is None:
+        return dist
+    return torch.topk(dist + bias, k, dim=-1, largest=False)
+
+
+def check_library(torch, got, want, what):
+    """A library yardstick computes its kernel's function: values within
+    1e-4 relative (cdist's square root, squared back, costs ~1e-6)."""
+    check(bool(torch.allclose(got, want, rtol=1e-4, atol=1e-2)),
+          f"the library composition for {what} disagrees with the plain version")
+
+
+def _result(name, replaces, err, ms, plain_ms, lib_ms, b):
+    return dict(
+        name=name, route="cuda", source="src/repro_torch/kernels/csrc/posting_scan.cu",
+        replaces=f"src/repro/kernels/posting_scan/kernel.py:{replaces}",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
+        library_ms=lib_ms,
+    )
+
+
+def _log_kernel(name, err, swaps, ms, plain_ms, lib_ms, b, extra=""):
+    log(f"{name}: max_abs_err={err:.3g} ({TOL_TEXT}, atol 1e-2) tie_swaps={swaps} "
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f}{extra} library_ms={lib_ms:.4f} "
+        f"({LIB_TEXT[name]}) bound_ms={b[0]:.4f} ({b[1]})")
+
+
+# spfresh-1b scan shapes: per_query Q=1024 x NB=nprobe*MB=256 pages of
+# BS=32 slots at d=100 over a 262,144-block int8 pool; batched NB =
+# scan_page_budget = 32,768 unique pages against Q=1024.  k = min(10, BS)
+# for the fp32 and bf16 codecs, min(10*4, BS) = 32 for int8 with rerank.
+PQ = dict(q_n=1024, nb=256, bs=32, d=100, n_blocks=262_144)
+BATCHED_NB = 32_768
+PLAIN_STEP = 2048      # pages per chunk of a batched plain version
+
+
+def _per_query_inputs(torch, gen, blocks):
+    q_n, nb, bs, d = PQ["q_n"], PQ["nb"], PQ["bs"], PQ["d"]
+    q = torch.randn(q_n, d, device="cuda", generator=gen) * 32
+    table = torch.randint(0, blocks.shape[0], (q_n, nb), device="cuda", generator=gen,
                           dtype=torch.int32)
-    bias = torch.where(torch.rand(q_n, nb, bs, device=dev, generator=gen) < 0.2,
+    bias = torch.where(torch.rand(q_n, nb, bs, device="cuda", generator=gen) < 0.2,
                        3.0e38, 0.0).contiguous()
     bias[:, -1] = 3.0e38                                  # all-dead pages
+    return q, table, bias
+
+
+def _batched_inputs(torch, gen, blocks):
+    nb, bs, d = BATCHED_NB, PQ["bs"], PQ["d"]
+    ids = torch.sort(torch.randperm(blocks.shape[0], device="cuda", generator=gen)[:nb]).values
+    ids = ids.to(torch.int32).contiguous()
+    q = torch.randn(PQ["q_n"], d, device="cuda", generator=gen) * 32
+    bias = torch.where(torch.rand(nb, bs, device="cuda", generator=gen) < 0.2, 3.0e38, 0.0)
+    bias[-7:] = 3.0e38                                    # all-dead pages
+    return ids, q, bias.contiguous()
+
+
+def phase_scan_per_query(torch, gen, results):
+    """#4 ``scan_per_query_topk`` at k=10 (fp32/bf16 codecs)."""
+    from repro_torch.kernels.posting_scan import kernel as K
+
+    q_n, nb, bs, d, k = PQ["q_n"], PQ["nb"], PQ["bs"], PQ["d"], 10
+    blocks = _pool(torch, gen, PQ["n_blocks"], bs, d, torch.int8)
+    q, table, bias = _per_query_inputs(torch, gen, blocks)
     kd, ki = K.scan_per_query_topk(table, q, blocks, bias, k=k)
     torch.cuda.synchronize()
     pd, pi = K.scan_per_query_topk_plain(table, q, blocks, bias, k=k)
@@ -206,50 +331,37 @@ def phase_scan_per_query(torch, gen, results):
     del pd, pi
     ms = cuda_ms(lambda: K.scan_per_query_topk(table, q, blocks, bias, k=k))
     plain_ms = cuda_ms(lambda: K.scan_per_query_topk_plain(table, q, blocks, bias, k=k), reps=3)
+    lib_ms = cuda_ms(lambda: lib_per_query(torch, table, q, blocks, bias, k=k), reps=3)
     uniq = int(torch.unique(table).numel())
     by = uniq * bs * d + 4 * (table.numel() + q.numel() + bias.numel()) + 8 * q_n * nb * k
-    b_ms, b_by = bound(by, 2.0 * q_n * nb * bs * d)
+    b = bound(by, 2.0 * q_n * nb * bs * d)
     for dtype in (torch.float32, torch.bfloat16, torch.int8):     # ragged small
         blk = _pool(torch, gen, 40, 32, 100, dtype)
-        q2 = torch.randn(5, 100, device=dev, generator=gen)
-        t2 = torch.randint(0, 40, (5, 7), device=dev, generator=gen, dtype=torch.int32)
-        b2 = torch.where(torch.rand(5, 7, 32, device=dev, generator=gen) < 0.3, 3.0e38, 0.0)
+        q2 = torch.randn(5, 100, device="cuda", generator=gen)
+        t2 = torch.randint(0, 40, (5, 7), device="cuda", generator=gen, dtype=torch.int32)
+        b2 = torch.where(torch.rand(5, 7, 32, device="cuda", generator=gen) < 0.3, 3.0e38, 0.0)
         b2[0, 0] = 3.0e38
         a = K.scan_per_query_topk(t2, q2, blk, b2, k=10)
         torch.cuda.synchronize()
         e2, _ = compare_kmin(*a, *K.scan_per_query_topk_plain(t2, q2, blk, b2, k=10), atol=1e-2)
         err = max(err, e2)
-    log(f"scan_per_query_topk: max_abs_err={err:.3g} ({TOL_TEXT}, atol 1e-2) "
-        f"tie_swaps={swaps} ms={ms:.4f} "
-        f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) unique_pages={uniq} "
-        "library_ms=null (no single PyTorch call computes a per-page k-min)")
-    results["scan_per_query_topk"] = dict(
-        name="scan_per_query_topk", route="cuda",
-        source="src/repro_torch/kernels/csrc/posting_scan.cu",
-        replaces="src/repro/kernels/posting_scan/kernel.py:164",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None,
-    )
+    _log_kernel("scan_per_query_topk", err, swaps, ms, plain_ms, lib_ms, b,
+                f" unique_pages={uniq}")
+    results["scan_per_query_topk"] = _result("scan_per_query_topk", 164, err, ms,
+                                             plain_ms, lib_ms, b)
     return blocks
 
 
 def phase_scan_batched(torch, gen, results, blocks):
+    """#6 ``scan_batched_topk`` at k=10 over the full page budget."""
     from repro_torch.kernels.posting_scan import kernel as K
 
-    dev = "cuda"
-    # spfresh-1b batched schedule: NB = scan_page_budget = 32,768, Q=1024
-    q_n, nb, bs, d, k = 1024, 32_768, 32, 100, 10
-    n_blocks = blocks.shape[0]
-    ids = torch.sort(torch.randperm(n_blocks, device=dev, generator=gen)[:nb]).values
-    ids = ids.to(torch.int32).contiguous()
-    q = torch.randn(q_n, d, device=dev, generator=gen) * 32
-    bias = torch.where(torch.rand(nb, bs, device=dev, generator=gen) < 0.2, 3.0e38, 0.0)
-    bias[-7:] = 3.0e38                                    # all-dead pages
-    bias = bias.contiguous()
+    q_n, nb, bs, d, k = PQ["q_n"], BATCHED_NB, PQ["bs"], PQ["d"], 10
+    ids, q, bias = _batched_inputs(torch, gen, blocks)
     kd, ki = K.scan_batched_topk(ids, q, blocks, bias, k=k)
     torch.cuda.synchronize()
     err, swaps = 0.0, 0
-    step = 2048
+    step = PLAIN_STEP
     for s in range(0, nb, step):                          # plain, page chunks
         pd, pi = K.scan_batched_topk_plain(ids[s:s + step], q, blocks, bias[s:s + step], k=k)
         e, w = compare_kmin(kd[s:s + step], ki[s:s + step], pd, pi, atol=1e-2)
@@ -263,29 +375,173 @@ def phase_scan_batched(torch, gen, results, blocks):
 
     ms = cuda_ms(lambda: K.scan_batched_topk(ids, q, blocks, bias, k=k), reps=5)
     plain_ms = cuda_ms(plain_all, reps=1, warm=1)
+    lib_ms = cuda_ms(lambda: lib_batched(torch, ids, q, blocks, bias, k=k), reps=1, warm=1)
     by = nb * bs * d + 4 * (nb + q.numel() + bias.numel()) + 8 * nb * q_n * k
-    b_ms, b_by = bound(by, 2.0 * nb * q_n * bs * d)
+    b = bound(by, 2.0 * nb * q_n * bs * d)
     for dtype in (torch.float32, torch.bfloat16, torch.int8):     # ragged small
         blk = _pool(torch, gen, 40, 32, 100, dtype)
-        q2 = torch.randn(13, 100, device=dev, generator=gen)
-        u2 = torch.arange(0, 40, 4, device=dev, dtype=torch.int32)[:9].contiguous()
-        b2 = torch.where(torch.rand(9, 32, device=dev, generator=gen) < 0.3, 3.0e38, 0.0)
+        q2 = torch.randn(13, 100, device="cuda", generator=gen)
+        u2 = torch.arange(0, 40, 4, device="cuda", dtype=torch.int32)[:9].contiguous()
+        b2 = torch.where(torch.rand(9, 32, device="cuda", generator=gen) < 0.3, 3.0e38, 0.0)
         b2[0] = 3.0e38
         a = K.scan_batched_topk(u2, q2, blk, b2, k=10)
         torch.cuda.synchronize()
         e2, _ = compare_kmin(*a, *K.scan_batched_topk_plain(u2, q2, blk, b2, k=10), atol=1e-2)
         err = max(err, e2)
-    log(f"scan_batched_topk: max_abs_err={err:.3g} ({TOL_TEXT}, atol 1e-2) "
-        f"tie_swaps={swaps} ms={ms:.4f} "
-        f"plain_ms={plain_ms:.4f} (page chunks of {step}) bound_ms={b_ms:.4f} ({b_by}) "
-        "library_ms=null (no single PyTorch call computes a per-page k-min)")
-    results["scan_batched_topk"] = dict(
-        name="scan_batched_topk", route="cuda",
-        source="src/repro_torch/kernels/csrc/posting_scan.cu",
-        replaces="src/repro/kernels/posting_scan/kernel.py:288",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None,
-    )
+    _log_kernel("scan_batched_topk", err, swaps, ms, plain_ms, lib_ms, b,
+                f" (page chunks of {step})")
+    results["scan_batched_topk"] = _result("scan_batched_topk", 288, err, ms,
+                                           plain_ms, lib_ms, b)
+
+
+def phase_scan_unreduced(torch, gen, results, blocks):
+    """#2 ``scan_per_query`` and #3 ``scan_batched``: every slot's distance,
+    no bias, no k-min, at the spfresh-1b scan shapes over the int8 pool."""
+    from repro_torch.kernels.posting_scan import kernel as K
+
+    q_n, nb, bs, d = PQ["q_n"], PQ["nb"], PQ["bs"], PQ["d"]
+    q, table, _ = _per_query_inputs(torch, gen, blocks)
+    kd = K.scan_per_query(table, q, blocks)
+    torch.cuda.synchronize()
+    err = compare_dense(kd, K.scan_per_query_plain(table, q, blocks))
+    del kd
+    ms = cuda_ms(lambda: K.scan_per_query(table, q, blocks))
+    plain_ms = cuda_ms(lambda: K.scan_per_query_plain(table, q, blocks), reps=3)
+    lib_ms = cuda_ms(lambda: lib_per_query(torch, table, q, blocks), reps=3)
+    uniq = int(torch.unique(table).numel())
+    by = uniq * bs * d + 4 * (table.numel() + q.numel()) + 4 * q_n * nb * bs
+    b = bound(by, 2.0 * q_n * nb * bs * d)
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):     # ragged small
+        blk = _pool(torch, gen, 40, 32, 100, dtype)
+        for bs2 in (32, 8):
+            blk2 = blk[:, :bs2].contiguous()
+            q2 = torch.randn(5, 100, device="cuda", generator=gen)
+            t2 = torch.randint(0, 40, (5, 7), device="cuda", generator=gen, dtype=torch.int32)
+            a = K.scan_per_query(t2, q2, blk2)
+            torch.cuda.synchronize()
+            want = K.scan_per_query_plain(t2, q2, blk2)
+            err = max(err, compare_dense(a, want))
+            check_library(torch, lib_per_query(torch, t2, q2, blk2), want, "scan_per_query")
+    _log_kernel("scan_per_query", err, 0, ms, plain_ms, lib_ms, b, f" unique_pages={uniq}")
+    results["scan_per_query"] = _result("scan_per_query", 52, err, ms, plain_ms, lib_ms, b)
+
+    nb = BATCHED_NB
+    ids, q, _ = _batched_inputs(torch, gen, blocks)
+    kd = K.scan_batched(ids, q, blocks)                   # (NB, Q, BS): 4.3 GB
+    torch.cuda.synchronize()
+    err = 0.0
+    step = PLAIN_STEP
+    for s in range(0, nb, step):
+        err = max(err, compare_dense(kd[s:s + step], K.scan_batched_plain(ids[s:s + step], q, blocks)))
+    torch.cuda.synchronize()
+    del kd
+
+    def plain_all():
+        for s in range(0, nb, step):
+            K.scan_batched_plain(ids[s:s + step], q, blocks)
+
+    ms = cuda_ms(lambda: K.scan_batched(ids, q, blocks), reps=5)
+    plain_ms = cuda_ms(plain_all, reps=1, warm=1)
+    lib_ms = cuda_ms(lambda: lib_batched(torch, ids, q, blocks), reps=1, warm=1)
+    by = nb * bs * d + 4 * (nb + q.numel()) + 4 * nb * q_n * bs
+    b = bound(by, 2.0 * nb * q_n * bs * d)
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):     # ragged small
+        blk = _pool(torch, gen, 40, 32, 100, dtype)
+        q2 = torch.randn(13, 100, device="cuda", generator=gen)
+        u2 = torch.arange(0, 40, 4, device="cuda", dtype=torch.int32)[:9].contiguous()
+        a = K.scan_batched(u2, q2, blk)
+        torch.cuda.synchronize()
+        want = K.scan_batched_plain(u2, q2, blk)
+        err = max(err, compare_dense(a, want))
+        check_library(torch, lib_batched(torch, u2, q2, blk).transpose(0, 1), want,
+                      "scan_batched")
+    _log_kernel("scan_batched", err, 0, ms, plain_ms, lib_ms, b, f" (page chunks of {step})")
+    results["scan_batched"] = _result("scan_batched", 95, err, ms, plain_ms, lib_ms, b)
+
+
+def phase_scan_q8(torch, gen, results, blocks):
+    """#5 ``scan_per_query_topk_q8`` and #7 ``scan_batched_topk_q8`` over
+    int8 codes with per-page (scale, zero), at k = min(10*4, BS) = 32."""
+    from repro_torch.kernels.posting_scan import kernel as K
+
+    q_n, nb, bs, d, k = PQ["q_n"], PQ["nb"], PQ["bs"], PQ["d"], 32
+    q, table, bias = _per_query_inputs(torch, gen, blocks)
+    sz = _page_sz(torch, gen, (q_n, nb))
+    kd, ki = K.scan_per_query_topk_q8(table, q, blocks, bias, sz, k=k)
+    torch.cuda.synchronize()
+    pd, pi = K.scan_per_query_topk_q8_plain(table, q, blocks, bias, sz, k=k)
+    err, swaps = compare_kmin(kd, ki, pd, pi, atol=1e-2)
+    del kd, ki, pd, pi
+    ms = cuda_ms(lambda: K.scan_per_query_topk_q8(table, q, blocks, bias, sz, k=k))
+    plain_ms = cuda_ms(lambda: K.scan_per_query_topk_q8_plain(table, q, blocks, bias, sz, k=k),
+                       reps=3)
+    lib_ms = cuda_ms(lambda: lib_per_query(torch, table, q, blocks, bias, sz, k=k), reps=3)
+    uniq = int(torch.unique(table).numel())
+    by = (uniq * bs * d + 4 * (table.numel() + q.numel() + bias.numel() + sz.numel())
+          + 8 * q_n * nb * k)
+    b = bound(by, 2.0 * q_n * nb * bs * d + 2.0 * uniq * bs * d)
+    for bs2, k2 in ((32, 32), (32, 10), (8, 8), (16, 1)):         # ragged small
+        blk = _pool(torch, gen, 40, bs2, 100, torch.int8)
+        q2 = torch.randn(5, 100, device="cuda", generator=gen) * 32
+        t2 = torch.randint(0, 40, (5, 7), device="cuda", generator=gen, dtype=torch.int32)
+        b2 = torch.where(torch.rand(5, 7, bs2, device="cuda", generator=gen) < 0.3, 3.0e38, 0.0)
+        b2[0, 0] = 3.0e38
+        s2 = _page_sz(torch, gen, (5, 7))
+        a = K.scan_per_query_topk_q8(t2, q2, blk, b2, s2, k=k2)
+        torch.cuda.synchronize()
+        want = K.scan_per_query_topk_q8_plain(t2, q2, blk, b2, s2, k=k2)
+        e2, _ = compare_kmin(*a, *want, atol=1e-2)
+        check_library(torch, lib_per_query(torch, t2, q2, blk, b2, s2, k=k2).values,
+                      want[0], "scan_per_query_topk_q8")
+        err = max(err, e2)
+    _log_kernel("scan_per_query_topk_q8", err, swaps, ms, plain_ms, lib_ms, b,
+                f" unique_pages={uniq}")
+    results["scan_per_query_topk_q8"] = _result("scan_per_query_topk_q8", 225, err, ms,
+                                                plain_ms, lib_ms, b)
+
+    nb = BATCHED_NB
+    ids, q, bias = _batched_inputs(torch, gen, blocks)
+    sz = _page_sz(torch, gen, (nb,))
+    kd, ki = K.scan_batched_topk_q8(ids, q, blocks, bias, sz, k=k)   # 8.6 GB
+    torch.cuda.synchronize()
+    err, swaps = 0.0, 0
+    step = PLAIN_STEP
+    for s in range(0, nb, step):
+        pd, pi = K.scan_batched_topk_q8_plain(ids[s:s + step], q, blocks, bias[s:s + step],
+                                              sz[s:s + step], k=k)
+        e, w = compare_kmin(kd[s:s + step], ki[s:s + step], pd, pi, atol=1e-2)
+        err, swaps = max(err, e), swaps + w
+    torch.cuda.synchronize()
+    del kd, ki, pd, pi
+
+    def plain_all():
+        for s in range(0, nb, step):
+            K.scan_batched_topk_q8_plain(ids[s:s + step], q, blocks, bias[s:s + step],
+                                         sz[s:s + step], k=k)
+
+    ms = cuda_ms(lambda: K.scan_batched_topk_q8(ids, q, blocks, bias, sz, k=k), reps=5)
+    plain_ms = cuda_ms(plain_all, reps=1, warm=1)
+    lib_ms = cuda_ms(lambda: lib_batched(torch, ids, q, blocks, bias, sz, k=k), reps=1, warm=1)
+    by = nb * bs * d + 4 * (nb + q.numel() + bias.numel() + sz.numel()) + 8 * nb * q_n * k
+    b = bound(by, 2.0 * nb * q_n * bs * d + 2.0 * nb * bs * d)
+    for bs2, k2 in ((32, 32), (32, 10), (8, 8), (16, 1)):         # ragged small
+        blk = _pool(torch, gen, 40, bs2, 100, torch.int8)
+        q2 = torch.randn(13, 100, device="cuda", generator=gen) * 32
+        u2 = torch.arange(0, 40, 4, device="cuda", dtype=torch.int32)[:9].contiguous()
+        b2 = torch.where(torch.rand(9, bs2, device="cuda", generator=gen) < 0.3, 3.0e38, 0.0)
+        b2[0] = 3.0e38
+        s2 = _page_sz(torch, gen, (9,))
+        a = K.scan_batched_topk_q8(u2, q2, blk, b2, s2, k=k2)
+        torch.cuda.synchronize()
+        want = K.scan_batched_topk_q8_plain(u2, q2, blk, b2, s2, k=k2)
+        e2, _ = compare_kmin(*a, *want, atol=1e-2)
+        check_library(torch, lib_batched(torch, u2, q2, blk, b2, s2, k=k2).values.transpose(0, 1),
+                      want[0], "scan_batched_topk_q8")
+        err = max(err, e2)
+    _log_kernel("scan_batched_topk_q8", err, swaps, ms, plain_ms, lib_ms, b,
+                f" (page chunks of {step})")
+    results["scan_batched_topk_q8"] = _result("scan_batched_topk_q8", 352, err, ms,
+                                              plain_ms, lib_ms, b)
 
 
 # ---------------------------------------------------------------------------
@@ -363,15 +619,16 @@ def check_navigation(torch, state, q_t, nprobe):
 
 
 def kernel_ms_in(torch, fn):
-    """Run ``fn`` once with CUDA events around every launch of the three
-    kernel wrappers, patched where the search path looks them up.
+    """Run ``fn`` once with CUDA events around every launch of the kernel
+    wrappers of the search path, patched where the path looks them up.
     Returns ``(fn(), {kernel: summed ms}, host ms)``; a kernel's ms include
     its wrapper's host work whenever the stream was idle at the launch."""
     from repro_torch.kernels.l2_topk import ops as l2_ops
     from repro_torch.kernels.posting_scan import kernel as SK
 
     sites = ((l2_ops, "l2_topk_tiles"), (SK, "scan_per_query_topk"),
-             (SK, "scan_batched_topk"))
+             (SK, "scan_batched_topk"), (SK, "scan_per_query_topk_q8"),
+             (SK, "scan_batched_topk_q8"))
     events = {name: [] for _, name in sites}
 
     def wrap(name, f):
@@ -397,42 +654,82 @@ def kernel_ms_in(torch, fn):
     return out, ms, host_s * 1e3
 
 
-def main_path(torch, np, seed, report, *, cfg=None, device="cuda"):
+# The two main paths: the fp32 path stores the bytes as they are; the
+# int8 path is the reference's int8 cell (benchmarks/bench_search_path.py:43,
+# CODEC_CELLS: codec "int8", rerank_factor 4) at the spfresh-1b widths.
+CELLS = {"fp32": {}, "int8": {"codec": "int8", "rerank_factor": 4}}
+# insert batches of UPDATE_B rows per path (the int8 path's pool clone per
+# 256-row chunk carries the 3.36 GB exact tier)
+INSERT_BATCHES = {"fp32": 4, "int8": 1}
+# the kernels each path must launch
+PATH_KERNELS = {
+    "fp32": ("l2_topk_tiles", "scan_per_query_topk", "scan_batched_topk"),
+    "int8": ("l2_topk_tiles", "scan_per_query_topk_q8", "scan_batched_topk_q8"),
+}
+
+
+def path_config(cell):
+    """spfresh-1b ``CONFIG_PAGED`` with kernel navigation, in ``cell``."""
+    from repro_torch.configs.spfresh import CONFIG_PAGED
+
+    return dataclasses.replace(CONFIG_PAGED, use_pallas_nav=True, **CELLS[cell])
+
+
+def check_exact(np, data, queries, d, v, what):
+    """Every returned distance is the exact f32 diff² of its vid's vector
+    (the rerank ran): within ``1e-5 * ||q||^2``."""
+    live = v >= 0
+    rows = data[np.maximum(v, 0)].astype(np.float64)
+    q64 = queries.astype(np.float64)
+    true = np.sum((rows - q64[:, None, :]) ** 2, axis=-1)
+    tol = 1e-5 * np.sum(q64 * q64, axis=1, keepdims=True)
+    err = np.abs(true - d)
+    check(bool((err <= tol)[live].all()), f"{what}: a distance is not the exact one "
+          f"(max err {float(err[live].max())})")
+    return float(err[live].max())
+
+
+def main_path(torch, np, seed, report, *, cell="fp32", cfg=None, device="cuda"):
     """Build from ``N_BASE`` vectors, search, insert, delete, search, through
-    ``SPFreshIndex``.  ``cfg`` defaults to spfresh-1b ``CONFIG_PAGED`` with
-    kernel navigation; a smaller ``cfg``, ``N_BASE`` and ``device="cpu"``
-    rehearse the path without a card."""
-    from repro_torch.configs.spfresh import CONFIG_PAGED, SEARCH_Q, UPDATE_B
+    ``SPFreshIndex``, in the codec ``cell`` (``CELLS``).  ``cfg`` defaults
+    to :func:`path_config`; a smaller ``cfg``, ``N_BASE`` and
+    ``device="cpu"`` rehearse the path without a card."""
+    from repro_torch.configs.spfresh import SEARCH_Q, UPDATE_B
     from repro_torch.core import lire
     from repro_torch.core.index import SPFreshIndex
     from repro_torch.data.vectors import make_queries, make_spacev_int8
     from repro_torch.utils.tree import clone_state, tensor_leaves
 
     if cfg is None:
-        cfg = dataclasses.replace(CONFIG_PAGED, use_pallas_nav=True)
+        cfg = path_config(cell)
+    rerank = cfg.codec != "fp32" and cfg.rerank_factor > 1
     n, k, nprobe = N_BASE, 10, cfg.nprobe
-    n_ins = 4 * UPDATE_B
-    data, gen_s = timed(torch, lambda: make_spacev_int8(n + n_ins, cfg.dim, seed=seed))
-    base, fresh = data[:n], data[n:]
+    n_batches = INSERT_BATCHES[cell]
+    n_ins = n_batches * UPDATE_B
+    # the same data for every cell: the base and the first inserts agree
+    data, gen_s = timed(torch, lambda: make_spacev_int8(n + 4 * UPDATE_B, cfg.dim, seed=seed))
+    base, fresh = data[:n], data[n:n + n_ins]
     queries = make_queries(base, SEARCH_Q, seed=seed)
-    log(f"data: N={n} inserts={n_ins} d={cfg.dim} made in {gen_s:.1f} s")
+    log(f"[{cell}] data: N={n} inserts={n_ins} d={cfg.dim} codec={cfg.codec} "
+        f"rerank_factor={cfg.rerank_factor} made in {gen_s:.1f} s")
 
     idx, build_s = timed(
         torch, lambda: SPFreshIndex.build(cfg, base, seed=seed, device=device))
     st = idx.stats()
     mem = idx.memory_bytes()
-    log(f"build: {build_s:.1f} s n_postings={st['n_postings']} used_blocks={st['used_blocks']} "
-        f"state_bytes={mem['memory'] + mem['disk']}")
+    log(f"[{cell}] build: {build_s:.1f} s n_postings={st['n_postings']} "
+        f"used_blocks={st['used_blocks']} state_bytes={mem['memory'] + mem['disk']} "
+        f"(hot {mem['hot']}, exact tier {mem['cold']})")
     report.update(build_s=build_s, n_postings=st["n_postings"],
                   used_blocks=st["used_blocks"], memory_bytes=mem)
     q_t = torch.as_tensor(queries, device=device)
     for name, v in lire.scan_page_stats(idx.state, q_t, nprobe=nprobe).items():
         report[f"page_stats_{name}"] = int(v)
-    log(f"scan_page_stats (Q={len(queries)}, budget {cfg.scan_page_budget}): "
+    log(f"[{cell}] scan_page_stats (Q={len(queries)}, budget {cfg.scan_page_budget}): "
         + " ".join(f"{s}={report['page_stats_' + s]}" for s in ("n_pages", "n_unique", "overflow")))
 
     nav_overlap = check_navigation(torch, idx.state, q_t, nprobe)
-    log(f"navigate: kernel vs plain pairwise_sql2 + masked_topk on {len(queries)} "
+    log(f"[{cell}] navigate: kernel vs plain pairwise_sql2 + masked_topk on {len(queries)} "
         f"queries at nprobe={nprobe}: agree up to ties, id overlap {nav_overlap:.6f}")
 
     def search(schedule, qs=queries, probes=nprobe):
@@ -447,22 +744,32 @@ def main_path(torch, np, seed, report, *, cfg=None, device="cuda"):
         if device == "cuda":
             _, kms, host_ms = kernel_ms_in(torch, lambda: search(sched))
             in_search[sched] = dict(kernel_ms=kms, host_ms=host_ms)
-            log(f"inside one {sched} search ({host_ms:.3f} ms on the host clock): "
+            log(f"[{cell}] inside one {sched} search ({host_ms:.3f} ms on the host clock): "
                 + " ".join(f"{name}={v:.4f} ms" for name, v in kms.items() if v))
     base_t = torch.as_tensor(base, device=device)
-    recall = {f"{s}@{nprobe}": recall_at_10(torch, base_t, queries, res[s][1]) for s in res}
-    recall["batched@1"] = recall_at_10(torch, base_t, queries, search("batched", probes=1)[1])
-    floor = {key: REFERENCE_RECALL_20K[int(key.split("@")[1])] - RECALL_MARGIN
-             for key in recall}
-    log(f"recall@10 (schedule@nprobe): {recall} floors {floor} (reference at N=20,000 "
-        f"{REFERENCE_RECALL_20K} minus {RECALL_MARGIN})")
+    recall, exact_err = {}, {}
+    for sched in ("batched", "per_query"):
+        recall[f"{sched}@{nprobe}"] = recall_at_10(torch, base_t, queries, res[sched][1])
+        d1, v1 = search(sched, probes=1)
+        recall[f"{sched}@1"] = recall_at_10(torch, base_t, queries, v1)
+        if rerank:
+            exact_err[f"{sched}@{nprobe}"] = check_exact(np, data, queries, *res[sched],
+                                                         f"{sched}@{nprobe}")
+            exact_err[f"{sched}@1"] = check_exact(np, data, queries, d1, v1, f"{sched}@1")
+    ref = REFERENCE_RECALL_20K[cell]
+    floor = {key: ref[int(key.split("@")[1])] - RECALL_MARGIN for key in recall}
+    log(f"[{cell}] recall@10 (schedule@nprobe): {recall} floors {floor} (reference at "
+        f"N=20,000 {ref} minus {RECALL_MARGIN})")
     for key, r in recall.items():
-        check(r >= floor[key], f"recall@10 {r} of {key} below the floor {floor[key]}")
+        check(r >= floor[key], f"[{cell}] recall@10 {r} of {key} below the floor {floor[key]}")
+    if rerank:
+        log(f"[{cell}] every returned distance is the exact f32 diff² of its vid "
+            f"(within 1e-5 ||q||^2; max abs err {exact_err})")
     _, v_oracle = idx.search_padded(queries, k, nprobe=nprobe, use_pallas_scan=False)
     ov = {s: overlap(v_oracle, res[s][1]) for s in res}
-    log(f"kernel path vs gather oracle, id overlap: {ov}")
+    log(f"[{cell}] kernel path vs gather oracle, id overlap: {ov}")
     for s, o in ov.items():
-        check(o >= 0.95, f"{s} overlaps the oracle by {o} < 0.95")
+        check(o >= 0.95, f"[{cell}] {s} overlaps the oracle by {o} < 0.95")
 
     sample = queries[:256]
     d0, v0 = idx.search(sample, k, use_pallas_scan=True, scan_schedule="per_query")
@@ -472,16 +779,16 @@ def main_path(torch, np, seed, report, *, cfg=None, device="cuda"):
     # vectors carry ||q||^2 ~ 1e5, so the tolerance scales with it.
     qsq = np.sum(sample.astype(np.float64) ** 2, axis=1, keepdims=True)
     tol = np.broadcast_to(1e-5 * qsq, d0.shape)
-    check(bool((np.abs(d0 - d1) <= tol).all()), "schedules disagree on distances")
+    check(bool((np.abs(d0 - d1) <= tol).all()), f"[{cell}] schedules disagree on distances")
     check(bool((np.abs(d0 - d1)[v0 != v1] <= tol[v0 != v1]).all()),
-          "schedules disagree on ids beyond distance ties")
-    log(f"schedules agree on 256 queries (tie swaps: {int((v0 != v1).sum())})")
+          f"[{cell}] schedules disagree on ids beyond distance ties")
+    log(f"[{cell}] schedules agree on 256 queries (tie swaps: {int((v0 != v1).sum())})")
 
     # inserts: the first batch is replayed on a clone for determinism
     before = clone_state(idx.state)
     ins_vids = np.arange(n, n + n_ins, dtype=np.int32)
     ins_s = []
-    for b in range(4):
+    for b in range(n_batches):
         sl = slice(b * UPDATE_B, (b + 1) * UPDATE_B)
         _, s = timed(torch, lambda: idx.insert(fresh[sl], ins_vids[sl]))
         ins_s.append(s)
@@ -490,34 +797,40 @@ def main_path(torch, np, seed, report, *, cfg=None, device="cuda"):
             replay = SPFreshIndex(before)
             replay.insert(fresh[sl], ins_vids[sl])
             for name, t in tensor_leaves(replay.state).items():
-                check(bool(torch.equal(t, after[name])), f"insert replay differs in {name}")
-            del replay, before
-            log("insert determinism: replay on a clone is bit-identical")
+                check(bool(torch.equal(t, after[name])),
+                      f"[{cell}] insert replay differs in {name}")
+            del replay, before, after
+            log(f"[{cell}] insert determinism: replay on a clone is bit-identical")
     st = idx.stats()
-    check(st["n_inserts"] == n_ins, f"{st['n_inserts']} inserts counted, {n_ins} sent")
+    check(st["n_inserts"] == n_ins, f"[{cell}] {st['n_inserts']} inserts counted, {n_ins} sent")
     rng = np.random.default_rng(seed + 7)
     victims = rng.choice(n, size=UPDATE_B, replace=False).astype(np.int32)
     _, del_s = timed(torch, lambda: idx.delete(victims))
 
     gone = set(victims.tolist())
     for sched in ("batched", "per_query"):
-        _, v = search(sched)
-        check(not gone & set(v.reshape(-1).tolist()), f"{sched} returned a deleted vid")
+        d, v = search(sched)
+        check(not gone & set(v.reshape(-1).tolist()), f"[{cell}] {sched} returned a deleted vid")
+        if rerank:
+            exact_err[f"{sched}@{nprobe} after updates"] = check_exact(
+                np, data, queries, d, v, f"{sched} after updates")
     found = 0
     for s in range(0, n_ins, SEARCH_Q):
-        _, v = search("batched", fresh[s:s + SEARCH_Q])
+        d, v = search("batched", fresh[s:s + SEARCH_Q])
         found += int((v == ins_vids[s:s + SEARCH_Q, None]).any(axis=1).sum())
+        if rerank:
+            check_exact(np, data, fresh[s:s + SEARCH_Q], d, v, "inserted vectors' search")
     self_frac = found / n_ins
-    log(f"after updates: no deleted vid returned; inserted vectors in their own "
+    log(f"[{cell}] after updates: no deleted vid returned; inserted vectors in their own "
         f"top-10: {self_frac:.4f}")
-    check(self_frac >= 0.95, f"only {self_frac} of the inserts find themselves")
-    ins_rate = UPDATE_B * 4 / sum(ins_s)
+    check(self_frac >= 0.95, f"[{cell}] only {self_frac} of the inserts find themselves")
+    ins_rate = n_ins / sum(ins_s)
     del_rate = UPDATE_B / del_s
     report.update(recall_at_10=recall, recall_floor=floor, oracle_overlap=ov,
                   navigate_overlap=nav_overlap, search_p50_ms=p50,
                   kernels_inside_one_search=in_search, insert_rows_per_s=ins_rate,
                   delete_rows_per_s=del_rate, insert_self_top10=self_frac,
-                  stats=idx.stats())
+                  exact_distance_max_err=exact_err, stats=idx.stats())
     return p50, ins_rate, del_rate
 
 
@@ -564,26 +877,36 @@ def main() -> int:
     phase_l2_topk(torch, gen, results)
     blocks = phase_scan_per_query(torch, gen, results)
     phase_scan_batched(torch, gen, results, blocks)
+    phase_scan_unreduced(torch, gen, results, blocks)
+    phase_scan_q8(torch, gen, results, blocks)
     del blocks
     torch.cuda.empty_cache()
 
     counters = (LK.LAUNCHES, SK.LAUNCHES)
-    for c in counters:
-        for key in c:
-            c[key] = 0
-    p50, ins_rate, del_rate = main_path(torch, np, args.seed, report)
-    launches = {**LK.LAUNCHES, **SK.LAUNCHES}
+    launches = {name: 0 for c in counters for name in c}
+    for cell in CELLS:
+        for c in counters:
+            for key in c:
+                c[key] = 0
+        report[cell] = {}
+        p50, ins_rate, del_rate = main_path(torch, np, args.seed, report[cell], cell=cell)
+        got = {**LK.LAUNCHES, **SK.LAUNCHES}
+        for name in PATH_KERNELS[cell]:
+            check(got[name] > 0, f"kernel {name} was not launched on the {cell} main path")
+        for name, n in got.items():
+            launches[name] += n
+        report[cell]["launches"] = got
+        log(f"[{cell}] search p50 ms at Q={SEARCH_Q}: {p50}; insert rows/s {ins_rate:.0f}; "
+            f"delete rows/s {del_rate:.0f} ({card})")
+        log(f"[{cell}] launches on the main path: {got}")
+        gc.collect()
+        torch.cuda.empty_cache()
     for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
         results[name]["launches"] = n
-    log(f"search p50 ms at Q={SEARCH_Q}: {p50}; insert rows/s {ins_rate:.0f}; "
-        f"delete rows/s {del_rate:.0f} ({card})")
-    log(f"launches on the main path: {launches}")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    kernels = [{k: results[n][k] for k in keys} for n in
-               ("l2_topk_tiles", "scan_per_query_topk", "scan_batched_topk")]
+    kernels = [{k: results[n][k] for k in keys} for n in KERNEL_ORDER]
     print("report: " + json.dumps(report, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)

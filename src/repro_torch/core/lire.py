@@ -197,29 +197,38 @@ def _pallas_scan_candidates(state: IndexState, queries, pids, probe_valid, *,
     """Paged posting scan through the hand-written kernels → reduced
     candidates ``(dists (Q, n), vids (Q, n), pos (Q, n), live (Q, n))``
     with n = pages·kpage; ``pos`` is each candidate's pool position
-    (``block_id·BS + slot``, -1 dead).
+    (``block_id·BS + slot``, -1 dead), which the exact rerank gathers from
+    the cold tier.
 
     ``per_query`` scores every probed page against its own query;
     ``batched`` dedups the micro-batch's pages to ``scan_page_budget``
     (overflow drops the highest-numbered pages) and scores each unique page
-    against all queries, then gathers each query's own pages back out."""
+    against all queries, then gathers each query's own pages back out.
+    With the ``int8`` codec the ``_q8`` kernels run: each page carries its
+    posting's ``(scale, zero)`` and is dequantised inside the kernel."""
     cfg = state.cfg
     pool = state.pool
-    if pool.codec == "int8":
-        raise NotImplementedError(
-            "the int8 codec scan (the _q8 kernels) comes with the codec slice"
-        )
     q, nprobe = pids.shape
     mb = pool.max_blocks_per_posting
     bs = pool.block_size
     kpage = min(k, bs)
+    quant = pool.codec == "int8"
     flat = _page_table(state, pids, probe_valid)        # (Q, NB)
+    if quant:
+        # posting owning each page row: pages j of probe i are i*MB..i*MB+MB-1
+        safe_pp = torch.clamp(torch.repeat_interleave(pids, mb, dim=1), min=0).long()
 
     if schedule == "per_query":
         pvids, live = _page_slot_live(state, flat)      # (Q, NB, BS)
-        d, slots = scan_ops.scan_posting_blocks_topk(
-            queries, flat, live, pool.blocks, k=kpage
-        )                                               # (Q, NB, kpage)
+        if quant:
+            d, slots = scan_ops.scan_posting_blocks_topk_q8(
+                queries, flat, live, pool.blocks,
+                pool.post_scale[safe_pp], pool.post_zero[safe_pp], k=kpage,
+            )                                           # (Q, NB, kpage)
+        else:
+            d, slots = scan_ops.scan_posting_blocks_topk(
+                queries, flat, live, pool.blocks, k=kpage
+            )                                           # (Q, NB, kpage)
         slots = slots.long()
         cand_v = torch.gather(pvids, 2, slots)
         cand_p = torch.where(
@@ -234,9 +243,24 @@ def _pallas_scan_candidates(state: IndexState, queries, pids, probe_valid, *,
             flat.reshape(-1), budget=budget, num_blocks=cfg.num_blocks
         )
         pvids, live = _page_slot_live(state, uniq)      # (budget, BS)
-        d, slots = scan_ops.scan_unique_blocks_topk(
-            queries, uniq, live, pool.blocks, k=kpage
-        )                                               # (budget, Q, kpage)
+        if quant:
+            # invert the dedup: every probe writes its posting's (scale,
+            # zero) onto its unique-page row; dropped probes write the
+            # spare row ``budget``, which is cut.  One posting owns each
+            # block, so writers that collide carry equal values.
+            tgt = torch.where(member_pos >= 0, member_pos, budget).long()
+            u_scale = torch.ones(budget + 1, dtype=torch.float32, device=queries.device)
+            u_zero = torch.zeros(budget + 1, dtype=torch.float32, device=queries.device)
+            u_scale[tgt] = pool.post_scale[safe_pp].reshape(-1)
+            u_zero[tgt] = pool.post_zero[safe_pp].reshape(-1)
+            d, slots = scan_ops.scan_unique_blocks_topk_q8(
+                queries, uniq, live, pool.blocks, u_scale[:budget], u_zero[:budget],
+                k=kpage,
+            )                                           # (budget, Q, kpage)
+        else:
+            d, slots = scan_ops.scan_unique_blocks_topk(
+                queries, uniq, live, pool.blocks, k=kpage
+            )                                           # (budget, Q, kpage)
         mp = member_pos.reshape(q, -1).long()           # (Q, NB)
         safe_mp = torch.clamp(mp, min=0)
         qi = torch.arange(q, device=queries.device)[:, None]
@@ -303,6 +327,24 @@ def _scan_probe_chunk(state: IndexState, queries, pids, probe_valid):
     )
 
 
+def _rerank_exact(state: IndexState, queries, cand_d, cand_v, cand_pos, k: int):
+    """Exact fp32 rerank of an over-fetched, already vid-deduped candidate
+    set: gather each candidate's vector by pool position ``cand_pos (Q,
+    k')`` from the cold exact tier (the hot tier where there is none), take
+    the direct f32 diff², and keep the ``k`` nearest, lowest index first
+    among equal distances."""
+    pool = state.pool
+    tier = pool.blocks_exact if pool.blocks_exact is not None else pool.blocks
+    flat = tier.reshape(-1, pool.dim)
+    vecs = flat[torch.clamp(cand_pos, min=0).long()].float()   # (Q, k', d)
+    diff = vecs - queries.float()[:, None, :]
+    dist = torch.sum(diff * diff, dim=-1)
+    dist = torch.where((cand_pos >= 0) & (cand_v >= 0), dist, MASK_DISTANCE)
+    top_d, sel = stable_topk(dist, k)
+    out_v = torch.where(top_d < MASK_DISTANCE / 2, torch.gather(cand_v, 1, sel), -1)
+    return top_d, out_v
+
+
 def scan_and_reduce(state: IndexState, queries, pids, probe_valid, *, k: int,
                     probe_chunk: int = 0, use_pallas_scan=None,
                     scan_schedule=None):
@@ -310,46 +352,52 @@ def scan_and_reduce(state: IndexState, queries, pids, probe_valid, *, k: int,
 
     The kernel path (``use_pallas_scan``) reduces pages to per-page k-min
     candidates; the gather oracle materializes the probe buffer, in
-    ``probe_chunk``-sized pieces with a running candidate set if asked."""
+    ``probe_chunk``-sized pieces with a running candidate set if asked.
+    With a lossy codec and ``cfg.rerank_factor > 1`` every path
+    over-fetches ``rerank_factor × k`` deduped candidates and reranks them
+    on the exact tier before the final top-k."""
     cfg = state.cfg
     q, nprobe = pids.shape
     cap = cfg.posting_capacity
     pallas = cfg.use_pallas_scan if use_pallas_scan is None else use_pallas_scan
     schedule = scan_schedule if scan_schedule is not None else cfg.scan_schedule
-    if cfg.rerank_factor > 1 and state.pool.blocks_exact is not None:
-        raise NotImplementedError(
-            "the exact rerank (rerank_factor > 1) comes with the codec slice"
-        )
+    rerank = cfg.rerank_factor > 1 and state.pool.blocks_exact is not None
+    kq = k * cfg.rerank_factor if rerank else k
 
-    def reduce(cand_d, cand_v, live):
+    def reduce_and_rerank(cand_d, cand_v, cand_p, live):
         n = cand_d.shape[1]
-        d, v, _ = _dedup_topk_1d_full(cand_d, cand_v, live, k, _dedup_prefilter(cfg, k, n))
-        return d, v
+        kk = min(kq, n) if rerank else k
+        d, v, oi = _dedup_topk_1d_full(cand_d, cand_v, live, kk,
+                                       _dedup_prefilter(cfg, kk, n))
+        if not rerank:
+            return d, v
+        pos = torch.gather(cand_p, 1, torch.clamp(oi, min=0).long())
+        pos = torch.where(oi >= 0, pos, -1)
+        return _rerank_exact(state, queries, d, v, pos, k)
 
     if pallas:
-        cand_d, cand_v, _, live = _pallas_scan_candidates(
-            state, queries, pids, probe_valid, k=k, schedule=schedule
+        cand_d, cand_v, cand_p, live = _pallas_scan_candidates(
+            state, queries, pids, probe_valid, k=kq, schedule=schedule
         )
-        return reduce(cand_d, cand_v, live)
+        return reduce_and_rerank(cand_d, cand_v, cand_p, live)
 
     if probe_chunk <= 0 or nprobe % probe_chunk != 0 or nprobe == probe_chunk:
-        dists, vids, _, live = _scan_probe_chunk(state, queries, pids, probe_valid)
-        return reduce(dists, vids, live)
+        return reduce_and_rerank(*_scan_probe_chunk(state, queries, pids, probe_valid))
 
-    keep = min(max(4 * k, 64), probe_chunk * cap)
+    keep = min(max(4 * kq, 64), probe_chunk * cap)
     best_d = torch.full((q, keep), MASK_DISTANCE, dtype=torch.float32, device=queries.device)
     best_v = torch.full((q, keep), -1, dtype=torch.int32, device=queries.device)
+    best_p = torch.full((q, keep), -1, dtype=torch.int32, device=queries.device)
     for s in range(0, nprobe, probe_chunk):
-        d, v, _, live = _scan_probe_chunk(
+        d, v, p, live = _scan_probe_chunk(
             state, queries, pids[:, s:s + probe_chunk],
             probe_valid[:, s:s + probe_chunk],
         )
         d = torch.where(live, d, MASK_DISTANCE)
-        cat_d = torch.cat([best_d, d], dim=1)
-        cat_v = torch.cat([best_v, v], dim=1)
-        best_d, sel = stable_topk(cat_d, keep)
-        best_v = torch.gather(cat_v, 1, sel)
-    return reduce(best_d, best_v, best_d < MASK_DISTANCE / 2)
+        best_d, sel = stable_topk(torch.cat([best_d, d], dim=1), keep)
+        best_v = torch.gather(torch.cat([best_v, v], dim=1), 1, sel)
+        best_p = torch.gather(torch.cat([best_p, p], dim=1), 1, sel)
+    return reduce_and_rerank(best_d, best_v, best_p, best_d < MASK_DISTANCE / 2)
 
 
 def search(state: IndexState, queries, *, k: int, nprobe=None,

@@ -1,14 +1,19 @@
-"""Paged posting scan with a fused per-page k-min: the CUDA kernels'
-wrappers and their plain PyTorch versions.
+"""Paged posting scan: the CUDA kernels' wrappers and their plain
+PyTorch versions.
 
-Replaces the TPU kernels ``scan_per_query_topk`` and ``scan_batched_topk``
-(``repro/kernels/posting_scan/kernel.py``); the kernels themselves are in
+Replaces the six TPU kernels of ``repro/kernels/posting_scan/kernel.py``:
+``scan_per_query`` and ``scan_batched`` (every slot's distance),
+``scan_per_query_topk`` and ``scan_batched_topk`` (a fused per-page
+k-min), and their int8-code forms ``scan_per_query_topk_q8`` and
+``scan_batched_topk_q8`` (each page dequantised as ``code * scale +
+zero`` with its posting's parameters).  The kernels themselves are in
 ``kernels/csrc/posting_scan.cu``.  For tensors on the CPU a wrapper runs
 the plain version; for CUDA tensors it launches the kernel or raises.
 
 Contract: ``BS <= 32`` (one lane per slot), ``k <= BS``, ``d % 4 == 0``;
-the payload is float32, bfloat16 or int8.  Block ids must lie in
-``[0, B)``; the callers clamp absent pages to 0 and mask them by bias.
+the payload is float32, bfloat16 or int8 (int8 codes for the ``_q8``
+forms).  Block ids must lie in ``[0, B)``; the callers clamp absent pages
+to 0 and mask them by bias.
 """
 from __future__ import annotations
 
@@ -19,7 +24,11 @@ from repro_torch.core.distance import stable_topk
 BIG = 3.0e38
 
 # Launches of each CUDA kernel since the counts were last reset.
-LAUNCHES = {"scan_per_query_topk": 0, "scan_batched_topk": 0}
+LAUNCHES = {
+    "scan_per_query": 0, "scan_batched": 0,
+    "scan_per_query_topk": 0, "scan_batched_topk": 0,
+    "scan_per_query_topk_q8": 0, "scan_batched_topk_q8": 0,
+}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -35,30 +44,67 @@ def _expand_dist(q, pages):
     return torch.clamp(qsq - 2.0 * cross + bsq, min=0.0)
 
 
+def _dequant(codes, page_sz):
+    """int8 ``codes (..., BS, d)`` under ``page_sz (..., 2)`` → f32 pages:
+    ``code * scale``, rounded, ``+ zero``, rounded (two ops, no FMA)."""
+    scale = page_sz[..., 0][..., None, None]
+    zero = page_sz[..., 1][..., None, None]
+    return codes.float() * scale + zero
+
+
+def _kmin(d, k: int):
+    vals, idx = stable_topk(d, k)
+    return vals, idx.to(torch.int32)
+
+
+def scan_per_query_plain(block_table, queries, blocks):
+    """Page ``table[q, j]`` against query ``q``: ``(Q, NB, BS)``."""
+    return _expand_dist(queries[:, None, :], blocks[block_table.long()])
+
+
+def _batched_dist(queries, pages):
+    """Every page ``(NB, BS, d)`` f32 against every query → ``(NB, Q, BS)``."""
+    qf = queries.float()
+    qsq = torch.sum(qf * qf, dim=-1)                    # (Q,)
+    bsq = torch.sum(pages * pages, dim=-1)              # (NB, BS)
+    cross = torch.matmul(qf[None, :, :], pages.transpose(1, 2))  # (NB, Q, BS)
+    return torch.clamp(qsq[None, :, None] - 2.0 * cross + bsq[:, None, :], min=0.0)
+
+
+def scan_batched_plain(unique_blocks, queries, blocks):
+    """Each page ``ids[i]`` against every query: ``(NB, Q, BS)``."""
+    return _batched_dist(queries, blocks[unique_blocks.long()].float())
+
+
 def scan_per_query_topk_plain(block_table, queries, blocks, slot_bias, *, k: int):
     """Page ``table[q, j]`` against query ``q`` plus the slot bias, then the
     k smallest slots: ``(dists (Q, NB, k), slots (Q, NB, k) i32)``."""
-    pages = blocks[block_table.long()]                  # (Q, NB, BS, d)
-    d = _expand_dist(queries[:, None, :], pages) + slot_bias
-    vals, idx = stable_topk(d, k)
-    return vals, idx.to(torch.int32)
+    return _kmin(scan_per_query_plain(block_table, queries, blocks) + slot_bias, k)
 
 
 def scan_batched_topk_plain(unique_blocks, queries, blocks, slot_bias, *, k: int):
     """Each page ``ids[i]`` against every query plus the slot bias, then the
     k smallest slots: ``(dists (NB, Q, k), slots (NB, Q, k) i32)``."""
-    pages = blocks[unique_blocks.long()].float()        # (NB, BS, d)
-    qf = queries.float()
-    qsq = torch.sum(qf * qf, dim=-1)                    # (Q,)
-    bsq = torch.sum(pages * pages, dim=-1)              # (NB, BS)
-    cross = torch.matmul(qf[None, :, :], pages.transpose(1, 2))  # (NB, Q, BS)
-    d = torch.clamp(qsq[None, :, None] - 2.0 * cross + bsq[:, None, :], min=0.0)
-    d = d + slot_bias[:, None, :]
-    vals, idx = stable_topk(d, k)
-    return vals, idx.to(torch.int32)
+    d = scan_batched_plain(unique_blocks, queries, blocks)
+    return _kmin(d + slot_bias[:, None, :], k)
 
 
-def _check(ids, queries, blocks, slot_bias, k):
+def scan_per_query_topk_q8_plain(block_table, queries, codes, slot_bias, page_sz, *, k: int):
+    """:func:`scan_per_query_topk_plain` over int8 codes, each page
+    dequantised with its ``page_sz[q, j] = (scale, zero)``."""
+    pages = _dequant(codes[block_table.long()], page_sz)   # (Q, NB, BS, d)
+    return _kmin(_expand_dist(queries[:, None, :], pages) + slot_bias, k)
+
+
+def scan_batched_topk_q8_plain(unique_blocks, queries, codes, slot_bias, page_sz, *, k: int):
+    """:func:`scan_batched_topk_plain` over int8 codes, each unique page
+    dequantised with its ``page_sz[i] = (scale, zero)``."""
+    pages = _dequant(codes[unique_blocks.long()], page_sz)  # (NB, BS, d)
+    return _kmin(_batched_dist(queries, pages) + slot_bias[:, None, :], k)
+
+
+def _check(ids, queries, blocks, k: int = 1, *, q8: bool = False, **f32):
+    """The kernels' contract; ``f32`` names the float32 side inputs."""
     _, bs, dim = blocks.shape
     if not 1 <= bs <= 32 or not 1 <= k <= bs:
         raise ValueError(f"kernel contract: BS <= 32 and k <= BS (BS={bs}, k={k})")
@@ -66,12 +112,14 @@ def _check(ids, queries, blocks, slot_bias, k):
         raise ValueError(f"kernel contract: d % 4 == 0 (d={dim})")
     if queries.shape[-1] != dim:
         raise ValueError("queries and blocks disagree on d")
-    if blocks.dtype not in _DTYPE_CODE:
+    if blocks.dtype not in _DTYPE_CODE or (q8 and blocks.dtype != torch.int8):
         raise ValueError(f"unsupported payload dtype {blocks.dtype}")
-    if ids.dtype != torch.int32 or slot_bias.dtype != torch.float32:
-        raise ValueError("block ids must be int32 and the bias float32")
-    for name, x in (("ids", ids), ("queries", queries), ("blocks", blocks),
-                    ("slot_bias", slot_bias)):
+    if ids.dtype != torch.int32:
+        raise ValueError("block ids must be int32")
+    for name, x in f32.items():
+        if x.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32")
+    for name, x in (("ids", ids), ("queries", queries), ("blocks", blocks), *f32.items()):
         if x.device != blocks.device:
             raise ValueError(f"{name} is on {x.device}, blocks on {blocks.device}")
         if not x.is_contiguous():
@@ -80,27 +128,64 @@ def _check(ids, queries, blocks, slot_bias, k):
         raise ValueError("the block pool must be 16-byte aligned")
 
 
-def _launch(fn_name, ids, queries, blocks, slot_bias, k, out_shape, n_a, n_b):
-    from repro_torch.kernels.build import check, library
-
-    out_d = torch.empty(out_shape, dtype=torch.float32, device=blocks.device)
-    out_i = torch.empty(out_shape, dtype=torch.int32, device=blocks.device)
-    _, bs, dim = blocks.shape
-    stream = torch.cuda.current_stream(blocks.device).cuda_stream
-    rc = getattr(library("posting_scan"), fn_name)(
-        ids.data_ptr(), queries.data_ptr(), blocks.data_ptr(),
-        _DTYPE_CODE[blocks.dtype], slot_bias.data_ptr(), out_d.data_ptr(),
-        out_i.data_ptr(), n_a, n_b, bs, dim, k, stream,
-    )
-    check(rc, fn_name)
-    LAUNCHES[fn_name] += 1
-    return out_d, out_i
-
-
-def _device_of(blocks):
+def _on_cpu(blocks) -> bool:
     if blocks.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {blocks.device}")
-    return blocks.device.type
+    return blocks.device.type == "cpu"
+
+
+def _launch(fn_name, blocks, *args):
+    """Call the C entry ``fn_name`` (tensors by pointer) on the current
+    stream, raise on its CUDA error code, count the launch."""
+    from repro_torch.kernels.build import check, library
+
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    stream = torch.cuda.current_stream(blocks.device).cuda_stream
+    check(getattr(library("posting_scan"), fn_name)(*ptrs, stream), fn_name)
+    LAUNCHES[fn_name] += 1
+
+
+def _outputs(shape, blocks, with_idx=True):
+    out_d = torch.empty(shape, dtype=torch.float32, device=blocks.device)
+    if not with_idx:
+        return out_d
+    return out_d, torch.empty(shape, dtype=torch.int32, device=blocks.device)
+
+
+def _check_shape(x, want, name):
+    if tuple(x.shape) != tuple(want):
+        raise ValueError(f"{name} shape {tuple(x.shape)}, want {tuple(want)}")
+
+
+def scan_per_query(block_table, queries, blocks):
+    """Per-query paged scan, every slot: ``block_table (Q, NB)`` i32
+    (clamped >= 0), ``queries (Q, d)``, ``blocks (B, BS, d)`` → ``(Q, NB,
+    BS)`` f32 distances."""
+    queries = queries.float().contiguous()
+    _check(block_table, queries, blocks)
+    if _on_cpu(blocks):
+        return scan_per_query_plain(block_table, queries, blocks)
+    q_n, nb = block_table.shape
+    _, bs, dim = blocks.shape
+    out_d = _outputs((q_n, nb, bs), blocks, with_idx=False)
+    _launch("scan_per_query", blocks, block_table, queries, blocks,
+            _DTYPE_CODE[blocks.dtype], out_d, q_n, nb, bs, dim)
+    return out_d
+
+
+def scan_batched(unique_blocks, queries, blocks):
+    """Batch-dedup paged scan, every slot: ``unique_blocks (NB,)`` i32
+    (>= 0) → ``(NB, Q, BS)`` f32 distances."""
+    queries = queries.float().contiguous()
+    _check(unique_blocks, queries, blocks)
+    if _on_cpu(blocks):
+        return scan_batched_plain(unique_blocks, queries, blocks)
+    nb, q_n = unique_blocks.shape[0], queries.shape[0]
+    _, bs, dim = blocks.shape
+    out_d = _outputs((nb, q_n, bs), blocks, with_idx=False)
+    _launch("scan_batched", blocks, unique_blocks, queries, blocks,
+            _DTYPE_CODE[blocks.dtype], out_d, nb, q_n, bs, dim)
+    return out_d
 
 
 def scan_per_query_topk(block_table, queries, blocks, slot_bias, *, k: int):
@@ -110,14 +195,16 @@ def scan_per_query_topk(block_table, queries, blocks, slot_bias, *, k: int):
     ``blocks (B, BS, d)``, ``slot_bias (Q, NB, BS)`` f32 (0 live, +BIG
     dead) → ``(dists (Q, NB, k), slots (Q, NB, k))``."""
     queries = queries.float().contiguous()
-    _check(block_table, queries, blocks, slot_bias, k)
+    _check(block_table, queries, blocks, k, slot_bias=slot_bias)
     q_n, nb = block_table.shape
-    if slot_bias.shape != (q_n, nb, blocks.shape[1]):
-        raise ValueError(f"slot_bias shape {tuple(slot_bias.shape)}")
-    if _device_of(blocks) == "cpu":
+    _, bs, dim = blocks.shape
+    _check_shape(slot_bias, (q_n, nb, bs), "slot_bias")
+    if _on_cpu(blocks):
         return scan_per_query_topk_plain(block_table, queries, blocks, slot_bias, k=k)
-    return _launch("scan_per_query_topk", block_table, queries, blocks,
-                   slot_bias, k, (q_n, nb, k), q_n, nb)
+    out_d, out_i = _outputs((q_n, nb, k), blocks)
+    _launch("scan_per_query_topk", blocks, block_table, queries, blocks,
+            _DTYPE_CODE[blocks.dtype], slot_bias, out_d, out_i, q_n, nb, bs, dim, k)
+    return out_d, out_i
 
 
 def scan_batched_topk(unique_blocks, queries, blocks, slot_bias, *, k: int):
@@ -126,12 +213,49 @@ def scan_batched_topk(unique_blocks, queries, blocks, slot_bias, *, k: int):
     ``unique_blocks (NB,)`` i32 (>= 0), ``slot_bias (NB, BS)`` →
     ``(dists (NB, Q, k), slots (NB, Q, k))``."""
     queries = queries.float().contiguous()
-    _check(unique_blocks, queries, blocks, slot_bias, k)
-    nb = unique_blocks.shape[0]
-    q_n = queries.shape[0]
-    if slot_bias.shape != (nb, blocks.shape[1]):
-        raise ValueError(f"slot_bias shape {tuple(slot_bias.shape)}")
-    if _device_of(blocks) == "cpu":
+    _check(unique_blocks, queries, blocks, k, slot_bias=slot_bias)
+    nb, q_n = unique_blocks.shape[0], queries.shape[0]
+    _, bs, dim = blocks.shape
+    _check_shape(slot_bias, (nb, bs), "slot_bias")
+    if _on_cpu(blocks):
         return scan_batched_topk_plain(unique_blocks, queries, blocks, slot_bias, k=k)
-    return _launch("scan_batched_topk", unique_blocks, queries, blocks,
-                   slot_bias, k, (nb, q_n, k), nb, q_n)
+    out_d, out_i = _outputs((nb, q_n, k), blocks)
+    _launch("scan_batched_topk", blocks, unique_blocks, queries, blocks,
+            _DTYPE_CODE[blocks.dtype], slot_bias, out_d, out_i, nb, q_n, bs, dim, k)
+    return out_d, out_i
+
+
+def scan_per_query_topk_q8(block_table, queries, codes, slot_bias, page_sz, *, k: int):
+    """:func:`scan_per_query_topk` over int8 ``codes``, each page
+    dequantised in the kernel with ``page_sz (Q, NB, 2)`` f32 ``(scale,
+    zero)``."""
+    queries = queries.float().contiguous()
+    _check(block_table, queries, codes, k, q8=True, slot_bias=slot_bias, page_sz=page_sz)
+    q_n, nb = block_table.shape
+    _, bs, dim = codes.shape
+    _check_shape(slot_bias, (q_n, nb, bs), "slot_bias")
+    _check_shape(page_sz, (q_n, nb, 2), "page_sz")
+    if _on_cpu(codes):
+        return scan_per_query_topk_q8_plain(block_table, queries, codes, slot_bias, page_sz, k=k)
+    out_d, out_i = _outputs((q_n, nb, k), codes)
+    _launch("scan_per_query_topk_q8", codes, block_table, queries, codes, slot_bias,
+            page_sz, out_d, out_i, q_n, nb, bs, dim, k)
+    return out_d, out_i
+
+
+def scan_batched_topk_q8(unique_blocks, queries, codes, slot_bias, page_sz, *, k: int):
+    """:func:`scan_batched_topk` over int8 ``codes``, each unique page
+    dequantised in the kernel with ``page_sz (NB, 2)`` f32 ``(scale,
+    zero)``."""
+    queries = queries.float().contiguous()
+    _check(unique_blocks, queries, codes, k, q8=True, slot_bias=slot_bias, page_sz=page_sz)
+    nb, q_n = unique_blocks.shape[0], queries.shape[0]
+    _, bs, dim = codes.shape
+    _check_shape(slot_bias, (nb, bs), "slot_bias")
+    _check_shape(page_sz, (nb, 2), "page_sz")
+    if _on_cpu(codes):
+        return scan_batched_topk_q8_plain(unique_blocks, queries, codes, slot_bias, page_sz, k=k)
+    out_d, out_i = _outputs((nb, q_n, k), codes)
+    _launch("scan_batched_topk_q8", codes, unique_blocks, queries, codes, slot_bias,
+            page_sz, out_d, out_i, nb, q_n, bs, dim, k)
+    return out_d, out_i

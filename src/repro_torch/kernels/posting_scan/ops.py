@@ -1,7 +1,8 @@
 """Public wrappers of the posting-scan kernels and the batch page dedup.
 
-They tie the block pool to the kernels: clamp absent pages to page 0 and
-mask their slots (and dead slots) with a +BIG distance bias.
+They tie the block pool to the kernels: build the block table from
+posting ids, clamp absent pages to page 0, and mask their slots (and dead
+slots) with a +BIG distance bias.
 """
 from __future__ import annotations
 
@@ -12,16 +13,55 @@ from repro_torch.kernels.posting_scan import kernel as K
 BIG = K.BIG
 
 
+def _per_query_bias(page_table, slot_live):
+    """0 for live slots of present pages, +BIG else: ``(Q, NB, BS)`` f32."""
+    bias = torch.where(slot_live & (page_table >= 0)[:, :, None], 0.0, BIG)
+    return bias.float().contiguous()
+
+
+def _batched_bias(unique_blocks, slot_live):
+    """0 for live slots of real pages, +BIG else: ``(NB, BS)`` f32."""
+    bias = torch.where(slot_live & (unique_blocks >= 0)[:, None], 0.0, BIG)
+    return bias.float().contiguous()
+
+
+def _clamped(ids):
+    return torch.clamp(ids, min=0).to(torch.int32).contiguous()
+
+
+def scan_posting_blocks(queries, posting_blocks, pids, blocks):
+    """Per-query paged scan over probed postings, every slot.
+
+    ``posting_blocks (P_cap, MB)`` i32 block table rows, ``pids (Q,
+    nprobe)`` (-1 none) → ``(dists (Q, nprobe*MB*BS), page_ok (Q,
+    nprobe*MB*BS) bool)``; slots of absent pages read BIG.  The caller
+    applies the vid/version masks and the top-k."""
+    q_n = queries.shape[0]
+    bs = blocks.shape[1]
+    table = posting_blocks[torch.clamp(pids, min=0).long()]     # (Q, nprobe, MB)
+    table = torch.where((pids >= 0)[..., None], table, -1)
+    flat = table.reshape(q_n, -1)                               # (Q, NB)
+    page_ok = flat >= 0
+    d = K.scan_per_query(_clamped(flat), queries, blocks)      # (Q, NB, BS)
+    d = torch.where(page_ok[:, :, None], d, BIG)
+    return d.reshape(q_n, -1), torch.repeat_interleave(page_ok, bs, dim=1)
+
+
+def scan_unique_blocks(queries, unique_blocks, blocks):
+    """Batch-dedup scan, every slot: ``unique_blocks (NB,)`` i32 (-1
+    padding) → ``dists (NB, Q, BS)``, padding pages BIG."""
+    d = K.scan_batched(_clamped(unique_blocks), queries, blocks)
+    return torch.where((unique_blocks >= 0)[:, None, None], d, BIG)
+
+
 def scan_posting_blocks_topk(queries, page_table, slot_live, blocks, *, k: int):
     """Per-query paged scan with fused per-page k-min.
 
     ``page_table (Q, NB)`` i32 block ids (-1 absent), ``slot_live (Q, NB,
     BS)`` bool → ``(dists (Q, NB, k), slots (Q, NB, k))``; dead candidates
     carry dist >= BIG."""
-    bias = torch.where(slot_live & (page_table >= 0)[:, :, None], 0.0, BIG)
     return K.scan_per_query_topk(
-        torch.clamp(page_table, min=0).to(torch.int32).contiguous(),
-        queries, blocks, bias.float().contiguous(), k=k,
+        _clamped(page_table), queries, blocks, _per_query_bias(page_table, slot_live), k=k
     )
 
 
@@ -30,10 +70,33 @@ def scan_unique_blocks_topk(queries, unique_blocks, slot_live, blocks, *, k: int
 
     ``unique_blocks (NB,)`` i32 (-1 padding), ``slot_live (NB, BS)`` →
     ``(dists (NB, Q, k), slots (NB, Q, k))``."""
-    bias = torch.where(slot_live & (unique_blocks >= 0)[:, None], 0.0, BIG)
     return K.scan_batched_topk(
-        torch.clamp(unique_blocks, min=0).to(torch.int32).contiguous(),
-        queries, blocks, bias.float().contiguous(), k=k,
+        _clamped(unique_blocks), queries, blocks, _batched_bias(unique_blocks, slot_live), k=k
+    )
+
+
+def _page_sz(page_scale, page_zero):
+    return torch.stack([page_scale.float(), page_zero.float()], dim=-1).contiguous()
+
+
+def scan_posting_blocks_topk_q8(queries, page_table, slot_live, codes,
+                                page_scale, page_zero, *, k: int):
+    """:func:`scan_posting_blocks_topk` over int8 codes; ``page_scale`` and
+    ``page_zero (Q, NB)`` are each page's posting parameters, and the page
+    is dequantised inside the kernel."""
+    return K.scan_per_query_topk_q8(
+        _clamped(page_table), queries, codes, _per_query_bias(page_table, slot_live),
+        _page_sz(page_scale, page_zero), k=k,
+    )
+
+
+def scan_unique_blocks_topk_q8(queries, unique_blocks, slot_live, codes,
+                               page_scale, page_zero, *, k: int):
+    """:func:`scan_unique_blocks_topk` over int8 codes, with per-unique-page
+    ``page_scale`` and ``page_zero (NB,)``."""
+    return K.scan_batched_topk_q8(
+        _clamped(unique_blocks), queries, codes, _batched_bias(unique_blocks, slot_live),
+        _page_sz(page_scale, page_zero), k=k,
     )
 
 

@@ -38,3 +38,26 @@ def scan_batched_topk_ref(unique_blocks, queries, blocks, slot_bias, k: int):
     """(NB, Q, k) per-(page, query) k-min candidates — batched schedule."""
     d = scan_unique_blocks_ref(unique_blocks, queries, blocks)
     return _kmin_ref(d + slot_bias[:, None, :], k)
+
+
+def _dequant(codes, page_sz):
+    """``codes (..., BS, d)`` under per-page ``page_sz (..., 2)`` → f32."""
+    scale = page_sz[..., 0][..., None, None]
+    zero = page_sz[..., 1][..., None, None]
+    return codes.float() * scale + zero
+
+
+def scan_per_query_topk_q8_ref(block_table, queries, blocks, slot_bias, page_sz, k: int):
+    """Dequant-fused per-query oracle: reconstruct ``code*scale+zero`` per
+    page ((Q, NB, 2) params) before the distance math."""
+    g = _dequant(blocks[block_table.long()], page_sz)    # (Q, NB, BS, d)
+    diff = g - queries.float()[:, None, None, :]
+    return _kmin_ref(torch.sum(diff * diff, dim=-1) + slot_bias, k)
+
+
+def scan_batched_topk_q8_ref(unique_blocks, queries, blocks, slot_bias, page_sz, k: int):
+    """Dequant-fused batched oracle ((NB, 2) per-unique-page params)."""
+    g = _dequant(blocks[unique_blocks.long()], page_sz)  # (NB, BS, d)
+    diff = g[:, None, :, :] - queries.float()[None, :, None, :]
+    d = torch.sum(diff * diff, dim=-1) + slot_bias[:, None, :]
+    return _kmin_ref(d, k)

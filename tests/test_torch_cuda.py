@@ -86,6 +86,49 @@ def test_scan_kernels_match_plain(card, dtype, bs, k):
     assert_kmin_close(kd, ki, *SK.scan_batched_topk_plain(ids, q, blocks, ub, k=k), atol=atol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("bs", [32, 8, 4])
+def test_unreduced_scan_kernels_match_plain(card, dtype, bs):
+    gen = torch.Generator().manual_seed(2)
+    blocks = _blocks(gen, 64, bs, 100, dtype, card)
+    q = (torch.randn(9, 100, generator=gen) * (64 if dtype == torch.int8 else 1)).to(card)
+    table = torch.randint(0, 64, (9, 12), generator=gen, dtype=torch.int32).to(card)
+    atol = 1e-2 if dtype == torch.int8 else 1e-4
+    before = dict(SK.LAUNCHES)
+    got = SK.scan_per_query(table, q, blocks)
+    torch.cuda.synchronize()
+    want = SK.scan_per_query_plain(table, q, blocks)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=atol)
+    ids = torch.arange(0, 60, 7, dtype=torch.int32, device=card)
+    got = SK.scan_batched(ids, q, blocks)
+    torch.cuda.synchronize()
+    want = SK.scan_batched_plain(ids, q, blocks)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=atol)
+    assert SK.LAUNCHES["scan_per_query"] == before["scan_per_query"] + 1
+    assert SK.LAUNCHES["scan_batched"] == before["scan_batched"] + 1
+
+
+@pytest.mark.parametrize("bs,k", [(32, 32), (32, 10), (8, 8), (16, 1)])
+def test_q8_scan_kernels_match_plain(card, bs, k):
+    gen = torch.Generator().manual_seed(3)
+    codes = _blocks(gen, 64, bs, 100, torch.int8, card)
+    q = torch.randn(9, 100, generator=gen).to(card)
+    table = torch.randint(0, 64, (9, 12), generator=gen, dtype=torch.int32).to(card)
+    bias = torch.where(torch.rand(9, 12, bs, generator=gen) < 0.3, BIG, 0.0).to(card)
+    bias[0, 0] = BIG                                 # an all-dead page
+    sz = torch.stack([torch.rand(9, 12, generator=gen) * 0.05 + 1e-3,
+                      torch.randn(9, 12, generator=gen)], dim=-1).to(card).contiguous()
+    kd, ki = SK.scan_per_query_topk_q8(table, q, codes, bias, sz, k=k)
+    torch.cuda.synchronize()
+    assert_kmin_close(kd, ki, *SK.scan_per_query_topk_q8_plain(table, q, codes, bias, sz, k=k))
+    ids = torch.arange(0, 60, 5, dtype=torch.int32, device=card)
+    ub = bias[1, : ids.shape[0]].contiguous()
+    usz = sz[1, : ids.shape[0]].contiguous()
+    kd, ki = SK.scan_batched_topk_q8(ids, q, codes, ub, usz, k=k)
+    torch.cuda.synchronize()
+    assert_kmin_close(kd, ki, *SK.scan_batched_topk_q8_plain(ids, q, codes, ub, usz, k=k))
+
+
 def test_wrappers_raise_instead_of_falling_back(card):
     blocks = torch.zeros((4, 8, 10), device=card)            # d % 4 != 0
     with pytest.raises(ValueError):
@@ -113,6 +156,15 @@ def test_index_on_the_card_matches_the_cpu_path(card):
     for sched in ("per_query", "batched"):
         d0, v0 = cpu.search(q, 10, scan_schedule=sched)
         d1, v1 = gpu.search(q, 10, scan_schedule=sched)
+        np.testing.assert_allclose(d0, d1, atol=1e-4)
+        assert (np.abs(d0 - d1)[v0 != v1] < 1e-4).all()
+    # the int8 codec with the exact rerank (rerank_factor=4), both schedules
+    cfg8 = dataclasses.replace(cfg, codec="int8", rerank_factor=4)
+    cpu8 = SPFreshIndex.build(cfg8, base, device="cpu")
+    gpu8 = SPFreshIndex(map_tensors(lambda x: x.to(card), cpu8.state))
+    for sched in ("per_query", "batched"):
+        d0, v0 = cpu8.search(q, 10, scan_schedule=sched)
+        d1, v1 = gpu8.search(q, 10, scan_schedule=sched)
         np.testing.assert_allclose(d0, d1, atol=1e-4)
         assert (np.abs(d0 - d1)[v0 != v1] < 1e-4).all()
     ids = np.arange(5000, 5032, dtype=np.int32)

@@ -1,4 +1,4 @@
-"""Port vs reference for the three kernels of the search path and their ops.
+"""Port vs reference for the seven kernels and their ops.
 
 On the CPU each kernel wrapper runs its plain PyTorch version; the
 reference's Pallas kernels run in interpret mode, as the reference's own
@@ -20,6 +20,8 @@ from repro_torch.kernels.l2_topk.ops import l2_topk
 from repro_torch.kernels.l2_topk.ref import l2_topk_ref
 from repro_torch.kernels.posting_scan import kernel as TK
 from repro_torch.kernels.posting_scan import ops as tops
+from repro.kernels.posting_scan import ref as rref
+from repro_torch.kernels.posting_scan import ref as tref
 from repro_torch.kernels.posting_scan.ref import (
     scan_batched_topk_ref,
     scan_per_query_topk_ref,
@@ -217,6 +219,182 @@ def test_scan_wrappers_enforce_the_kernel_contract(rng, bad):
     with pytest.raises(ValueError):
         TK.scan_batched_topk(torch.zeros(2, dtype=torch.int32), torch.zeros(3, d),
                              blocks, torch.zeros(2, bs), k=k)
+
+
+# ---------------------------------------------------------------------------
+# unreduced scans (#2 scan_per_query, #3 scan_batched), every payload dtype
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("q_n,n_blocks,bs,d,nb", [   # tests/test_kernels_posting_scan.py:32
+    (4, 32, 8, 16, 6),
+    (8, 64, 16, 128, 4),
+    (2, 16, 8, 32, 3),
+    (1, 8, 4, 8, 1),
+])
+def test_scan_per_query_matches(rng, dtype, q_n, n_blocks, bs, d, nb):
+    rblk, tblk, s = _payload(rng, (n_blocks, bs, d), dtype)
+    q = (rng.normal(size=(q_n, d)) / s).astype(np.float32)
+    table = rng.integers(0, n_blocks, size=(q_n, nb)).astype(np.int32)
+    want = np.asarray(RK.scan_per_query(jnp.asarray(table), jnp.asarray(q), rblk,
+                                        interpret=True))
+    got = TK.scan_per_query(t(table), t(q), tblk)
+    assert got.shape == (q_n, nb, bs) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=TOL)
+    # against both direct-diff² oracles (the expansion cancels: a wider
+    # tolerance, as the reference's own test states for this comparison)
+    oracle = rref.scan_posting_blocks_ref(jnp.asarray(table), jnp.asarray(q), rblk)
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle), rtol=RTOL, atol=TOL)
+    np.testing.assert_allclose(
+        got.numpy(), tref.scan_posting_blocks_ref(t(table), t(q), tblk).numpy(),
+        rtol=RTOL, atol=TOL)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("q_n,n_blocks,bs,d,nb", [   # tests/test_kernels_posting_scan.py:48
+    (4, 32, 8, 16, 6),
+    (8, 64, 16, 128, 12),
+    (2, 16, 8, 32, 3),
+])
+def test_scan_batched_matches(rng, dtype, q_n, n_blocks, bs, d, nb):
+    rblk, tblk, s = _payload(rng, (n_blocks, bs, d), dtype)
+    q = (rng.normal(size=(q_n, d)) / s).astype(np.float32)
+    ids = rng.choice(n_blocks, size=nb, replace=False).astype(np.int32)
+    want = np.asarray(RK.scan_batched(jnp.asarray(ids), jnp.asarray(q), rblk,
+                                      interpret=True))
+    got = TK.scan_batched(t(ids), t(q), tblk)
+    assert got.shape == (nb, q_n, bs)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=TOL)
+    np.testing.assert_allclose(
+        got.numpy(), tref.scan_unique_blocks_ref(t(ids), t(q), tblk).numpy(),
+        rtol=RTOL, atol=TOL)
+
+
+def test_scan_posting_blocks_and_unique_blocks_ops_match(rng):
+    """The ops wrappers: block table from posting ids, absent pages and
+    padding masked to BIG (tests/test_kernels_posting_scan.py:65,86)."""
+    n_blocks, bs, d = 16, 4, 8
+    blocks = rng.normal(size=(n_blocks, bs, d)).astype(np.float32)
+    q = rng.normal(size=(2, d)).astype(np.float32)
+    posting_blocks = np.array([[0, 1, -1, -1], [2, -1, -1, -1], [3, 4, 5, -1]], np.int32)
+    pids = np.array([[0, 2], [1, -1]], np.int32)
+    rd, rok = rops.scan_posting_blocks(jnp.asarray(q), jnp.asarray(posting_blocks),
+                                       jnp.asarray(pids), jnp.asarray(blocks),
+                                       interpret=True)
+    td, tok = tops.scan_posting_blocks(t(q), t(posting_blocks), t(pids), t(blocks))
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(rok))
+    rd, td = np.asarray(rd), td.numpy()
+    live = rd < BIG / 2
+    np.testing.assert_array_equal(td < BIG / 2, live)
+    np.testing.assert_allclose(td[live], rd[live], rtol=RTOL, atol=TOL)
+    ids = np.array([2, 5, -1, -1], np.int32)
+    rd = np.asarray(rops.scan_unique_blocks(jnp.asarray(q), jnp.asarray(ids),
+                                            jnp.asarray(blocks), interpret=True))
+    td = tops.scan_unique_blocks(t(q), t(ids), t(blocks)).numpy()
+    assert (td[2:] >= BIG / 2).all()
+    np.testing.assert_allclose(td[:2], rd[:2], rtol=RTOL, atol=TOL)
+
+
+# ---------------------------------------------------------------------------
+# int8-code scans (#5 scan_per_query_topk_q8, #7 scan_batched_topk_q8)
+# ---------------------------------------------------------------------------
+
+def _q8_inputs(rng, lead, n_blocks, bs, d):
+    codes = rng.integers(-127, 128, size=(n_blocks, bs, d)).astype(np.int8)
+    q = rng.normal(size=(lead[0], d)).astype(np.float32)
+    page_sz = np.stack([rng.uniform(1e-3, 0.1, size=lead[1:]),
+                        rng.normal(size=lead[1:])], axis=-1).astype(np.float32)
+    return codes, q, page_sz
+
+
+@pytest.mark.parametrize("q_n,n_blocks,bs,d,nb,k", [   # tests/test_codec.py:123
+    (4, 32, 8, 16, 6, 4),
+    (2, 16, 8, 32, 3, 8),
+    (3, 24, 32, 100, 5, 32),    # the spfresh-1b page, kpage = 32
+])
+def test_scan_per_query_topk_q8_matches(rng, q_n, n_blocks, bs, d, nb, k):
+    codes, q, page_sz = _q8_inputs(rng, (q_n, q_n, nb), n_blocks, bs, d)
+    table = rng.integers(0, n_blocks, size=(q_n, nb)).astype(np.int32)
+    bias = np.where(rng.random(size=(q_n, nb, bs)) < 0.3, BIG, 0.0).astype(np.float32)
+    bias[0, 0] = BIG                                    # an all-dead page
+    args = (table, q, codes, bias, page_sz)
+    rd, ri = RK.scan_per_query_topk_q8(*map(jnp.asarray, args), k=k, interpret=True)
+    td, ti = TK.scan_per_query_topk_q8(*map(t, args), k=k)
+    assert td.shape == (q_n, nb, k) and ti.dtype == torch.int32
+    assert_tie_tolerant(np.asarray(rd), np.asarray(ri), td.numpy(), ti.numpy())
+    od, oi = rref.scan_per_query_topk_q8_ref(*map(jnp.asarray, args), k=k)
+    assert_tie_tolerant(np.asarray(od), np.asarray(oi), td.numpy(), ti.numpy())
+    od, oi = tref.scan_per_query_topk_q8_ref(*map(t, args), k=k)
+    assert_tie_tolerant(od.numpy(), oi.numpy(), td.numpy(), ti.numpy())
+
+
+@pytest.mark.parametrize("q_n,n_blocks,bs,d,nb,k", [   # tests/test_codec.py:152
+    (4, 32, 8, 16, 6, 4),
+    (8, 64, 16, 128, 5, 8),
+    (5, 24, 32, 100, 7, 32),
+])
+def test_scan_batched_topk_q8_matches(rng, q_n, n_blocks, bs, d, nb, k):
+    codes, q, page_sz = _q8_inputs(rng, (q_n, nb), n_blocks, bs, d)
+    ids = rng.choice(n_blocks, size=nb, replace=False).astype(np.int32)
+    bias = np.where(rng.random(size=(nb, bs)) < 0.3, BIG, 0.0).astype(np.float32)
+    bias[-1] = BIG
+    args = (ids, q, codes, bias, page_sz)
+    rd, ri = RK.scan_batched_topk_q8(*map(jnp.asarray, args), k=k, interpret=True)
+    td, ti = TK.scan_batched_topk_q8(*map(t, args), k=k)
+    assert td.shape == (nb, q_n, k)
+    assert_tie_tolerant(np.asarray(rd), np.asarray(ri), td.numpy(), ti.numpy())
+    od, oi = rref.scan_batched_topk_q8_ref(*map(jnp.asarray, args), k=k)
+    assert_tie_tolerant(np.asarray(od), np.asarray(oi), td.numpy(), ti.numpy())
+    od, oi = tref.scan_batched_topk_q8_ref(*map(t, args), k=k)
+    assert_tie_tolerant(od.numpy(), oi.numpy(), td.numpy(), ti.numpy())
+
+
+@pytest.mark.parametrize("schedule", ["per_query", "batched"])
+def test_q8_wrapper_equals_fp32_wrapper_over_decoded_pages(rng, schedule):
+    """The q8 ops wrapper over codes equals the fp32 wrapper over the
+    payload decoded page by page under each page's own parameters
+    (tests/test_codec.py:181): the dequant is the only difference."""
+    n_blocks, bs, d, q_n, nb, k = 16, 8, 16, 3, 4, 4
+    codes = rng.integers(-127, 128, size=(n_blocks, bs, d)).astype(np.int8)
+    q = rng.normal(size=(q_n, d)).astype(np.float32)
+    if schedule == "per_query":
+        table = rng.integers(-1, n_blocks, size=(q_n, nb)).astype(np.int32)
+        lead = (q_n, nb)
+        live = rng.random(size=(q_n, nb, bs)) < 0.8
+    else:
+        table = np.sort(rng.choice(n_blocks, size=nb, replace=False)).astype(np.int32)
+        table[-1] = -1
+        lead = (nb,)
+        live = rng.random(size=(nb, bs)) < 0.8
+    scale = rng.uniform(1e-3, 0.05, size=lead).astype(np.float32)
+    zero = rng.normal(size=lead).astype(np.float32)
+    # decode each probed page under its own parameters into a pool of its
+    # own, page i of the flattened table at block i
+    dec = (codes[np.maximum(table, 0)].astype(np.float32)
+           * scale[..., None, None] + zero[..., None, None])
+    own = np.where(table >= 0, np.arange(table.size).reshape(table.shape), -1)
+    own = own.astype(np.int32)
+    pool = t(dec.reshape(-1, bs, d))
+    if schedule == "per_query":
+        got = tops.scan_posting_blocks_topk_q8(t(q), t(table), t(live), t(codes),
+                                               t(scale), t(zero), k=k)
+        want = tops.scan_posting_blocks_topk(t(q), t(own), t(live), pool, k=k)
+    else:
+        got = tops.scan_unique_blocks_topk_q8(t(q), t(table), t(live), t(codes),
+                                              t(scale), t(zero), k=k)
+        want = tops.scan_unique_blocks_topk(t(q), t(own), t(live), pool, k=k)
+    assert_tie_tolerant(want[0].numpy(), want[1].numpy(), got[0].numpy(), got[1].numpy())
+
+
+def test_q8_wrappers_take_int8_codes_only(rng):
+    blocks = torch.zeros((4, 8, 12), dtype=torch.float32)
+    with pytest.raises(ValueError):
+        TK.scan_batched_topk_q8(torch.zeros(2, dtype=torch.int32), torch.zeros(3, 12),
+                                blocks, torch.zeros(2, 8), torch.ones(2, 2), k=4)
+    with pytest.raises(ValueError):                     # page_sz shape
+        TK.scan_batched_topk_q8(torch.zeros(2, dtype=torch.int32), torch.zeros(3, 12),
+                                blocks.to(torch.int8), torch.zeros(2, 8),
+                                torch.ones(3, 2), k=4)
 
 
 # ---------------------------------------------------------------------------
