@@ -10,7 +10,9 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 2. Holds each of the seven kernels against its plain PyTorch version on
    the card, at the spfresh-1b shapes and at ragged small shapes, and times
    both and the shortest composition of library calls for the same
-   function.
+   function.  #1 is also held on a tie-heavy and a negative-distance
+   input; #6 is also timed on the main path's page mix (10,393 live rows
+   of the 32,768-row budget, the rest padding).
 3. Drives two main paths through ``SPFreshIndex`` at the full spfresh-1b
    per-shard geometry (``CONFIG_PAGED`` with kernel navigation), each from
    N=1,000,000 int8-valued vectors of one seed, the first path's state
@@ -49,9 +51,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 non-tensor FLOP/s.
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 non-tensor FLOP/s
+# and dense TF32 tensor-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 
 # Vectors the main path builds from: half of the ~2M live vectors the
 # spfresh-1b shard is sized for (at 2M the build's posting count nears
@@ -143,10 +147,19 @@ def compare_kmin(kd, ki, pd, pi, *, rtol=RTOL, atol=1e-3, big=3.0e38):
     return max_err, int(swap.sum())
 
 
-def bound(bytes_moved: float, flops: float):
+def bound(bytes_moved: float, flops: float, flop_per_s: float = F32_FLOP_PER_S):
     t_b = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_f = flops / F32_FLOP_PER_S * 1e3
+    t_f = flops / flop_per_s * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def tf32_passes(payload_dtype) -> int:
+    """Split-TF32 products the tensor-core kernels take: q_hi.b + q_lo.b
+    where TF32 holds the payload exactly (int8, bf16), three with b split
+    too (f32)."""
+    import torch
+
+    return 3 if payload_dtype == torch.float32 else 2
 
 
 # ---------------------------------------------------------------------------
@@ -172,29 +185,57 @@ def phase_l2_topk(torch, gen, results):
     plain_ms = cuda_ms(lambda: K.l2_topk_tiles_plain(q, c, csq, k=k, block_p=block_p), reps=3)
     lib_ms = cuda_ms(lambda: torch.topk(torch.cdist(q, c), k, largest=False), reps=3)
     t = p_n // block_p
-    b_ms, b_by = bound(4 * (q_n * d + p_n * d + p_n) + 8 * q_n * t * k, 2.0 * q_n * p_n * d)
+    by = 4 * (q_n * d + p_n * d + p_n) + 8 * q_n * t * k
+    b_ms, b_by = bound(by, 2.0 * q_n * p_n * d)
+    # the kernel's three split-TF32 passes on the tensor cores
+    tc_ms, tc_by = bound(by, 3 * 2.0 * q_n * p_n * d, TF32_FLOP_PER_S)
+    # tie-heavy at the full shape: 20 distinct centroids repeated, so every
+    # 512-column tile holds each distance 25 or 26 times and the k-th value
+    # is shared by more columns than are kept.  The distinct ones lie 1000
+    # apart on axis 0, so their distances differ by ~1e6 and duplicates are
+    # bit-equal: a correct kernel keeps the plain version's columns (the
+    # lowest of each tie) index for index
+    g = torch.arange(p_n, device=dev) % 20
+    c_tie = c[g].contiguous()
+    c_tie[:, 0] += 1000.0 * g
+    s_tie = torch.sum(c_tie * c_tie, dim=1)[None].contiguous()
+    a = K.l2_topk_tiles(q, c_tie, s_tie, k=k, block_p=block_p)
+    torch.cuda.synchronize()
+    e2, tie_swaps = compare_kmin(*a, *K.l2_topk_tiles_plain(q, c_tie, s_tie, k=k, block_p=block_p))
+    check(tie_swaps == 0, f"{tie_swaps} candidates of the tie-heavy input are not the "
+          "lowest columns of their tie")
+    err = max(err, e2)
+    del g, c_tie, s_tie, a
     # ragged small shapes: Q not a multiple of the 32-row tile, invalid
-    # centroids, a 128-wide tile
-    for (qs, ps, bp, kk) in ((37, 1024, 512, 64), (5, 384, 128, 5)):
+    # centroids, a 128-wide tile; then distances below zero (unit scale,
+    # c_sqn lowered by 0.5, each query next to one centroid)
+    for (qs, ps, bp, kk, neg) in ((37, 1024, 512, 64, False), (5, 384, 128, 5, False),
+                                  (64, 2048, 256, 16, True)):
         q2 = torch.randn(qs, 16, device=dev, generator=gen)
         c2 = torch.randn(ps, 16, device=dev, generator=gen)
         s2 = torch.sum(c2 * c2, dim=1)
-        s2[::3] = 3.0e38
+        if neg:
+            q2 = c2[torch.randint(0, ps, (qs,), device=dev, generator=gen)] + 0.01 * q2
+            s2 = s2 - 0.5
+        else:
+            s2[::3] = 3.0e38
         s2 = s2[None].contiguous()
         a = K.l2_topk_tiles(q2, c2, s2, k=kk, block_p=bp)
         torch.cuda.synchronize()
         e2, _ = compare_kmin(*a, *K.l2_topk_tiles_plain(q2, c2, s2, k=kk, block_p=bp), atol=1e-4)
+        check(not neg or bool((a[0].min(dim=1).values < 0).all()), "no negative distance kept")
         err = max(err, e2)
     log(f"l2_topk_tiles: max_abs_err={err:.3g} ({TOL_TEXT}, atol 1e-3 / 1e-4 ragged) "
-        f"tie_swaps={swaps} ms={ms:.4f} "
+        f"tie_swaps={swaps} (tie-heavy input: {tie_swaps}) ms={ms:.4f} "
         f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (topk(cdist), two calls) "
-        f"bound_ms={b_ms:.4f} ({b_by})")
+        f"bound_ms={b_ms:.4f} ({b_by}) tensor_core_bound_ms={tc_ms:.4f} "
+        f"({tc_by}, 3 TF32 passes)")
     results["l2_topk_tiles"] = dict(
         name="l2_topk_tiles", route="cuda",
         source="src/repro_torch/kernels/csrc/l2_topk.cu",
         replaces="src/repro/kernels/l2_topk/kernel.py:60",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib_ms,
+        bound_by=b_by, library_ms=lib_ms, tensor_core_bound_ms=tc_ms,
     )
 
 
@@ -272,19 +313,19 @@ def check_library(torch, got, want, what):
           f"the library composition for {what} disagrees with the plain version")
 
 
-def _result(name, replaces, err, ms, plain_ms, lib_ms, b):
+def _result(name, replaces, err, ms, plain_ms, lib_ms, b, source="posting_scan.cu"):
     return dict(
-        name=name, route="cuda", source="src/repro_torch/kernels/csrc/posting_scan.cu",
+        name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",
         replaces=f"src/repro/kernels/posting_scan/kernel.py:{replaces}",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
         library_ms=lib_ms,
     )
 
 
-def _log_kernel(name, err, swaps, ms, plain_ms, lib_ms, b, extra=""):
+def _log_kernel(name, err, swaps, ms, plain_ms, lib_ms, b, extra="", tail=""):
     log(f"{name}: max_abs_err={err:.3g} ({TOL_TEXT}, atol 1e-2) tie_swaps={swaps} "
         f"ms={ms:.4f} plain_ms={plain_ms:.4f}{extra} library_ms={lib_ms:.4f} "
-        f"({LIB_TEXT[name]}) bound_ms={b[0]:.4f} ({b[1]})")
+        f"({LIB_TEXT[name]}) bound_ms={b[0]:.4f} ({b[1]}){tail}")
 
 
 # spfresh-1b scan shapes: per_query Q=1024 x NB=nprobe*MB=256 pages of
@@ -293,6 +334,9 @@ def _log_kernel(name, err, swaps, ms, plain_ms, lib_ms, b, extra=""):
 # for the fp32 and bf16 codecs, min(10*4, BS) = 32 for int8 with rerank.
 PQ = dict(q_n=1024, nb=256, bs=32, d=100, n_blocks=262_144)
 BATCHED_NB = 32_768
+# distinct pages one Q=1024 search probes on the main path (PERF.md §4):
+# the rest of the batched budget is padding
+MAIN_PATH_PAGES = 10_393
 PLAIN_STEP = 2048      # pages per chunk of a batched plain version
 
 
@@ -377,7 +421,10 @@ def phase_scan_batched(torch, gen, results, blocks):
     plain_ms = cuda_ms(plain_all, reps=1, warm=1)
     lib_ms = cuda_ms(lambda: lib_batched(torch, ids, q, blocks, bias, k=k), reps=1, warm=1)
     by = nb * bs * d + 4 * (nb + q.numel() + bias.numel()) + 8 * nb * q_n * k
-    b = bound(by, 2.0 * nb * q_n * bs * d)
+    flops = 2.0 * nb * q_n * bs * d
+    b = bound(by, flops)
+    passes = tf32_passes(blocks.dtype)
+    tc = bound(by, passes * flops, TF32_FLOP_PER_S)
     for dtype in (torch.float32, torch.bfloat16, torch.int8):     # ragged small
         blk = _pool(torch, gen, 40, 32, 100, dtype)
         q2 = torch.randn(13, 100, device="cuda", generator=gen)
@@ -389,9 +436,51 @@ def phase_scan_batched(torch, gen, results, blocks):
         e2, _ = compare_kmin(*a, *K.scan_batched_topk_plain(u2, q2, blk, b2, k=10), atol=1e-2)
         err = max(err, e2)
     _log_kernel("scan_batched_topk", err, swaps, ms, plain_ms, lib_ms, b,
-                f" (page chunks of {step})")
+                f" (page chunks of {step})",
+                f" tensor_core_bound_ms={tc[0]:.4f} ({tc[1]}, {passes} TF32 passes)")
     results["scan_batched_topk"] = _result("scan_batched_topk", 288, err, ms,
-                                           plain_ms, lib_ms, b)
+                                           plain_ms, lib_ms, b, source="scan_batched_topk.cu")
+    results["scan_batched_topk"]["tensor_core_bound_ms"] = tc[0]
+    results["scan_batched_topk"]["main_mix"] = _batched_main_mix(torch, gen, blocks, q, k)
+
+
+def _batched_main_mix(torch, gen, blocks, q, k):
+    """#6 on the main path's page mix: the 32,768-row budget holds
+    ``MAIN_PATH_PAGES`` real rows, the rest -1, clamped to page 0 with a
+    +BIG bias, as ``ops.scan_unique_blocks_topk`` builds them.  The bound
+    counts what these inputs need: the product over the live pages only,
+    and every candidate written."""
+    from repro_torch.kernels.posting_scan import kernel as K
+    from repro_torch.kernels.posting_scan import ops
+
+    nb, bs, d, live_n = BATCHED_NB, PQ["bs"], PQ["d"], MAIN_PATH_PAGES
+    real = torch.sort(torch.randperm(blocks.shape[0], device="cuda", generator=gen)[:live_n]).values
+    uniq = torch.full((nb,), -1, dtype=torch.int32, device="cuda")
+    uniq[:live_n] = real.to(torch.int32)
+    slot_live = torch.rand(nb, bs, device="cuda", generator=gen) >= 0.2
+    ids, bias = ops._clamped(uniq), ops._batched_bias(uniq, slot_live)
+    kd, ki = K.scan_batched_topk(ids, q, blocks, bias, k=k)
+    torch.cuda.synchronize()
+    s = live_n - PLAIN_STEP // 2                          # across the live/padding edge
+    pd, pi = K.scan_batched_topk_plain(ids[s:s + PLAIN_STEP], q, blocks, bias[s:s + PLAIN_STEP], k=k)
+    err, _ = compare_kmin(kd[s:s + PLAIN_STEP], ki[s:s + PLAIN_STEP], pd, pi, atol=1e-2)
+    slots = torch.arange(k, dtype=torch.int32, device="cuda")
+    check(bool((kd[live_n:] == 3.0e38).all()) and bool((ki[live_n:] == slots).all()),
+          "a padding row's candidates are not (BIG, slots 0..k-1)")
+    del kd, ki, pd, pi
+    ms = cuda_ms(lambda: K.scan_batched_topk(ids, q, blocks, bias, k=k), reps=5)
+    q_n = q.shape[0]
+    by = live_n * bs * d + 4 * (nb + q.numel() + bias.numel()) + 8 * nb * q_n * k
+    flops = 2.0 * live_n * q_n * bs * d
+    b = bound(by, flops)
+    passes = tf32_passes(blocks.dtype)
+    tc = bound(by, passes * flops, TF32_FLOP_PER_S)
+    log(f"scan_batched_topk (main path mix: {live_n} live of {nb} rows): ms={ms:.4f} "
+        f"max_abs_err={err:.3g} bound_ms={b[0]:.4f} ({b[1]}; the product over the live "
+        f"pages, every candidate written) tensor_core_bound_ms={tc[0]:.4f} "
+        f"({tc[1]}, {passes} TF32 passes)")
+    return dict(live_pages=live_n, ms=ms, max_abs_err=err, bound_ms=b[0], bound_by=b[1],
+                tensor_core_bound_ms=tc[0], tensor_core_bound_by=tc[1])
 
 
 def phase_scan_unreduced(torch, gen, results, blocks):
@@ -903,6 +992,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     for name, n in launches.items():
         results[name]["launches"] = n
+    for name in ("l2_topk_tiles", "scan_batched_topk"):
+        report[f"{name}_tensor_core_bound_ms"] = results[name]["tensor_core_bound_ms"]
+    report["scan_batched_topk_main_mix"] = results["scan_batched_topk"]["main_mix"]
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

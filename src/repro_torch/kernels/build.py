@@ -1,12 +1,13 @@
 """Build and load the CUDA kernels of ``kernels/csrc`` (Hopper, ``sm_90a``).
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
-with a plain C interface, loaded with ``ctypes``.  Libraries go into
-``build/kernels/`` at the root of the checkout (listed in ``.gitignore``),
-named by a hash of their source, so an edited source is rebuilt and an
-unchanged one is reused.  Nothing is built at import time:
-:func:`library` builds on first use, and :func:`build_all` builds every
-source at once, one ``nvcc`` process each, all started together.
+with a plain C interface, loaded with ``ctypes``; ``csrc/*.cuh`` are
+headers the sources share.  Libraries go into ``build/kernels/`` at the
+root of the checkout (listed in ``.gitignore``), named by a hash of their
+source and the shared headers, so an edited source is rebuilt and an
+unchanged one is reused.  Nothing is built at import time: :func:`library`
+builds on first use, and :func:`build_all` builds every source at once,
+one ``nvcc`` process each, all started together.
 """
 from __future__ import annotations
 
@@ -35,8 +36,6 @@ SIGNATURES = {
     "posting_scan": {
         # table, q, blocks, dtype, bias, out_d, out_i, Q, NB, BS, d, k, stream
         "scan_per_query_topk": [_P, _P, _P, _C, _P, _P, _P, _C, _C, _C, _C, _C, _P],
-        # ids, q, blocks, dtype, bias, out_d, out_i, NB, Q, BS, d, k, stream
-        "scan_batched_topk": [_P, _P, _P, _C, _P, _P, _P, _C, _C, _C, _C, _C, _P],
         # table, q, blocks, dtype, out_d, Q, NB, BS, d, stream
         "scan_per_query": [_P, _P, _P, _C, _P, _C, _C, _C, _C, _P],
         # ids, q, blocks, dtype, out_d, NB, Q, BS, d, stream
@@ -45,6 +44,10 @@ SIGNATURES = {
         "scan_per_query_topk_q8": [_P, _P, _P, _P, _P, _P, _P, _C, _C, _C, _C, _C, _P],
         # ids, q, codes, bias, sz, out_d, out_i, NB, Q, BS, d, k, stream
         "scan_batched_topk_q8": [_P, _P, _P, _P, _P, _P, _P, _C, _C, _C, _C, _C, _P],
+    },
+    "scan_batched_topk": {
+        # ids, q, blocks, dtype, bias, out_d, out_i, NB, Q, BS, d, k, stream
+        "scan_batched_topk": [_P, _P, _P, _C, _P, _P, _P, _C, _C, _C, _C, _C, _P],
     },
 }
 
@@ -57,7 +60,11 @@ def nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    """Keyed by the source and every shared header it may include."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 

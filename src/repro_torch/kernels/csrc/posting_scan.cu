@@ -1,11 +1,13 @@
 // Paged posting scan (sm_90a): both schedules, with and without the fused
 // per-page k-min, over raw payloads and over int8 codes.
 //
-// Replaces six TPU kernels of src/repro/kernels/posting_scan/kernel.py:
+// Replaces five TPU kernels of src/repro/kernels/posting_scan/kernel.py:
 //   * `scan_per_query` / `scan_per_query_topk` / `scan_per_query_topk_q8`:
 //     page table[q, j] scored against query q;
-//   * `scan_batched` / `scan_batched_topk` / `scan_batched_topk_q8`: each
-//     unique page ids[i] scored against every query.
+//   * `scan_batched` / `scan_batched_topk_q8`: each unique page ids[i]
+//     scored against every query.
+// The sixth, `scan_batched_topk`, has a tensor-core kernel of its own
+// (scan_batched_topk.cu); the FFMA batched loop below serves #3 and #7.
 // All compute d = max(||q||^2 - 2 q.b + ||b||^2, 0) per slot.  The `_topk`
 // forms add a per-slot bias (0 live, +BIG dead) and emit each (page,
 // query) pair's k smallest distances with their slot indices, lowest slot
@@ -314,18 +316,6 @@ extern "C" int scan_per_query_topk(const int* table, const float* q,
   cudaStream_t s = (cudaStream_t)stream;
   DISPATCH_DTYPE(launch_per_query, false, true, table, q, blocks, bias, nullptr,
                  out_d, out_i, n_q, nb, bs, d, k, s)
-}
-
-extern "C" int scan_batched_topk(const int* ids, const float* q,
-                                 const void* blocks, int dtype,
-                                 const float* bias, float* out_d, int* out_i,
-                                 int nb, int n_q, int bs, int d, int k,
-                                 void* stream) {
-  if (bad_shape(bs, d, k)) return (int)cudaErrorInvalidValue;
-  if (n_q == 0 || nb == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  DISPATCH_DTYPE(launch_batched, false, true, ids, q, blocks, bias, nullptr,
-                 out_d, out_i, nb, n_q, bs, d, k, s)
 }
 
 // Full distances (Q, NB, BS), no bias, no k-min.

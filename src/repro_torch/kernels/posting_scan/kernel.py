@@ -7,8 +7,10 @@ Replaces the six TPU kernels of ``repro/kernels/posting_scan/kernel.py``:
 k-min), and their int8-code forms ``scan_per_query_topk_q8`` and
 ``scan_batched_topk_q8`` (each page dequantised as ``code * scale +
 zero`` with its posting's parameters).  The kernels themselves are in
-``kernels/csrc/posting_scan.cu``.  For tensors on the CPU a wrapper runs
-the plain version; for CUDA tensors it launches the kernel or raises.
+``kernels/csrc/posting_scan.cu``, apart from ``scan_batched_topk``'s
+tensor-core kernel in ``kernels/csrc/scan_batched_topk.cu``.  For tensors
+on the CPU a wrapper runs the plain version; for CUDA tensors it launches
+the kernel or raises.
 
 Contract: ``BS <= 32`` (one lane per slot), ``k <= BS``, ``d % 4 == 0``;
 the payload is float32, bfloat16 or int8 (int8 codes for the ``_q8``
@@ -134,14 +136,14 @@ def _on_cpu(blocks) -> bool:
     return blocks.device.type == "cpu"
 
 
-def _launch(fn_name, blocks, *args):
-    """Call the C entry ``fn_name`` (tensors by pointer) on the current
-    stream, raise on its CUDA error code, count the launch."""
+def _launch(fn_name, blocks, *args, lib="posting_scan"):
+    """Call the C entry ``fn_name`` of library ``lib`` (tensors by pointer)
+    on the current stream, raise on its CUDA error code, count the launch."""
     from repro_torch.kernels.build import check, library
 
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     stream = torch.cuda.current_stream(blocks.device).cuda_stream
-    check(getattr(library("posting_scan"), fn_name)(*ptrs, stream), fn_name)
+    check(getattr(library(lib), fn_name)(*ptrs, stream), fn_name)
     LAUNCHES[fn_name] += 1
 
 
@@ -221,7 +223,8 @@ def scan_batched_topk(unique_blocks, queries, blocks, slot_bias, *, k: int):
         return scan_batched_topk_plain(unique_blocks, queries, blocks, slot_bias, k=k)
     out_d, out_i = _outputs((nb, q_n, k), blocks)
     _launch("scan_batched_topk", blocks, unique_blocks, queries, blocks,
-            _DTYPE_CODE[blocks.dtype], slot_bias, out_d, out_i, nb, q_n, bs, dim, k)
+            _DTYPE_CODE[blocks.dtype], slot_bias, out_d, out_i, nb, q_n, bs, dim, k,
+            lib="scan_batched_topk")
     return out_d, out_i
 
 

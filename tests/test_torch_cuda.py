@@ -66,6 +66,86 @@ def test_l2_topk_tiles_kernel_matches_plain(card, q_n, p_n, block_p, k, d):
     assert_kmin_close(kd, ki, *LK.l2_topk_tiles_plain(q, c, csq, k=k, block_p=block_p))
 
 
+def _tile_inputs(case, q_n, p_n, gen):
+    """Navigation inputs at unit scale (d=16) for the edge cases of the
+    tile k-min: exact ties across the k-th value, distances below zero,
+    a tile masked whole."""
+    d = 16
+    c = torch.randn(p_n, d, generator=gen) * 0.5
+    q = torch.randn(q_n, d, generator=gen) * 0.5
+    if case == "ties":                      # 8 distinct centroids, repeated
+        c = c[torch.arange(p_n) % 8]
+    csq = torch.sum(c * c, dim=1)
+    if case == "negative":                  # d = ||q - c||^2 - 0.5
+        q = c[torch.randint(0, p_n, (q_n,), generator=gen)] + 0.01 * q
+        csq = csq - 0.5
+    if case == "all_big":                   # the first tile masked whole
+        csq[: p_n // 2] = BIG
+    return q, c, csq[None].contiguous()
+
+
+@pytest.mark.parametrize("case,q_n,p_n,block_p,k", [
+    ("ties", 37, 1024, 512, 64), ("ties", 37, 1024, 512, 50), ("ties", 40, 256, 128, 128),
+    ("ties", 33, 128, 64, 1),
+    ("negative", 45, 512, 256, 16), ("negative", 7, 128, 64, 64),
+    ("all_big", 70, 1024, 512, 512), ("all_big", 9, 256, 128, 3),
+])
+def test_l2_topk_tiles_kernel_edge_cases(card, case, q_n, p_n, block_p, k):
+    gen = torch.Generator().manual_seed(4)
+    q, c, csq = (x.to(card) for x in _tile_inputs(case, q_n, p_n, gen))
+    kd, ki = LK.l2_topk_tiles(q, c, csq, k=k, block_p=block_p)
+    torch.cuda.synchronize()
+    pd, pi = LK.l2_topk_tiles_plain(q, c, csq, k=k, block_p=block_p)
+    assert_kmin_close(kd, ki, pd, pi)
+    # each tile's candidates ascend by (value, index)
+    t = p_n // block_p
+    kd3, ki3 = kd.reshape(q_n, t, k).cpu(), ki.reshape(q_n, t, k).cpu()
+    step_d, step_i = kd3[..., 1:] - kd3[..., :-1], ki3[..., 1:] - ki3[..., :-1]
+    assert bool(((step_d > 0) | ((step_d == 0) & (step_i > 0))).all())
+    if case == "ties":
+        # the 8 distinct distances of a query lie well apart and duplicates
+        # are bit-equal, so the kept columns (the lowest of each tie, also
+        # where the k-th value is cut) are the plain version's, index for index
+        u = c[:8].double().cpu()
+        dist = torch.sort(((q.double().cpu()[:, None] - u[None]) ** 2).sum(-1), dim=1).values
+        assert float((dist[:, 1:] - dist[:, :-1]).min()) > 1e-4
+        assert torch.equal(ki.cpu(), pi.cpu())
+    if case == "negative":
+        assert bool((kd.min(dim=1).values < 0).all())   # each query's own centroid
+    if case == "all_big":
+        assert bool((kd[:, :k] >= BIG / 2).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("bs,k", [(32, 32), (32, 10), (32, 1), (8, 8)])
+def test_scan_batched_topk_kernel_dead_pages(card, dtype, bs, k):
+    """All-dead pages at the start, middle and end of the id list, pages
+    with one live slot, Q not a multiple of the 64-query tile; a dead page
+    gives exactly (float32(3e38), slots 0..k-1)."""
+    gen = torch.Generator().manual_seed(5)
+    blocks = _blocks(gen, 64, bs, 100, dtype, card)
+    q_n = 70
+    q = (torch.randn(q_n, 100, generator=gen) * (64 if dtype == torch.int8 else 1)).to(card)
+    ids = torch.randint(0, 64, (21,), generator=gen, dtype=torch.int32).to(card)
+    bias = torch.where(torch.rand(21, bs, generator=gen) < 0.3, BIG, 0.0)
+    dead = [0, 10, 20]
+    bias[dead] = BIG
+    for page in (3, 12):                    # one live slot
+        bias[page] = BIG
+        bias[page, bs // 2] = 0.0
+    bias = bias.to(card).contiguous()
+    before = SK.LAUNCHES["scan_batched_topk"]
+    kd, ki = SK.scan_batched_topk(ids, q, blocks, bias, k=k)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES["scan_batched_topk"] == before + 1
+    atol = 1e-2 if dtype == torch.int8 else 1e-4
+    assert_kmin_close(kd, ki, *SK.scan_batched_topk_plain(ids, q, blocks, bias, k=k), atol=atol)
+    big = torch.tensor(BIG, dtype=torch.float32)
+    assert bool((kd[dead].cpu() == big).all())
+    assert bool((ki[dead].cpu() == torch.arange(k, dtype=torch.int32)).all())
+    assert bool((kd[[3, 12], :, 0] < BIG / 2).all())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("bs,k", [(32, 10), (8, 8), (16, 1)])
 def test_scan_kernels_match_plain(card, dtype, bs, k):

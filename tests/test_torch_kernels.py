@@ -105,6 +105,27 @@ def test_l2_topk_tiles_plain_matches_pallas(rng, block_p, k):
     assert_tie_tolerant(np.asarray(rd), np.asarray(ri), td.numpy(), ti.numpy())
 
 
+@pytest.mark.parametrize("block_p,k,distinct", [(128, 20, 8), (64, 10, 4), (512, 40, 16), (128, 1, 2)])
+def test_l2_topk_tiles_plain_matches_pallas_on_ties(rng, block_p, k, distinct):
+    """Centroids repeat a few distinct rows, so every tile holds each
+    distance many times and the k-th value is shared by more columns than
+    are kept: both keep the lowest indices.  Integer data keeps every sum
+    exact, so the two agree index for index."""
+    q = rng.integers(-3, 4, size=(9, 24)).astype(np.float32)
+    c = rng.integers(-3, 4, size=(distinct, 24)).astype(np.float32)[np.arange(2 * block_p) % distinct]
+    csq = np.sum(c * c, axis=1)
+    rd, ri = r_tiles(jnp.asarray(q), jnp.asarray(c), jnp.asarray(csq[None]),
+                     k=k, block_q=9, block_p=block_p, interpret=True)
+    td, ti = TLK.l2_topk_tiles(t(q), t(c), t(csq[None]), k=k, block_p=block_p)
+    np.testing.assert_array_equal(td.numpy(), np.asarray(rd))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ri))
+    d = td.numpy().reshape(9, 2, k)
+    kth = d[..., -1:]                       # the k-th value of each tile
+    n_at_kth = (np.sum(q * q, 1)[:, None, None] - 2 * (q @ c.T).reshape(9, 2, block_p)
+                + csq.reshape(1, 2, block_p)) == kth
+    assert (n_at_kth.sum(-1) > (d == kth).sum(-1)).any()   # ties straddle the k-th
+
+
 def test_l2_topk_tiles_rejects_bad_tiling(rng):
     q = t(rng.normal(size=(4, 8)).astype(np.float32))
     c = t(rng.normal(size=(100, 8)).astype(np.float32))
@@ -201,6 +222,33 @@ def test_scan_plain_versions_match_pallas_kernels(rng):
                                   jnp.asarray(blocks), jnp.asarray(ub),
                                   k=5, interpret=True)
     td, ti = TK.scan_batched_topk(t(ids), t(q), t(blocks), t(ub), k=5)
+    assert_tie_tolerant(np.asarray(rd), np.asarray(ri), td.numpy(), ti.numpy())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bs,k", [(32, 10), (32, 32), (8, 1)])
+def test_scan_batched_topk_dead_page_is_big_and_slot_order(rng, dtype, bs, k):
+    """A page whose every slot is dead gives exactly float32(3e38) for all
+    k candidates in the plain version and in the reference kernel alike,
+    and slots 0..k-1 in the plain version: the candidates the CUDA
+    kernel's dead-page skip writes without scoring.  (The reference's
+    min/mask loop masks a taken slot with the same BIG, so it names slot 0
+    k times; no consumer reads the slot of a dead candidate.)"""
+    rblk, tblk, s = _payload(rng, (12, bs, 100), dtype)
+    q = (rng.normal(size=(5, 100)) / s).astype(np.float32)
+    ids = rng.integers(0, 12, size=7).astype(np.int32)
+    bias = np.where(rng.random(size=(7, bs)) < 0.3, BIG, 0.0).astype(np.float32)
+    dead = [0, 3, 6]
+    bias[dead] = BIG
+    rd, ri = RK.scan_batched_topk(jnp.asarray(ids), jnp.asarray(q), rblk, jnp.asarray(bias),
+                                  k=k, interpret=True)
+    td, ti = TK.scan_batched_topk(t(ids), t(q), tblk, t(bias), k=k)
+    want_d = np.full((len(dead), 5, k), np.float32(BIG), np.float32)
+    want_i = np.broadcast_to(np.arange(k, dtype=np.int32), (len(dead), 5, k))
+    np.testing.assert_array_equal(np.asarray(rd)[dead], want_d)
+    np.testing.assert_array_equal(td.numpy()[dead], want_d)
+    np.testing.assert_array_equal(ti.numpy()[dead], want_i)
+    assert ((np.asarray(ri)[dead] >= 0) & (np.asarray(ri)[dead] < bs)).all()
     assert_tie_tolerant(np.asarray(rd), np.asarray(ri), td.numpy(), ti.numpy())
 
 
