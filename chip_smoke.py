@@ -11,8 +11,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
    the card, at the spfresh-1b shapes and at ragged small shapes, and times
    both and the shortest composition of library calls for the same
    function.  #1 is also held on a tie-heavy and a negative-distance
-   input; #6 is also timed on the main path's page mix (10,393 live rows
-   of the 32,768-row budget, the rest padding).
+   input; #6 and #7 are also timed on the main path's page mix (10,393
+   live rows of the 32,768-row budget, the rest padding), and #7 is held
+   on a tie-heavy input at k = BS (exact slot order).  Each line of
+   ``-Xptxas -v`` (registers, spills) is printed, and summed per library.
 3. Drives two main paths through ``SPFreshIndex`` at the full spfresh-1b
    per-shard geometry (``CONFIG_PAGED`` with kernel navigation), each from
    N=1,000,000 int8-valued vectors of one seed, the first path's state
@@ -43,6 +45,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -88,6 +91,32 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_entries(text):
+    """``[(function, registers, spill bytes)]`` of an ``nvcc -Xptxas -v``
+    log, one per entry function, names demangled where ``c++filt`` is
+    installed and cut to the function and its template arguments."""
+    found, name, spill = [], None, 0
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            name, spill = m.group(1), 0
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spill = int(m.group(1)) + int(m.group(2))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            found.append([name, int(m.group(1)), spill])
+            name = None
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(e[0] for e in found),
+                             capture_output=True, text=True, timeout=60, check=True)
+        names = out.stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        names = []
+    if len(names) == len(found):
+        for e, n in zip(found, names):
+            e[0] = n.split(">(")[0].replace("void (anonymous namespace)::", "") + (
+                ">" if ">(" in n else "")
+    return [tuple(e) for e in found]
 
 
 class Fail(Exception):
@@ -444,8 +473,9 @@ def phase_scan_batched(torch, gen, results, blocks):
     results["scan_batched_topk"]["main_mix"] = _batched_main_mix(torch, gen, blocks, q, k)
 
 
-def _batched_main_mix(torch, gen, blocks, q, k):
-    """#6 on the main path's page mix: the 32,768-row budget holds
+def _batched_main_mix(torch, gen, blocks, q, k, *, q8=False):
+    """#6 (or, with ``q8``, #7 with per-page (scale, zero) from
+    ``_page_sz``) on the main path's page mix: the 32,768-row budget holds
     ``MAIN_PATH_PAGES`` real rows, the rest -1, clamped to page 0 with a
     +BIG bias, as ``ops.scan_unique_blocks_topk`` builds them.  The bound
     counts what these inputs need: the product over the live pages only,
@@ -453,34 +483,72 @@ def _batched_main_mix(torch, gen, blocks, q, k):
     from repro_torch.kernels.posting_scan import kernel as K
     from repro_torch.kernels.posting_scan import ops
 
+    name = "scan_batched_topk_q8" if q8 else "scan_batched_topk"
+    kernel, plain = getattr(K, name), getattr(K, name + "_plain")
     nb, bs, d, live_n = BATCHED_NB, PQ["bs"], PQ["d"], MAIN_PATH_PAGES
     real = torch.sort(torch.randperm(blocks.shape[0], device="cuda", generator=gen)[:live_n]).values
     uniq = torch.full((nb,), -1, dtype=torch.int32, device="cuda")
     uniq[:live_n] = real.to(torch.int32)
     slot_live = torch.rand(nb, bs, device="cuda", generator=gen) >= 0.2
     ids, bias = ops._clamped(uniq), ops._batched_bias(uniq, slot_live)
-    kd, ki = K.scan_batched_topk(ids, q, blocks, bias, k=k)
+    sz = (_page_sz(torch, gen, (nb,)),) if q8 else ()
+    kd, ki = kernel(ids, q, blocks, bias, *sz, k=k)
     torch.cuda.synchronize()
     s = live_n - PLAIN_STEP // 2                          # across the live/padding edge
-    pd, pi = K.scan_batched_topk_plain(ids[s:s + PLAIN_STEP], q, blocks, bias[s:s + PLAIN_STEP], k=k)
-    err, _ = compare_kmin(kd[s:s + PLAIN_STEP], ki[s:s + PLAIN_STEP], pd, pi, atol=1e-2)
+    cut = slice(s, s + PLAIN_STEP)
+    pd, pi = plain(ids[cut], q, blocks, bias[cut], *(x[cut] for x in sz), k=k)
+    err, _ = compare_kmin(kd[cut], ki[cut], pd, pi, atol=1e-2)
     slots = torch.arange(k, dtype=torch.int32, device="cuda")
     check(bool((kd[live_n:] == 3.0e38).all()) and bool((ki[live_n:] == slots).all()),
-          "a padding row's candidates are not (BIG, slots 0..k-1)")
+          f"{name}: a padding row's candidates are not (BIG, slots 0..k-1)")
     del kd, ki, pd, pi
-    ms = cuda_ms(lambda: K.scan_batched_topk(ids, q, blocks, bias, k=k), reps=5)
+    ms = cuda_ms(lambda: kernel(ids, q, blocks, bias, *sz, k=k), reps=5)
     q_n = q.shape[0]
-    by = live_n * bs * d + 4 * (nb + q.numel() + bias.numel()) + 8 * nb * q_n * k
+    by = (live_n * bs * d + 4 * (nb + q.numel() + bias.numel() + sum(x.numel() for x in sz))
+          + 8 * nb * q_n * k)
     flops = 2.0 * live_n * q_n * bs * d
     b = bound(by, flops)
     passes = tf32_passes(blocks.dtype)
     tc = bound(by, passes * flops, TF32_FLOP_PER_S)
-    log(f"scan_batched_topk (main path mix: {live_n} live of {nb} rows): ms={ms:.4f} "
+    log(f"{name} (main path mix: {live_n} live of {nb} rows, k={k}): ms={ms:.4f} "
         f"max_abs_err={err:.3g} bound_ms={b[0]:.4f} ({b[1]}; the product over the live "
         f"pages, every candidate written) tensor_core_bound_ms={tc[0]:.4f} "
-        f"({tc[1]}, {passes} TF32 passes)")
+        f"({tc[1]}, {passes} TF32 passes); padding rows exactly (BIG, slots 0..{k - 1})")
     return dict(live_pages=live_n, ms=ms, max_abs_err=err, bound_ms=b[0], bound_by=b[1],
                 tensor_core_bound_ms=tc[0], tensor_core_bound_by=tc[1])
+
+
+def _q8_tie_swaps(torch, gen, q_n, bs, d):
+    """#7 at k = BS on tie-heavy pages: slot j of every page repeats code
+    row j % 4, the four rows 30 code units apart on column 0, and 20% of
+    the slots dead.  Integer-valued queries, scales 0.5 or 1 and integer
+    zeros keep every distance exact in f32 in the kernel (the product is
+    on the codes) and in the plain version, so equal distances are
+    bit-equal and distinct ones differ by at least 1/4: the kernel must
+    keep the plain version's slots, lowest first among ties.  Returns
+    ``(tie_swaps, max_abs_err)`` over 2 x PLAIN_STEP pages."""
+    from repro_torch.kernels.posting_scan import kernel as K
+
+    nb, k = 2 * PLAIN_STEP, bs
+    base = torch.randint(-60, 61, (512, 4, d), device="cuda", generator=gen, dtype=torch.int8)
+    base[:, :, 0] = (torch.arange(4, device="cuda") * 30 - 45).to(torch.int8)[None, :]
+    pool = base[:, torch.arange(bs, device="cuda") % 4].contiguous()
+    ids = torch.randint(0, 512, (nb,), device="cuda", generator=gen, dtype=torch.int32)
+    q = torch.round(torch.randn(q_n, d, device="cuda", generator=gen) * 8)
+    bias = torch.where(torch.rand(nb, bs, device="cuda", generator=gen) < 0.2, 3.0e38, 0.0)
+    scale = torch.tensor([0.5, 1.0], device="cuda")[
+        torch.randint(0, 2, (nb,), device="cuda", generator=gen)]
+    zero = torch.randint(-10, 11, (nb,), device="cuda", generator=gen).float()
+    sz = torch.stack([scale, zero], dim=-1).contiguous()
+    kd, ki = K.scan_batched_topk_q8(ids, q, pool, bias, sz, k=k)
+    torch.cuda.synchronize()
+    err, swaps = 0.0, 0
+    for s in range(0, nb, PLAIN_STEP):
+        cut = slice(s, s + PLAIN_STEP)
+        pd, pi = K.scan_batched_topk_q8_plain(ids[cut], q, pool, bias[cut], sz[cut], k=k)
+        e, w = compare_kmin(kd[cut], ki[cut], pd, pi, atol=1e-2)
+        err, swaps = max(err, e), swaps + w
+    return swaps, err
 
 
 def phase_scan_unreduced(torch, gen, results, blocks):
@@ -601,6 +669,8 @@ def phase_scan_q8(torch, gen, results, blocks):
         e, w = compare_kmin(kd[s:s + step], ki[s:s + step], pd, pi, atol=1e-2)
         err, swaps = max(err, e), swaps + w
     torch.cuda.synchronize()
+    # the card's own rate for the same stores: fill the 8.6 GB of candidates
+    store_ms = cuda_ms(lambda: (kd.fill_(0.0), ki.fill_(0)), reps=3)
     del kd, ki, pd, pi
 
     def plain_all():
@@ -612,8 +682,12 @@ def phase_scan_q8(torch, gen, results, blocks):
     plain_ms = cuda_ms(plain_all, reps=1, warm=1)
     lib_ms = cuda_ms(lambda: lib_batched(torch, ids, q, blocks, bias, sz, k=k), reps=1, warm=1)
     by = nb * bs * d + 4 * (nb + q.numel() + bias.numel() + sz.numel()) + 8 * nb * q_n * k
-    b = bound(by, 2.0 * nb * q_n * bs * d + 2.0 * nb * bs * d)
-    for bs2, k2 in ((32, 32), (32, 10), (8, 8), (16, 1)):         # ragged small
+    flops = 2.0 * nb * q_n * bs * d
+    b = bound(by, flops + 2.0 * nb * bs * d)
+    # the product on the codes, exact in TF32: two split passes
+    passes = tf32_passes(blocks.dtype)
+    tc = bound(by, passes * flops, TF32_FLOP_PER_S)
+    for bs2, k2 in ((32, 32), (32, 17), (32, 10), (8, 8), (16, 1)):   # ragged small
         blk = _pool(torch, gen, 40, bs2, 100, torch.int8)
         q2 = torch.randn(13, 100, device="cuda", generator=gen) * 32
         u2 = torch.arange(0, 40, 4, device="cuda", dtype=torch.int32)[:9].contiguous()
@@ -627,10 +701,21 @@ def phase_scan_q8(torch, gen, results, blocks):
         check_library(torch, lib_batched(torch, u2, q2, blk, b2, s2, k=k2).values.transpose(0, 1),
                       want[0], "scan_batched_topk_q8")
         err = max(err, e2)
+    tie_swaps, e2 = _q8_tie_swaps(torch, gen, q_n, bs, d)
+    check(tie_swaps == 0, f"{tie_swaps} candidates of the tie-heavy q8 input are not the "
+          "lowest slots of their tie")
+    err = max(err, e2)
     _log_kernel("scan_batched_topk_q8", err, swaps, ms, plain_ms, lib_ms, b,
-                f" (page chunks of {step})")
-    results["scan_batched_topk_q8"] = _result("scan_batched_topk_q8", 352, err, ms,
-                                              plain_ms, lib_ms, b)
+                f" (page chunks of {step})",
+                f" tensor_core_bound_ms={tc[0]:.4f} ({tc[1]}, {passes} TF32 passes on the "
+                f"codes) store_floor_ms={store_ms:.4f} (fill_ of the candidates) tie_swaps on "
+                f"the tie-heavy input at k={bs}: {tie_swaps}")
+    results["scan_batched_topk_q8"] = _result("scan_batched_topk_q8", 352, err, ms, plain_ms,
+                                              lib_ms, b, source="scan_batched_topk.cu")
+    results["scan_batched_topk_q8"]["tensor_core_bound_ms"] = tc[0]
+    results["scan_batched_topk_q8"]["store_floor_ms"] = store_ms
+    results["scan_batched_topk_q8"]["main_mix"] = _batched_main_mix(torch, gen, blocks, q, k,
+                                                                    q8=True)
 
 
 # ---------------------------------------------------------------------------
@@ -954,12 +1039,20 @@ def main() -> int:
     logs = build.build_all()
     build_s = time.perf_counter() - t0
     log(f"kernels built in {build_s:.1f} s (nvcc -gencode arch=compute_90a,code=sm_90a)")
+    ptxas = {}
     for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        entries = ptxas_entries(text)
+        for fn, regs, spill in entries:
+            log(f"  {name}: {fn}: {regs} registers, {spill} bytes of spill stores and loads")
+        ptxas[name] = dict(entries=len(entries),
+                           max_registers=max((e[1] for e in entries), default=None),
+                           spill_bytes=sum(e[2] for e in entries))
+        log(f"  {name}: {len(entries)} entry functions, at most "
+            f"{ptxas[name]['max_registers']} registers, {ptxas[name]['spill_bytes']} "
+            "bytes of spill stores and loads in all")
 
-    report = {"card": card, "kernel_build_s": build_s, "n": N_BASE, "seed": args.seed}
+    report = {"card": card, "kernel_build_s": build_s, "n": N_BASE, "seed": args.seed,
+              "ptxas": ptxas}
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
     results: dict = {}
@@ -992,13 +1085,16 @@ def main() -> int:
         torch.cuda.empty_cache()
     for name, n in launches.items():
         results[name]["launches"] = n
-    for name in ("l2_topk_tiles", "scan_batched_topk"):
+    for name in ("l2_topk_tiles", "scan_batched_topk", "scan_batched_topk_q8"):
         report[f"{name}_tensor_core_bound_ms"] = results[name]["tensor_core_bound_ms"]
-    report["scan_batched_topk_main_mix"] = results["scan_batched_topk"]["main_mix"]
+    for name in ("scan_batched_topk", "scan_batched_topk_q8"):
+        report[f"{name}_main_mix"] = results[name]["main_mix"]
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    kernels = [{k: results[n][k] for k in keys} for n in KERNEL_ORDER]
+    extra = ("tensor_core_bound_ms", "store_floor_ms", "main_mix")   # where a kernel has them
+    kernels = [{**{k: results[n][k] for k in keys},
+                **{k: results[n][k] for k in extra if k in results[n]}} for n in KERNEL_ORDER]
     print("report: " + json.dumps(report, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -42,12 +42,12 @@ SIGNATURES = {
         "scan_batched": [_P, _P, _P, _C, _P, _C, _C, _C, _C, _P],
         # table, q, codes, bias, sz, out_d, out_i, Q, NB, BS, d, k, stream
         "scan_per_query_topk_q8": [_P, _P, _P, _P, _P, _P, _P, _C, _C, _C, _C, _C, _P],
-        # ids, q, codes, bias, sz, out_d, out_i, NB, Q, BS, d, k, stream
-        "scan_batched_topk_q8": [_P, _P, _P, _P, _P, _P, _P, _C, _C, _C, _C, _C, _P],
     },
     "scan_batched_topk": {
         # ids, q, blocks, dtype, bias, out_d, out_i, NB, Q, BS, d, k, stream
         "scan_batched_topk": [_P, _P, _P, _C, _P, _P, _P, _C, _C, _C, _C, _C, _P],
+        # ids, q, codes, bias, sz, out_d, out_i, NB, Q, BS, d, k, stream
+        "scan_batched_topk_q8": [_P, _P, _P, _P, _P, _P, _P, _C, _C, _C, _C, _C, _P],
     },
 }
 

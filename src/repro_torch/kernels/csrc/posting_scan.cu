@@ -1,19 +1,19 @@
-// Paged posting scan (sm_90a): both schedules, with and without the fused
-// per-page k-min, over raw payloads and over int8 codes.
+// Paged posting scan (sm_90a): the per-query schedule, with and without
+// the fused per-page k-min and over int8 codes, and the batched schedule
+// without the k-min.
 //
-// Replaces five TPU kernels of src/repro/kernels/posting_scan/kernel.py:
+// Replaces four TPU kernels of src/repro/kernels/posting_scan/kernel.py:
 //   * `scan_per_query` / `scan_per_query_topk` / `scan_per_query_topk_q8`:
 //     page table[q, j] scored against query q;
-//   * `scan_batched` / `scan_batched_topk_q8`: each unique page ids[i]
-//     scored against every query.
-// The sixth, `scan_batched_topk`, has a tensor-core kernel of its own
-// (scan_batched_topk.cu); the FFMA batched loop below serves #3 and #7.
+//   * `scan_batched`: each unique page ids[i] scored against every query.
+// The batched top-k forms, `scan_batched_topk` and `scan_batched_topk_q8`,
+// have a tensor-core kernel of their own (scan_batched_topk.cu).
 // All compute d = max(||q||^2 - 2 q.b + ||b||^2, 0) per slot.  The `_topk`
-// forms add a per-slot bias (0 live, +BIG dead) and emit each (page,
-// query) pair's k smallest distances with their slot indices, lowest slot
+// forms add a per-slot bias (0 live, +BIG dead) and emit each (query,
+// page) pair's k smallest distances with their slot indices, lowest slot
 // first among equal values; the plain forms store every slot's distance.
 // The payload is f32, bf16 or raw int8, converted to f32 in registers.
-// The `_q8` forms read int8 codes and reconstruct b = code * scale + zero
+// The `_q8` form reads int8 codes and reconstructs b = code * scale + zero
 // with the page's (scale, zero), the multiply and the add each rounded on
 // their own (__fmul_rn, __fadd_rn: no FMA contraction), as the plain
 // version rounds them.
@@ -32,17 +32,15 @@
 //     through L1) and the query row by broadcast loads.  No shared
 //     memory.  The q8 form dequantises in registers.
 //   * batched at NB=32,768, Q=1024: 215 GFLOP of f32 FMA against 105 MB of
-//     pages and 2.7 GB of candidates at k=10 (8.6 GB at k=32, 4.3 GB of
-//     distances without the k-min): f32-operations bound.  A block stages
-//     4 pages as f32 in shared memory once (odd row stride: conflict-free;
-//     the q8 form dequantises while staging), and each warp walks groups
-//     of 4 queries, staged transposed so one broadcast float4 feeds 4
-//     queries; each lane keeps a 4 pages x 4 queries register tile (16 FMA
-//     per 5 shared loads).  Without the k-min each lane stores its slot's
-//     distance: a warp writes 128 contiguous bytes.
-//   * The k-min is a rank select: every lane counts, over 32 shuffles,
-//     the lanes whose (value, lane) sorts before its own; lanes of rank
-//     < k write their candidate at that rank.  No rounds, no retirement.
+//     pages and 4.3 GB of distances: f32-operations bound.  A block stages
+//     4 pages as f32 in shared memory once (odd row stride: conflict-free),
+//     and each warp walks groups of 4 queries, staged transposed so one
+//     broadcast float4 feeds 4 queries; each lane keeps a 4 pages x 4
+//     queries register tile (16 FMA per 5 shared loads) and stores its
+//     slot's distance: a warp writes 128 contiguous bytes.
+//   * The per-query k-min is a rank select: every lane counts, over 32
+//     shuffles, the lanes whose (value, lane) sorts before its own; lanes
+//     of rank < k write their candidate at that rank.
 // Plain C interface, loaded with ctypes; each entry returns
 // cudaGetLastError().
 
@@ -154,17 +152,14 @@ constexpr int kPages = 4;    // pages staged per block
 constexpr int kQGroup = 4;   // queries per warp step
 constexpr int kBWarps = 4;
 
-// kQ8: int8 codes dequantised with sz[page] = (scale, zero) while staged.
-// kTopk: add the bias and keep the k-min; else store all BS distances.
-template <typename T, bool kQ8, bool kTopk>
+// Every slot's distance, (NB, Q, BS).
+template <typename T>
 __global__ void __launch_bounds__(kBWarps * 32)
 scan_batched_kernel(const int* __restrict__ ids,
                     const float* __restrict__ q,
                     const T* __restrict__ blocks,
-                    const float* __restrict__ bias,
-                    const float* __restrict__ sz,
-                    float* __restrict__ out_d, int* __restrict__ out_i,
-                    int nb, int n_q, int bs, int d, int k, int stride) {
+                    float* __restrict__ out_d,
+                    int nb, int n_q, int bs, int d, int stride) {
   extern __shared__ float4 smem4[];
   float* pg = reinterpret_cast<float*>(smem4);      // [kPages][32][stride]
   float* qt = pg + kPages * 32 * stride;            // [kBWarps][d][kQGroup]
@@ -180,15 +175,12 @@ scan_batched_kernel(const int* __restrict__ ids,
     const int s = rem / d;
     const int t = rem - s * d;
     float v = 0.f;
-    if (page0 + p < nb && s < bs) {
-      v = to_f32(blocks[((size_t)ids[page0 + p] * bs + s) * d + t]);
-      if constexpr (kQ8) v = dequant(v, sz[2 * (page0 + p)], sz[2 * (page0 + p) + 1]);
-    }
+    if (page0 + p < nb && s < bs) v = to_f32(blocks[((size_t)ids[page0 + p] * bs + s) * d + t]);
     pg[(p * 32 + s) * stride + t] = v;
   }
   __syncthreads();
 
-  float bsq[kPages], bb[kPages];
+  float bsq[kPages];
   bool page_ok[kPages];
 #pragma unroll
   for (int p = 0; p < kPages; ++p) {
@@ -197,7 +189,6 @@ scan_batched_kernel(const int* __restrict__ ids,
     for (int t = 0; t < d; ++t) s2 = fmaf(r[t], r[t], s2);
     bsq[p] = s2;
     page_ok[p] = page0 + p < nb;
-    bb[p] = (kTopk && page_ok[p] && lane < bs) ? bias[(size_t)(page0 + p) * bs + lane] : 0.f;
   }
 
   float* myq = qt + warp * d * kQGroup;
@@ -247,14 +238,7 @@ scan_batched_kernel(const int* __restrict__ ids,
       for (int qq = 0; qq < kQGroup; ++qq) {
         if (qb + qq >= n_q) continue;  // warp-uniform
         const size_t o = (size_t)(page0 + p) * n_q + qb + qq;
-        if constexpr (kTopk) {
-          float dist = CUDART_INF_F;
-          if (lane < bs)
-            dist = fmaxf(qsq[qq] - 2.f * acc[p][qq] + bsq[p], 0.f) + bb[p];
-          warp_kmin_store(dist, lane, k, out_d + o * k, out_i + o * k);
-        } else if (lane < bs) {
-          out_d[o * bs + lane] = fmaxf(qsq[qq] - 2.f * acc[p][qq] + bsq[p], 0.f);
-        }
+        if (lane < bs) out_d[o * bs + lane] = fmaxf(qsq[qq] - 2.f * acc[p][qq] + bsq[p], 0.f);
       }
     }
   }
@@ -276,22 +260,18 @@ int launch_per_query(const int* table, const float* q, const void* blocks,
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kQ8, bool kTopk>
-int launch_batched(const int* ids, const float* q, const void* blocks,
-                   const float* bias, const float* sz, float* out_d,
-                   int* out_i, int nb, int n_q, int bs, int d, int k,
-                   cudaStream_t stream) {
+template <typename T>
+int launch_batched(const int* ids, const float* q, const void* blocks, float* out_d,
+                   int nb, int n_q, int bs, int d, cudaStream_t stream) {
   const int stride = d | 1;
   const size_t smem = sizeof(float) *
       ((size_t)kPages * 32 * stride + (size_t)kBWarps * d * kQGroup);
   cudaError_t err = cudaFuncSetAttribute(
-      scan_batched_kernel<T, kQ8, kTopk>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      scan_batched_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned grid = (unsigned)((nb + kPages - 1) / kPages);
-  scan_batched_kernel<T, kQ8, kTopk><<<grid, kBWarps * 32, smem, stream>>>(
-      ids, q, static_cast<const T*>(blocks), bias, sz, out_d, out_i, nb, n_q, bs, d, k,
-      stride);
+  scan_batched_kernel<T><<<grid, kBWarps * 32, smem, stream>>>(
+      ids, q, static_cast<const T*>(blocks), out_d, nb, n_q, bs, d, stride);
   return (int)cudaGetLastError();
 }
 
@@ -336,8 +316,12 @@ extern "C" int scan_batched(const int* ids, const float* q, const void* blocks,
   if (bad_shape(bs, d, 1)) return (int)cudaErrorInvalidValue;
   if (n_q == 0 || nb == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  DISPATCH_DTYPE(launch_batched, false, false, ids, q, blocks, nullptr, nullptr,
-                 out_d, nullptr, nb, n_q, bs, d, 1, s)
+  switch (dtype) {
+    case 0: return launch_batched<float>(ids, q, blocks, out_d, nb, n_q, bs, d, s);
+    case 1: return launch_batched<__nv_bfloat16>(ids, q, blocks, out_d, nb, n_q, bs, d, s);
+    case 2: return launch_batched<int8_t>(ids, q, blocks, out_d, nb, n_q, bs, d, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // int8 codes; sz (Q, NB, 2) f32 per-page (scale, zero).
@@ -350,16 +334,4 @@ extern "C" int scan_per_query_topk_q8(const int* table, const float* q,
   if (n_q == 0 || nb == 0) return 0;
   return launch_per_query<int8_t, true, true>(table, q, codes, bias, sz, out_d, out_i,
                                               n_q, nb, bs, d, k, (cudaStream_t)stream);
-}
-
-// int8 codes; sz (NB, 2) f32 per-unique-page (scale, zero).
-extern "C" int scan_batched_topk_q8(const int* ids, const float* q,
-                                    const int8_t* codes, const float* bias,
-                                    const float* sz, float* out_d, int* out_i,
-                                    int nb, int n_q, int bs, int d, int k,
-                                    void* stream) {
-  if (bad_shape(bs, d, k)) return (int)cudaErrorInvalidValue;
-  if (n_q == 0 || nb == 0) return 0;
-  return launch_batched<int8_t, true, true>(ids, q, codes, bias, sz, out_d, out_i,
-                                            nb, n_q, bs, d, k, (cudaStream_t)stream);
 }

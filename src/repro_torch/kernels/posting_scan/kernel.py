@@ -6,11 +6,12 @@ Replaces the six TPU kernels of ``repro/kernels/posting_scan/kernel.py``:
 ``scan_per_query_topk`` and ``scan_batched_topk`` (a fused per-page
 k-min), and their int8-code forms ``scan_per_query_topk_q8`` and
 ``scan_batched_topk_q8`` (each page dequantised as ``code * scale +
-zero`` with its posting's parameters).  The kernels themselves are in
-``kernels/csrc/posting_scan.cu``, apart from ``scan_batched_topk``'s
-tensor-core kernel in ``kernels/csrc/scan_batched_topk.cu``.  For tensors
-on the CPU a wrapper runs the plain version; for CUDA tensors it launches
-the kernel or raises.
+zero`` with its posting's parameters).  The batched top-k forms,
+``scan_batched_topk`` and ``scan_batched_topk_q8``, are one tensor-core
+kernel in ``kernels/csrc/scan_batched_topk.cu`` (library
+``scan_batched_topk``); the other four are in
+``kernels/csrc/posting_scan.cu``.  For tensors on the CPU a wrapper runs
+the plain version; for CUDA tensors it launches the kernel or raises.
 
 Contract: ``BS <= 32`` (one lane per slot), ``k <= BS``, ``d % 4 == 0``;
 the payload is float32, bfloat16 or int8 (int8 codes for the ``_q8``
@@ -260,5 +261,5 @@ def scan_batched_topk_q8(unique_blocks, queries, codes, slot_bias, page_sz, *, k
         return scan_batched_topk_q8_plain(unique_blocks, queries, codes, slot_bias, page_sz, k=k)
     out_d, out_i = _outputs((nb, q_n, k), codes)
     _launch("scan_batched_topk_q8", codes, unique_blocks, queries, codes, slot_bias,
-            page_sz, out_d, out_i, nb, q_n, bs, dim, k)
+            page_sz, out_d, out_i, nb, q_n, bs, dim, k, lib="scan_batched_topk")
     return out_d, out_i

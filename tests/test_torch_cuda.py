@@ -116,16 +116,41 @@ def test_l2_topk_tiles_kernel_edge_cases(card, case, q_n, p_n, block_p, k):
         assert bool((kd[:, :k] >= BIG / 2).all())
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def _page_sz(gen, n, *, far_zero=False):
+    """Per-page (scale, zero): scales of both signs, and with ``far_zero``
+    zeros far from 0 against the code range."""
+    scale = (torch.rand(n, generator=gen) * 0.5 + 0.05) * torch.where(
+        torch.rand(n, generator=gen) < 0.3, -1.0, 1.0)
+    zero = torch.randn(n, generator=gen) * 20
+    if far_zero:
+        zero[::2] = 500.0 * torch.where(torch.rand(len(zero[::2]), generator=gen) < 0.5, -1.0, 1.0)
+    return torch.stack([scale, zero], dim=-1).contiguous()
+
+
+def _batched_topk(form, ids, q, blocks, bias, sz, k):
+    """The kernel and the plain version of #6 (``form`` a dtype) or #7
+    (``form`` "q8"): ``((kd, ki), (pd, pi), launches counted)``."""
+    name = "scan_batched_topk_q8" if form == "q8" else "scan_batched_topk"
+    args = (ids, q, blocks, bias, sz) if form == "q8" else (ids, q, blocks, bias)
+    before = SK.LAUNCHES[name]
+    got = getattr(SK, name)(*args, k=k)
+    torch.cuda.synchronize()
+    return got, getattr(SK, name + "_plain")(*args, k=k), SK.LAUNCHES[name] - before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8, "q8"])
 @pytest.mark.parametrize("bs,k", [(32, 32), (32, 10), (32, 1), (8, 8)])
 def test_scan_batched_topk_kernel_dead_pages(card, dtype, bs, k):
     """All-dead pages at the start, middle and end of the id list, pages
     with one live slot, Q not a multiple of the 64-query tile; a dead page
-    gives exactly (float32(3e38), slots 0..k-1)."""
+    gives exactly (float32(3e38), slots 0..k-1).  ``q8`` is #7 over int8
+    codes with per-page (scale, zero)."""
     gen = torch.Generator().manual_seed(5)
-    blocks = _blocks(gen, 64, bs, 100, dtype, card)
+    codes = dtype == "q8"
+    blocks = _blocks(gen, 64, bs, 100, torch.int8 if codes else dtype, card)
     q_n = 70
-    q = (torch.randn(q_n, 100, generator=gen) * (64 if dtype == torch.int8 else 1)).to(card)
+    q = (torch.randn(q_n, 100, generator=gen) * (1 if dtype in (torch.float32, torch.bfloat16)
+                                                 else 64)).to(card)
     ids = torch.randint(0, 64, (21,), generator=gen, dtype=torch.int32).to(card)
     bias = torch.where(torch.rand(21, bs, generator=gen) < 0.3, BIG, 0.0)
     dead = [0, 10, 20]
@@ -134,12 +159,11 @@ def test_scan_batched_topk_kernel_dead_pages(card, dtype, bs, k):
         bias[page] = BIG
         bias[page, bs // 2] = 0.0
     bias = bias.to(card).contiguous()
-    before = SK.LAUNCHES["scan_batched_topk"]
-    kd, ki = SK.scan_batched_topk(ids, q, blocks, bias, k=k)
-    torch.cuda.synchronize()
-    assert SK.LAUNCHES["scan_batched_topk"] == before + 1
-    atol = 1e-2 if dtype == torch.int8 else 1e-4
-    assert_kmin_close(kd, ki, *SK.scan_batched_topk_plain(ids, q, blocks, bias, k=k), atol=atol)
+    sz = _page_sz(gen, 21).to(card)
+    (kd, ki), plain, launched = _batched_topk(dtype, ids, q, blocks, bias, sz, k)
+    assert launched == 1
+    atol = 1e-4 if dtype in (torch.float32, torch.bfloat16) else 1e-2
+    assert_kmin_close(kd, ki, *plain, atol=atol)
     big = torch.tensor(BIG, dtype=torch.float32)
     assert bool((kd[dead].cpu() == big).all())
     assert bool((ki[dead].cpu() == torch.arange(k, dtype=torch.int32)).all())
@@ -207,6 +231,73 @@ def test_q8_scan_kernels_match_plain(card, bs, k):
     kd, ki = SK.scan_batched_topk_q8(ids, q, codes, ub, usz, k=k)
     torch.cuda.synchronize()
     assert_kmin_close(kd, ki, *SK.scan_batched_topk_q8_plain(ids, q, codes, ub, usz, k=k))
+
+
+@pytest.mark.parametrize("bs,k", [(bs, k) for bs in (32, 16, 8) for k in (32, 17, 16, 10, 1)
+                                  if k <= bs] + [(8, 8)])
+def test_scan_batched_topk_q8_kernel_matches_plain(card, bs, k):
+    """#7 against its plain version: NB and Q not multiples of the 64-page
+    run and the 64-query tile, negative scales, zeros far from 0 against
+    the codes' range, all-dead pages; tolerance as chip_smoke.py's
+    (atol 1e-2 + 1e-5 |d|: the product is taken on the codes, the plain
+    version's on the dequantised values)."""
+    gen = torch.Generator().manual_seed(6)
+    codes = _blocks(gen, 200, bs, 100, torch.int8, card)
+    nb, q_n = 133, 100
+    q = (torch.randn(q_n, 100, generator=gen) * 32).to(card)
+    ids = torch.randint(0, 200, (nb,), generator=gen, dtype=torch.int32).to(card)
+    bias = torch.where(torch.rand(nb, bs, generator=gen) < 0.3, BIG, 0.0)
+    bias[[0, 64, 100, nb - 1]] = BIG                 # all-dead pages
+    bias = bias.to(card).contiguous()
+    sz = _page_sz(gen, nb, far_zero=True).to(card)
+    (kd, ki), (pd, pi), launched = _batched_topk("q8", ids, q, codes, bias, sz, k)
+    assert launched == 1
+    assert_kmin_close(kd, ki, pd, pi, atol=1e-2)
+    dead = [0, 64, 100, nb - 1]
+    assert bool((kd[dead].cpu() == torch.tensor(BIG, dtype=torch.float32)).all())
+    assert bool((ki[dead].cpu() == torch.arange(k, dtype=torch.int32)).all())
+
+
+def _repeated_rows(gen, n, bs, d, card):
+    """int8 pages whose slot j repeats row j % 4, the four rows 24 code
+    units apart on column 0: every distance comes four times (eight at
+    BS = 32) and distinct ones lie far apart."""
+    base = torch.randint(-20, 21, (n, 4, d), generator=gen, dtype=torch.int8)
+    base[:, :, 0] = (torch.arange(4, dtype=torch.int8) * 24 - 36)[None, :]
+    return base[:, torch.arange(bs) % 4].contiguous().to(card)
+
+
+@pytest.mark.parametrize("form", ["q8", torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k", [32, 17])
+def test_scan_batched_topk_rank_select_ties(card, form, k):
+    """The k > 16 select (a rank count) of #6 and #7 on repeated code rows.
+    Integer queries, power-of-two scales and integer zeros make every
+    distance exact in f32 for the int8 forms, so the kernel must give the
+    plain version's values and slots exactly (ties: the lowest slot
+    first); bf16 and f32 pages are held tie-tolerantly."""
+    gen = torch.Generator().manual_seed(7)
+    bs, nb, q_n = 32, 70, 75
+    blocks = _repeated_rows(gen, 40, bs, 100, card)
+    if form in (torch.bfloat16, torch.float32):
+        blocks = (blocks.float() / 16).to(form)
+    q = torch.randint(-8, 9, (q_n, 100), generator=gen).float().to(card)
+    ids = torch.randint(0, 40, (nb,), generator=gen, dtype=torch.int32).to(card)
+    bias = torch.where(torch.rand(nb, bs, generator=gen) < 0.2, BIG, 0.0)
+    bias[5] = BIG
+    bias = bias.to(card).contiguous()
+    scale = torch.tensor([0.5, -0.25, 1.0, 2.0])[torch.randint(0, 4, (nb,), generator=gen)]
+    zero = torch.randint(-20, 21, (nb,), generator=gen).float()
+    sz = torch.stack([scale, zero], dim=-1).contiguous().to(card)
+    (kd, ki), (pd, pi), launched = _batched_topk(form, ids, q, blocks, bias, sz, k)
+    assert launched == 1
+    if form in ("q8", torch.int8):
+        assert torch.equal(kd.cpu(), pd.cpu())
+        assert torch.equal(ki.cpu(), pi.cpu())
+    else:
+        assert_kmin_close(kd, ki, pd, pi)
+    # ascending by (value, slot) in every row
+    step_d, step_i = kd[..., 1:] - kd[..., :-1], ki[..., 1:] - ki[..., :-1]
+    assert bool(((step_d > 0) | ((step_d == 0) & (step_i > 0))).all())
 
 
 def test_wrappers_raise_instead_of_falling_back(card):

@@ -225,7 +225,7 @@ def test_scan_plain_versions_match_pallas_kernels(rng):
     assert_tie_tolerant(np.asarray(rd), np.asarray(ri), td.numpy(), ti.numpy())
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dtype", DTYPES + ["q8"])
 @pytest.mark.parametrize("bs,k", [(32, 10), (32, 32), (8, 1)])
 def test_scan_batched_topk_dead_page_is_big_and_slot_order(rng, dtype, bs, k):
     """A page whose every slot is dead gives exactly float32(3e38) for all
@@ -233,16 +233,24 @@ def test_scan_batched_topk_dead_page_is_big_and_slot_order(rng, dtype, bs, k):
     and slots 0..k-1 in the plain version: the candidates the CUDA
     kernel's dead-page skip writes without scoring.  (The reference's
     min/mask loop masks a taken slot with the same BIG, so it names slot 0
-    k times; no consumer reads the slot of a dead candidate.)"""
-    rblk, tblk, s = _payload(rng, (12, bs, 100), dtype)
+    k times; no consumer reads the slot of a dead candidate.)  ``q8`` is
+    ``scan_batched_topk_q8`` over int8 codes with per-page (scale, zero)."""
+    rblk, tblk, s = _payload(rng, (12, bs, 100), "int8" if dtype == "q8" else dtype)
     q = (rng.normal(size=(5, 100)) / s).astype(np.float32)
     ids = rng.integers(0, 12, size=7).astype(np.int32)
     bias = np.where(rng.random(size=(7, bs)) < 0.3, BIG, 0.0).astype(np.float32)
     dead = [0, 3, 6]
     bias[dead] = BIG
-    rd, ri = RK.scan_batched_topk(jnp.asarray(ids), jnp.asarray(q), rblk, jnp.asarray(bias),
-                                  k=k, interpret=True)
-    td, ti = TK.scan_batched_topk(t(ids), t(q), tblk, t(bias), k=k)
+    if dtype == "q8":
+        sz = np.stack([rng.uniform(0.05, 0.5, size=7), 20 * rng.normal(size=7)],
+                      axis=-1).astype(np.float32)
+        rd, ri = RK.scan_batched_topk_q8(jnp.asarray(ids), jnp.asarray(q), rblk,
+                                         jnp.asarray(bias), jnp.asarray(sz), k=k, interpret=True)
+        td, ti = TK.scan_batched_topk_q8(t(ids), t(q), tblk, t(bias), t(sz), k=k)
+    else:
+        rd, ri = RK.scan_batched_topk(jnp.asarray(ids), jnp.asarray(q), rblk,
+                                      jnp.asarray(bias), k=k, interpret=True)
+        td, ti = TK.scan_batched_topk(t(ids), t(q), tblk, t(bias), k=k)
     want_d = np.full((len(dead), 5, k), np.float32(BIG), np.float32)
     want_i = np.broadcast_to(np.arange(k, dtype=np.int32), (len(dead), 5, k))
     np.testing.assert_array_equal(np.asarray(rd)[dead], want_d)
@@ -395,6 +403,41 @@ def test_scan_batched_topk_q8_matches(rng, q_n, n_blocks, bs, d, nb, k):
     assert_tie_tolerant(np.asarray(od), np.asarray(oi), td.numpy(), ti.numpy())
     od, oi = tref.scan_batched_topk_q8_ref(*map(t, args), k=k)
     assert_tie_tolerant(od.numpy(), oi.numpy(), td.numpy(), ti.numpy())
+
+
+@pytest.mark.parametrize("bs", [32, 8])
+def test_scan_batched_topk_q8_ties_at_k_equal_bs(rng, bs):
+    """k = BS (the int8 cell's kpage = min(10 * 4, BS)) on pages whose slot
+    j repeats code row j % 4, the four rows 24 code units apart on column
+    0.  Integer queries, power-of-two scales and integer zeros make every
+    distance exact in f32, so the port's plain version and the reference's
+    Pallas kernel give equal values, equal slots where distances are
+    distinct, and among ties the lowest slot first; the reference names
+    a dead candidate's slot arbitrarily, so slots are held on live
+    candidates."""
+    nb, q_n, d, k = 6, 5, 100, bs
+    base = rng.integers(-20, 21, size=(10, 4, d)).astype(np.int8)
+    base[:, :, 0] = np.arange(4) * 24 - 36
+    codes = np.ascontiguousarray(base[:, np.arange(bs) % 4])
+    q = rng.integers(-8, 9, size=(q_n, d)).astype(np.float32)
+    ids = rng.choice(10, size=nb, replace=False).astype(np.int32)
+    bias = np.where(rng.random(size=(nb, bs)) < 0.2, BIG, 0.0).astype(np.float32)
+    sz = np.stack([rng.choice([0.5, -0.25, 1.0, 2.0], size=nb),
+                   rng.integers(-20, 21, size=nb)], axis=-1).astype(np.float32)
+    args = (ids, q, codes, bias, sz)
+    rd, ri = RK.scan_batched_topk_q8(*map(jnp.asarray, args), k=k, interpret=True)
+    td, ti = TK.scan_batched_topk_q8(*map(t, args), k=k)
+    rd, ri, td, ti = np.asarray(rd), np.asarray(ri), td.numpy(), ti.numpy()
+    np.testing.assert_array_equal(td, rd)
+    live = td < BIG / 2
+    np.testing.assert_array_equal(ti[live], ri[live])
+    # ties are present, and the port keeps them lowest slot first
+    assert ((td[..., 1:] == td[..., :-1]) & live[..., 1:]).any()
+    step_d, step_i = np.diff(td, axis=-1), np.diff(ti, axis=-1)
+    assert ((step_d > 0) | ((step_d == 0) & (step_i > 0))).all()
+    # every slot once per (page, query): the dead ones after the live, in order
+    np.testing.assert_array_equal(np.sort(ti, axis=-1),
+                                  np.broadcast_to(np.arange(bs, dtype=np.int32), ti.shape))
 
 
 @pytest.mark.parametrize("schedule", ["per_query", "batched"])
