@@ -11,9 +11,13 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
    the card, at the spfresh-1b shapes and at ragged small shapes, and times
    both and the shortest composition of library calls for the same
    function.  #1 is also held on a tie-heavy and a negative-distance
-   input; #6 and #7 are also timed on the main path's page mix (10,393
-   live rows of the 32,768-row budget, the rest padding), and #7 is held
-   on a tie-heavy input at k = BS (exact slot order).  Each line of
+   input; #4 and #5 are also held and timed on the main path's page mix
+   (two real and two absent pages a probe, 10,393 distinct pages; every
+   dead pair exactly (BIG, slots 0..k-1)); #6 and #7 are also timed on
+   the main path's page mix (10,393 live rows of the 32,768-row budget,
+   the rest padding), and #7 is held on a tie-heavy input at k = BS
+   (exact slot order).  The per-query scans' rows give two byte bounds:
+   each distinct page read once, and each probe's page read once.  Each line of
    ``-Xptxas -v`` (registers, spills) is printed, and summed per library.
 3. Drives two main paths through ``SPFreshIndex`` at the full spfresh-1b
    per-shard geometry (``CONFIG_PAGED`` with kernel navigation), each from
@@ -133,21 +137,23 @@ def check(cond, what):
 # ---------------------------------------------------------------------------
 
 def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
-    """Warm median of ``reps`` launches, each timed by CUDA events."""
+    """Mean time of ``reps`` back-to-back launches between two CUDA events,
+    after ``warm`` launches.  The host enqueues ahead of the card, so a
+    wrapper's host work is not counted while one call keeps the card busy
+    longer than the host takes to issue the next."""
     import torch
 
     for _ in range(warm):
         fn()
-    times = []
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
     for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
         fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 # Kernel vs plain tolerance on a live distance d: ATOL + RTOL * |d|.  The
@@ -406,23 +412,80 @@ def phase_scan_per_query(torch, gen, results):
     plain_ms = cuda_ms(lambda: K.scan_per_query_topk_plain(table, q, blocks, bias, k=k), reps=3)
     lib_ms = cuda_ms(lambda: lib_per_query(torch, table, q, blocks, bias, k=k), reps=3)
     uniq = int(torch.unique(table).numel())
-    by = uniq * bs * d + 4 * (table.numel() + q.numel() + bias.numel()) + 8 * q_n * nb * k
-    b = bound(by, 2.0 * q_n * nb * bs * d)
-    for dtype in (torch.float32, torch.bfloat16, torch.int8):     # ragged small
-        blk = _pool(torch, gen, 40, 32, 100, dtype)
-        q2 = torch.randn(5, 100, device="cuda", generator=gen)
-        t2 = torch.randint(0, 40, (5, 7), device="cuda", generator=gen, dtype=torch.int32)
-        b2 = torch.where(torch.rand(5, 7, 32, device="cuda", generator=gen) < 0.3, 3.0e38, 0.0)
-        b2[0, 0] = 3.0e38
-        a = K.scan_per_query_topk(t2, q2, blk, b2, k=10)
-        torch.cuda.synchronize()
-        e2, _ = compare_kmin(*a, *K.scan_per_query_topk_plain(t2, q2, blk, b2, k=10), atol=1e-2)
-        err = max(err, e2)
+    side = 4 * (table.numel() + q.numel() + bias.numel()) + 8 * q_n * nb * k
+    b = bound(uniq * bs * d + side, 2.0 * q_n * nb * bs * d)
+    pp = bound(q_n * nb * bs * d + side, 2.0 * q_n * nb * bs * d)
+    # ragged small, and rows of an even number of 4-value units (d = 128:
+    # padded in the kernel's ring) or pages not a multiple of 16 bytes
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        for bs2, d2, k2 in ((32, 100, 10), (32, 128, 10), (7, 4, 3)):
+            blk = _pool(torch, gen, 40, bs2, d2, dtype)
+            q2 = torch.randn(5, d2, device="cuda", generator=gen)
+            t2 = torch.randint(0, 40, (5, 7), device="cuda", generator=gen, dtype=torch.int32)
+            b2 = torch.where(torch.rand(5, 7, bs2, device="cuda", generator=gen) < 0.3, 3.0e38, 0.0)
+            b2[0, 0] = 3.0e38
+            a = K.scan_per_query_topk(t2, q2, blk, b2, k=k2)
+            torch.cuda.synchronize()
+            e2, _ = compare_kmin(*a, *K.scan_per_query_topk_plain(t2, q2, blk, b2, k=k2), atol=1e-2)
+            err = max(err, e2)
     _log_kernel("scan_per_query_topk", err, swaps, ms, plain_ms, lib_ms, b,
-                f" unique_pages={uniq}")
+                f" unique_pages={uniq}", f" per_probe_bound_ms={pp[0]:.4f} ({pp[1]})")
     results["scan_per_query_topk"] = _result("scan_per_query_topk", 164, err, ms,
                                              plain_ms, lib_ms, b)
+    results["scan_per_query_topk"]["per_probe_bound_ms"] = pp[0]
+    results["scan_per_query_topk"]["main_mix"] = _per_query_main_mix(torch, gen, blocks, q, k)
     return blocks
+
+
+def _per_query_main_mix(torch, gen, blocks, q, k, *, q8=False):
+    """#4 (or, with ``q8``, #5 with per-pair (scale, zero) from
+    ``_page_sz``) on the main path's page mix: a (Q, NB) table whose
+    probes each hold two real pages and two absent ones (-1, clamped to
+    page 0 with an all-+BIG bias, as ``ops.scan_posting_blocks_topk``
+    builds them), 131,072 live entries (the main path's 131,962) drawn from
+    ``MAIN_PATH_PAGES`` distinct pages.  Every dead pair must be exactly
+    (BIG, slots 0..k-1).  The bound counts what these inputs need: each
+    distinct live page once (they fit in L2), the product over the live
+    pairs, every candidate written; the per-probe bound reads a live
+    pair's page once per probe."""
+    from repro_torch.kernels.posting_scan import kernel as K
+    from repro_torch.kernels.posting_scan import ops
+
+    name = "scan_per_query_topk_q8" if q8 else "scan_per_query_topk"
+    kernel, plain = getattr(K, name), getattr(K, name + "_plain")
+    q_n, nb, bs, d = PQ["q_n"], PQ["nb"], PQ["bs"], PQ["d"]
+    real = torch.randperm(blocks.shape[0], device="cuda", generator=gen)[:MAIN_PATH_PAGES]
+    pages = real[torch.randint(0, MAIN_PATH_PAGES, (q_n, nb), device="cuda", generator=gen)]
+    probe_slot = torch.arange(nb, device="cuda") % 4
+    pages = torch.where((probe_slot < 2)[None, :], pages, -1).to(torch.int32)
+    slot_live = torch.rand(q_n, nb, bs, device="cuda", generator=gen) >= 0.2
+    table, bias = ops._clamped(pages), ops._per_query_bias(pages, slot_live)
+    sz = (_page_sz(torch, gen, (q_n, nb)),) if q8 else ()
+    kd, ki = kernel(table, q, blocks, bias, *sz, k=k)
+    torch.cuda.synchronize()
+    cut = slice(0, 128)                                   # plain on 128 queries
+    pd, pi = plain(table[cut].contiguous(), q[cut].contiguous(), blocks, bias[cut].contiguous(),
+                   *(x[cut].contiguous() for x in sz), k=k)
+    err, _ = compare_kmin(kd[cut], ki[cut], pd, pi, atol=1e-2)
+    dead = pages < 0
+    slots = torch.arange(k, dtype=torch.int32, device="cuda")
+    check(bool((kd[dead] == 3.0e38).all()) and bool((ki[dead] == slots).all()),
+          f"{name}: a dead pair's candidates are not (BIG, slots 0..k-1)")
+    live_n = int((~dead).sum())
+    uniq = int(torch.unique(pages[~dead]).numel())
+    del kd, ki, pd, pi
+    ms = cuda_ms(lambda: kernel(table, q, blocks, bias, *sz, k=k))
+    side = (4 * (table.numel() + q.numel() + bias.numel() + sum(x.numel() for x in sz))
+            + 8 * q_n * nb * k)
+    flops = 2.0 * live_n * bs * d
+    b = bound(uniq * bs * d + side, flops)
+    pp = bound(live_n * bs * d + side, flops)
+    log(f"{name} (main path mix: {live_n} live of {q_n * nb} pairs on {uniq} distinct pages, "
+        f"k={k}): ms={ms:.4f} max_abs_err={err:.3g} bound_ms={b[0]:.4f} ({b[1]}; each live page "
+        f"once, the product over the live pairs, every candidate written) "
+        f"per_probe_bound_ms={pp[0]:.4f} ({pp[1]}); dead pairs exactly (BIG, slots 0..{k - 1})")
+    return dict(live_pairs=live_n, live_pages=uniq, ms=ms, max_abs_err=err, bound_ms=b[0],
+                bound_by=b[1], per_probe_bound_ms=pp[0], per_probe_bound_by=pp[1])
 
 
 def phase_scan_batched(torch, gen, results, blocks):
@@ -566,8 +629,9 @@ def phase_scan_unreduced(torch, gen, results, blocks):
     plain_ms = cuda_ms(lambda: K.scan_per_query_plain(table, q, blocks), reps=3)
     lib_ms = cuda_ms(lambda: lib_per_query(torch, table, q, blocks), reps=3)
     uniq = int(torch.unique(table).numel())
-    by = uniq * bs * d + 4 * (table.numel() + q.numel()) + 4 * q_n * nb * bs
-    b = bound(by, 2.0 * q_n * nb * bs * d)
+    side = 4 * (table.numel() + q.numel()) + 4 * q_n * nb * bs
+    b = bound(uniq * bs * d + side, 2.0 * q_n * nb * bs * d)
+    pp = bound(q_n * nb * bs * d + side, 2.0 * q_n * nb * bs * d)
     for dtype in (torch.float32, torch.bfloat16, torch.int8):     # ragged small
         blk = _pool(torch, gen, 40, 32, 100, dtype)
         for bs2 in (32, 8):
@@ -579,8 +643,10 @@ def phase_scan_unreduced(torch, gen, results, blocks):
             want = K.scan_per_query_plain(t2, q2, blk2)
             err = max(err, compare_dense(a, want))
             check_library(torch, lib_per_query(torch, t2, q2, blk2), want, "scan_per_query")
-    _log_kernel("scan_per_query", err, 0, ms, plain_ms, lib_ms, b, f" unique_pages={uniq}")
+    _log_kernel("scan_per_query", err, 0, ms, plain_ms, lib_ms, b, f" unique_pages={uniq}",
+                f" per_probe_bound_ms={pp[0]:.4f} ({pp[1]})")
     results["scan_per_query"] = _result("scan_per_query", 52, err, ms, plain_ms, lib_ms, b)
+    results["scan_per_query"]["per_probe_bound_ms"] = pp[0]
 
     nb = BATCHED_NB
     ids, q, _ = _batched_inputs(torch, gen, blocks)
@@ -634,12 +700,15 @@ def phase_scan_q8(torch, gen, results, blocks):
                        reps=3)
     lib_ms = cuda_ms(lambda: lib_per_query(torch, table, q, blocks, bias, sz, k=k), reps=3)
     uniq = int(torch.unique(table).numel())
-    by = (uniq * bs * d + 4 * (table.numel() + q.numel() + bias.numel() + sz.numel())
-          + 8 * q_n * nb * k)
-    b = bound(by, 2.0 * q_n * nb * bs * d + 2.0 * uniq * bs * d)
-    for bs2, k2 in ((32, 32), (32, 10), (8, 8), (16, 1)):         # ragged small
-        blk = _pool(torch, gen, 40, bs2, 100, torch.int8)
-        q2 = torch.randn(5, 100, device="cuda", generator=gen) * 32
+    side = 4 * (table.numel() + q.numel() + bias.numel() + sz.numel()) + 8 * q_n * nb * k
+    flops = 2.0 * q_n * nb * bs * d + 2.0 * uniq * bs * d
+    b = bound(uniq * bs * d + side, flops)
+    pp = bound(q_n * nb * bs * d + side, flops)
+    # ragged small; d = 128 pads the ring's rows, (7, 4) copies 4 bytes
+    for bs2, d2, k2 in ((32, 100, 32), (32, 100, 10), (8, 100, 8), (16, 100, 1),
+                        (32, 128, 32), (7, 4, 7)):
+        blk = _pool(torch, gen, 40, bs2, d2, torch.int8)
+        q2 = torch.randn(5, d2, device="cuda", generator=gen) * 32
         t2 = torch.randint(0, 40, (5, 7), device="cuda", generator=gen, dtype=torch.int32)
         b2 = torch.where(torch.rand(5, 7, bs2, device="cuda", generator=gen) < 0.3, 3.0e38, 0.0)
         b2[0, 0] = 3.0e38
@@ -652,9 +721,12 @@ def phase_scan_q8(torch, gen, results, blocks):
                       want[0], "scan_per_query_topk_q8")
         err = max(err, e2)
     _log_kernel("scan_per_query_topk_q8", err, swaps, ms, plain_ms, lib_ms, b,
-                f" unique_pages={uniq}")
+                f" unique_pages={uniq}", f" per_probe_bound_ms={pp[0]:.4f} ({pp[1]})")
     results["scan_per_query_topk_q8"] = _result("scan_per_query_topk_q8", 225, err, ms,
                                                 plain_ms, lib_ms, b)
+    results["scan_per_query_topk_q8"]["per_probe_bound_ms"] = pp[0]
+    results["scan_per_query_topk_q8"]["main_mix"] = _per_query_main_mix(torch, gen, blocks, q,
+                                                                        k, q8=True)
 
     nb = BATCHED_NB
     ids, q, bias = _batched_inputs(torch, gen, blocks)
@@ -1087,12 +1159,14 @@ def main() -> int:
         results[name]["launches"] = n
     for name in ("l2_topk_tiles", "scan_batched_topk", "scan_batched_topk_q8"):
         report[f"{name}_tensor_core_bound_ms"] = results[name]["tensor_core_bound_ms"]
-    for name in ("scan_batched_topk", "scan_batched_topk_q8"):
+    for name in ("scan_per_query_topk", "scan_per_query_topk_q8", "scan_batched_topk",
+                 "scan_batched_topk_q8"):
         report[f"{name}_main_mix"] = results[name]["main_mix"]
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("tensor_core_bound_ms", "store_floor_ms", "main_mix")   # where a kernel has them
+    extra = ("tensor_core_bound_ms", "store_floor_ms", "per_probe_bound_ms",
+             "main_mix")                                      # where a kernel has them
     kernels = [{**{k: results[n][k] for k in keys},
                 **{k: results[n][k] for k in extra if k in results[n]}} for n in KERNEL_ORDER]
     print("report: " + json.dumps(report, default=str))

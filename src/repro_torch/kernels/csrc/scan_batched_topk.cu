@@ -42,9 +42,9 @@
 //     two-step ring while the current step computes (one barrier per
 //     step), and (q8) the page's (scale, zero) beside them; the mma's B
 //     fragments are converted to f32 as they are loaded (int8 by a byte
-//     permute and one add, not the conversion unit), and ||b||^2 is summed
-//     in f32 from the same fragments (q8: from the dequantised values) and
-//     reduced over the quad that holds a slot;
+//     permute and one add, not the conversion unit: scan_common.cuh), and
+//     ||b||^2 is summed in f32 from the same fragments (q8: from the
+//     dequantised values) and reduced over the quad that holds a slot;
 //   * the product runs as `mma.sync` m16n8k8 TF32 with M = queries (two
 //     m-tiles), N = slots (four n-tiles), K = d padded to a multiple of 16
 //     and permuted within each 16 so that every operand arrives in one
@@ -99,10 +99,12 @@
 #include <math_constants.h>
 #include <cstdint>
 
+#include "scan_common.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
 
+using namespace scancommon;
 using namespace tf32mma;
 
 constexpr int kWarps = 8;
@@ -110,29 +112,6 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kQTile = 64;          // queries resident per block
 constexpr int kStep = kWarps / 2;   // pages per step, two warps each
 constexpr int kRun = 64;            // pages per block
-constexpr float kBig = 3.0e38f;
-constexpr unsigned kFull = 0xffffffffu;
-
-// Four consecutive payload values (16, 8 or 4 bytes, aligned) as f32.
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-// int8 to f32 without the conversion unit: with its sign bit flipped a
-// byte reads x + 128, and 2^23 + (x + 128) - (2^23 + 128) = x exactly.
-__device__ __forceinline__ float4 load4(const int8_t* p) {
-  const uint32_t w = *reinterpret_cast<const uint32_t*>(p) ^ 0x80808080u;
-  const float off = 8388736.f;  // 2^23 + 128
-  return make_float4(__uint_as_float(__byte_perm(w, 0x4b000000u, 0x7440)) - off,
-                     __uint_as_float(__byte_perm(w, 0x4b000000u, 0x7441)) - off,
-                     __uint_as_float(__byte_perm(w, 0x4b000000u, 0x7442)) - off,
-                     __uint_as_float(__byte_perm(w, 0x4b000000u, 0x7443)) - off);
-}
 
 // code * scale + zero, rounded after the multiply and after the add.
 __device__ __forceinline__ float dequant(float c, float scale, float zero) {
@@ -154,13 +133,6 @@ __device__ __forceinline__ void insert(float (&ld)[K], int (&li)[K], float v, in
     ld[0] = v;
     li[0] = j;
   }
-}
-
-// 1.0 where a < b, else 0.0: one compare, no select.
-__device__ __forceinline__ float lt1(float a, float b) {
-  float c;
-  asm("set.lt.f32.f32 %0, %1, %2;" : "=f"(c) : "f"(a), "f"(b));
-  return c;
 }
 
 // 64^e for e in 0..3: a rank field's weight in its word.

@@ -1,6 +1,7 @@
 // Split-precision TF32 tensor-core products and asynchronous staging
 // (sm_90a), shared by the centroid navigation (l2_topk.cu) and the
-// batched page scan (scan_batched_topk.cu).
+// batched page scan (scan_batched_topk.cu); the per-query page scan
+// (posting_scan.cu) uses the staging helpers only.
 //
 // An f32 value x is split into hi = x rounded to TF32's 10-bit mantissa
 // and lo = x - hi, which is exact in f32 and below 2^-11 |x|, then cut to
@@ -53,9 +54,22 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
 }
 
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+// A copy of N = 4, 8 or 16 bytes (16: bypassing L1).
+template <int N>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
+  if constexpr (N == 16) cp_async16(smem, gmem);
+  else if constexpr (N == 8) cp_async8(smem, gmem);
+  else cp_async4(smem, gmem);
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -10,13 +10,17 @@ zero`` with its posting's parameters).  The batched top-k forms,
 ``scan_batched_topk`` and ``scan_batched_topk_q8``, are one tensor-core
 kernel in ``kernels/csrc/scan_batched_topk.cu`` (library
 ``scan_batched_topk``); the other four are in
-``kernels/csrc/posting_scan.cu``.  For tensors on the CPU a wrapper runs
-the plain version; for CUDA tensors it launches the kernel or raises.
+``kernels/csrc/posting_scan.cu``, where the three per-query forms share
+one kernel that stages each live page in shared memory and skips pairs
+whose every slot is dead.  For tensors on the CPU a wrapper runs the
+plain version; for CUDA tensors it launches the kernel or raises.
 
 Contract: ``BS <= 32`` (one lane per slot), ``k <= BS``, ``d % 4 == 0``;
 the payload is float32, bfloat16 or int8 (int8 codes for the ``_q8``
-forms).  Block ids must lie in ``[0, B)``; the callers clamp absent pages
-to 0 and mask them by bias.
+forms); a per-query kernel refuses a page larger than a block's shared
+memory (float32 at ``BS = 32``: ``d`` above about 1,750).  Block ids must
+lie in ``[0, B)``; the callers clamp absent pages to 0 and mask them by
+bias.
 """
 from __future__ import annotations
 
@@ -231,8 +235,8 @@ def scan_batched_topk(unique_blocks, queries, blocks, slot_bias, *, k: int):
 
 def scan_per_query_topk_q8(block_table, queries, codes, slot_bias, page_sz, *, k: int):
     """:func:`scan_per_query_topk` over int8 ``codes``, each page
-    dequantised in the kernel with ``page_sz (Q, NB, 2)`` f32 ``(scale,
-    zero)``."""
+    dequantised with ``page_sz (Q, NB, 2)`` f32 ``(scale, zero)`` (the
+    kernel applies them to its exact integer sums over the codes)."""
     queries = queries.float().contiguous()
     _check(block_table, queries, codes, k, q8=True, slot_bias=slot_bias, page_sz=page_sz)
     q_n, nb = block_table.shape

@@ -300,6 +300,84 @@ def test_scan_batched_topk_rank_select_ties(card, form, k):
     assert bool(((step_d > 0) | ((step_d == 0) & (step_i > 0))).all())
 
 
+def _per_query_topk(form, table, q, blocks, bias, sz, k):
+    """The kernel and the plain version of #4 (``form`` a dtype) or #5
+    (``form`` "q8"): ``((kd, ki), (pd, pi), launches counted)``."""
+    name = "scan_per_query_topk_q8" if form == "q8" else "scan_per_query_topk"
+    args = (table, q, blocks, bias, sz) if form == "q8" else (table, q, blocks, bias)
+    before = SK.LAUNCHES[name]
+    got = getattr(SK, name)(*args, k=k)
+    torch.cuda.synchronize()
+    return got, getattr(SK, name + "_plain")(*args, k=k), SK.LAUNCHES[name] - before
+
+
+FLOAT_FORMS = (torch.float32, torch.bfloat16)
+
+
+@pytest.mark.parametrize("form", [torch.float32, torch.bfloat16, torch.int8, "q8"])
+@pytest.mark.parametrize("bs,k", [(32, 32), (32, 10), (32, 1), (8, 8)])
+def test_scan_per_query_topk_kernel_dead_pairs(card, form, bs, k):
+    """All-dead (query, page) pairs at the start, middle and end of the
+    rows, a query whose every pair is dead, pairs with one live slot; a
+    dead pair gives exactly (float32(3e38), slots 0..k-1), which the
+    kernel writes without loading the page.  ``q8`` is #5 over int8 codes
+    with per-pair (scale, zero)."""
+    gen = torch.Generator().manual_seed(8)
+    dtype = torch.int8 if form == "q8" else form
+    blocks = _blocks(gen, 64, bs, 100, dtype, card)
+    q_n, nb = 9, 21
+    q = (torch.randn(q_n, 100, generator=gen) * (1 if form in FLOAT_FORMS else 64)).to(card)
+    table = torch.randint(0, 64, (q_n, nb), generator=gen, dtype=torch.int32).to(card)
+    bias = torch.where(torch.rand(q_n, nb, bs, generator=gen) < 0.3, BIG, 0.0)
+    dead = torch.zeros(q_n, nb, dtype=torch.bool)
+    dead[:, [0, 10, nb - 1]] = True
+    dead[4] = True                                   # a query with no live pair
+    bias[dead] = BIG
+    for i, j in ((1, 3), (7, 12)):                   # one live slot
+        bias[i, j] = BIG
+        bias[i, j, bs // 2] = 0.0
+    bias = bias.to(card).contiguous()
+    sz = _page_sz(gen, q_n * nb).reshape(q_n, nb, 2).contiguous().to(card)
+    (kd, ki), plain, launched = _per_query_topk(form, table, q, blocks, bias, sz, k)
+    assert launched == 1
+    assert_kmin_close(kd, ki, *plain, atol=1e-4 if form in FLOAT_FORMS else 1e-2)
+    dead = dead.to(card)
+    assert bool((kd[dead].cpu() == torch.tensor(BIG, dtype=torch.float32)).all())
+    assert bool((ki[dead].cpu() == torch.arange(k, dtype=torch.int32)).all())
+    assert bool((kd[[1, 7], [3, 12], 0] < BIG / 2).all())
+
+
+@pytest.mark.parametrize("form", [torch.float32, torch.bfloat16, torch.int8, "q8"])
+@pytest.mark.parametrize("bs,d,k", [(32, 128, 10), (32, 128, 32), (16, 64, 5),
+                                    (8, 4, 8), (7, 4, 3), (3, 12, 2)])
+def test_scan_per_query_kernels_padded_rows_and_small_pages(card, form, bs, d, k):
+    """#4, #5 and #2 where a row is an even number of 4-value units (d =
+    128, 64: the kernel's ring pads each row by one unit so that the lanes'
+    shared-memory reads stay conflict-free) and where a page is not a
+    multiple of 16 bytes (int8 at BS = 7, d = 4: 28 bytes; BS = 3, d = 12:
+    36 bytes; bf16 at BS = 7 or 3: copied one unit at a time); int8 at
+    BS = 8, d = 4 is a 32-byte page (16-byte copies)."""
+    gen = torch.Generator().manual_seed(9)
+    dtype = torch.int8 if form == "q8" else form
+    blocks = _blocks(gen, 50, bs, d, dtype, card)
+    q_n, nb = 11, 13
+    q = (torch.randn(q_n, d, generator=gen) * (1 if form in FLOAT_FORMS else 64)).to(card)
+    table = torch.randint(0, 50, (q_n, nb), generator=gen, dtype=torch.int32).to(card)
+    bias = torch.where(torch.rand(q_n, nb, bs, generator=gen) < 0.3, BIG, 0.0)
+    bias[0, 0] = BIG                                 # an all-dead pair
+    bias = bias.to(card).contiguous()
+    sz = _page_sz(gen, q_n * nb).reshape(q_n, nb, 2).contiguous().to(card)
+    atol = 1e-4 if form in FLOAT_FORMS else 1e-2
+    (kd, ki), plain, launched = _per_query_topk(form, table, q, blocks, bias, sz, k)
+    assert launched == 1
+    assert_kmin_close(kd, ki, *plain, atol=atol)
+    if form != "q8":
+        got = SK.scan_per_query(table, q, blocks)
+        torch.cuda.synchronize()
+        want = SK.scan_per_query_plain(table, q, blocks)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=atol)
+
+
 def test_wrappers_raise_instead_of_falling_back(card):
     blocks = torch.zeros((4, 8, 10), device=card)            # d % 4 != 0
     with pytest.raises(ValueError):

@@ -260,6 +260,42 @@ def test_scan_batched_topk_dead_page_is_big_and_slot_order(rng, dtype, bs, k):
     assert_tie_tolerant(np.asarray(rd), np.asarray(ri), td.numpy(), ti.numpy())
 
 
+@pytest.mark.parametrize("dtype", DTYPES + ["q8"])
+@pytest.mark.parametrize("bs,k", [(32, 10), (32, 32), (8, 1)])
+def test_scan_per_query_topk_dead_pair_is_big_and_slot_order(rng, dtype, bs, k):
+    """A (query, page) pair whose every slot is dead gives exactly
+    float32(3e38) for all k candidates in the port's plain version and in
+    the reference kernel alike, and slots 0..k-1 in the plain version: the
+    candidates the CUDA kernel's dead-pair skip writes without loading the
+    page.  (The reference's min/mask loop names slot 0 k times there; no
+    consumer reads the slot of a dead candidate.)  ``q8`` is
+    ``scan_per_query_topk_q8`` over int8 codes with per-pair (scale, zero)."""
+    rblk, tblk, s = _payload(rng, (12, bs, 100), "int8" if dtype == "q8" else dtype)
+    q = (rng.normal(size=(5, 100)) / s).astype(np.float32)
+    table = rng.integers(0, 12, size=(5, 7)).astype(np.int32)
+    bias = np.where(rng.random(size=(5, 7, bs)) < 0.3, BIG, 0.0).astype(np.float32)
+    dead = (np.array([0, 2, 4]), np.array([0, 3, 6]))
+    bias[dead] = BIG
+    if dtype == "q8":
+        sz = np.stack([rng.uniform(0.05, 0.5, size=(5, 7)), 20 * rng.normal(size=(5, 7))],
+                      axis=-1).astype(np.float32)
+        rd, ri = RK.scan_per_query_topk_q8(jnp.asarray(table), jnp.asarray(q), rblk,
+                                           jnp.asarray(bias), jnp.asarray(sz), k=k,
+                                           interpret=True)
+        td, ti = TK.scan_per_query_topk_q8(t(table), t(q), tblk, t(bias), t(sz), k=k)
+    else:
+        rd, ri = RK.scan_per_query_topk(jnp.asarray(table), jnp.asarray(q), rblk,
+                                        jnp.asarray(bias), k=k, interpret=True)
+        td, ti = TK.scan_per_query_topk(t(table), t(q), tblk, t(bias), k=k)
+    want_d = np.full((3, k), np.float32(BIG), np.float32)
+    want_i = np.broadcast_to(np.arange(k, dtype=np.int32), (3, k))
+    np.testing.assert_array_equal(np.asarray(rd)[dead], want_d)
+    np.testing.assert_array_equal(td.numpy()[dead], want_d)
+    np.testing.assert_array_equal(ti.numpy()[dead], want_i)
+    assert ((np.asarray(ri)[dead] >= 0) & (np.asarray(ri)[dead] < bs)).all()
+    assert_tie_tolerant(np.asarray(rd), np.asarray(ri), td.numpy(), ti.numpy())
+
+
 @pytest.mark.parametrize("bad", ["bs", "k", "d", "dtype"])
 def test_scan_wrappers_enforce_the_kernel_contract(rng, bad):
     bs, d, k, dt = 8, 12, 4, torch.float32
