@@ -32,10 +32,18 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
    Each asserts navigation against its plain version, recall at nprobe 1
    and 64, agreement with the gather oracle and between the schedules,
    delete and insert visibility and insert determinism, and (``int8``)
-   that every returned distance is the exact one; the launch counts are
-   reset before each path and read after it, and every kernel of the path
-   must have launched.  The kernels are timed inside one search per
-   schedule.
+   that every returned distance is the exact one.  The kernels are timed
+   inside one search per schedule.
+   A third, ``update``, drives the maintenance round on the reference's
+   generator (``make_spacev_like`` in bytes, ``UPDATE_N`` vectors, fp32
+   codec): build (most postings over ``split_limit``), one round replayed
+   bit for bit on a clone, an insert batch whose rows land on full
+   postings and wait for backpressure drains (every row must land, #1
+   must launch in the drains), delete, ``maintain()`` (no backlog, no
+   posting over ``split_limit``), and searches under both schedules with
+   recall floors from the reference at the same N.
+   The launch counts are reset before each path and read after it, and
+   every kernel of the path must have launched.
 4. Prints the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
 
@@ -794,8 +802,9 @@ def phase_scan_q8(torch, gen, results, blocks):
 # main path
 # ---------------------------------------------------------------------------
 
-def recall_at_10(torch, base_t, queries, got):
-    """Recall@10 against brute force (plain torch, f32 expansion)."""
+def recall_at_10(torch, base_t, queries, got, ids=None):
+    """Recall@10 against brute force (plain torch, f32 expansion); row
+    ``i`` of ``base_t`` is vid ``ids[i]`` (``i`` without ``ids``)."""
     q = torch.as_tensor(queries, device=base_t.device)
     bsq = torch.sum(base_t * base_t, dim=1)
     best_d, best_i = None, None
@@ -811,6 +820,8 @@ def recall_at_10(torch, base_t, queries, got):
             best_d, sel = torch.topk(cd, 10, largest=False)
             best_i = torch.gather(ci, 1, sel)
     gt = best_i.cpu().numpy()
+    if ids is not None:
+        gt = ids[gt]
     return float(sum(len(set(a) & set(b)) for a, b in zip(gt.tolist(), got.tolist()))
                  / (10 * len(gt)))
 
@@ -904,12 +915,12 @@ def kernel_ms_in(torch, fn):
 # int8 path is the reference's int8 cell (benchmarks/bench_search_path.py:43,
 # CODEC_CELLS: codec "int8", rerank_factor 4) at the spfresh-1b widths.
 CELLS = {"fp32": {}, "int8": {"codec": "int8", "rerank_factor": 4}}
-# insert batches of UPDATE_B rows per path (the int8 path's pool clone per
-# 256-row chunk carries the 3.36 GB exact tier)
+# insert batches of UPDATE_B rows per path
 INSERT_BATCHES = {"fp32": 4, "int8": 1}
 # the kernels each path must launch
 PATH_KERNELS = {
     "fp32": ("l2_topk_tiles", "scan_per_query_topk", "scan_batched_topk"),
+    "update": ("l2_topk_tiles", "scan_per_query_topk", "scan_batched_topk"),
     "int8": ("l2_topk_tiles", "scan_per_query_topk_q8", "scan_batched_topk_q8"),
 }
 
@@ -1080,6 +1091,208 @@ def main_path(torch, np, seed, report, *, cell="fp32", cfg=None, device="cuda"):
     return p50, ins_rate, del_rate
 
 
+# ---------------------------------------------------------------------------
+# the update path: inserts past posting capacity, drained by the rebuilder
+# ---------------------------------------------------------------------------
+
+# Vectors the update path builds from, and the rows it then inserts.  A
+# quarter of the main paths' N: recall on this generator falls as N grows
+# (PERF.md §2), so its floor must come from the reference at the same N,
+# and 250,000 is what the reference's CPU run reaches; at 1,000,000 the
+# batched schedule's page budget also overflows (PERF.md §5).
+UPDATE_N = 250_000
+UPDATE_INSERT_BATCHES = 1
+# Recall@10 of the JAX reference on the CPU after the same sequence on the
+# same data (build from UPDATE_N vectors, insert UPDATE_B rows past
+# capacity with backpressure, delete UPDATE_B, maintain), by nprobe
+# (scripts/reference_recall.py, cell "update"); the port must reach each
+# minus RECALL_MARGIN.
+REFERENCE_RECALL_UPDATE_250K = {1: 0.417578125, 64: 0.9265625000000002}
+
+
+def live_vids(torch, state):
+    """The vids with a live replica (stored version current, not deleted)."""
+    from repro_torch.storage import versionmap as vm
+
+    vids = state.pool.block_vid.reshape(-1)
+    ok = (vids >= 0) & ~vm.is_stale(state.versions, vids, state.pool.block_ver.reshape(-1))
+    return torch.unique(vids[ok])
+
+
+def round_launches(torch, fn, card: bool):
+    """Run ``fn`` once and count its launches: ``(aten ops dispatched, CUDA
+    kernels in the profiler's trace, their summed device ms)``, the last
+    two None where ``fn`` does not run on the card."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    prof = profile(activities=[ProfilerActivity.CUDA]) if card else contextlib.nullcontext()
+    with prof:
+        with Count():
+            fn()
+        if card:
+            torch.cuda.synchronize()
+    if not card:
+        return Count.n, None, None
+    on_card = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    busy_us = sum(getattr(e, "self_device_time_total", 0) for e in on_card)
+    return Count.n, sum(e.count for e in on_card), busy_us / 1e3
+
+
+def update_path(torch, np, seed, report, *, cfg=None, device="cuda", n=None,
+                n_insert=None, floors=None):
+    """The maintenance round's main path through ``SPFreshIndex``, on the
+    reference's generator (``make_spacev_like`` in byte values): build from
+    ``n`` vectors (most postings come out over ``split_limit``, filled by
+    closure replicas), replay one round on a clone, insert ``n_insert``
+    drifted rows (their postings are full: every chunk waits for
+    backpressure drains), delete as many base rows, ``maintain()``, and
+    search under both schedules.  The default floors hold for the default
+    ``n`` only.  ``cfg``, ``n``, ``n_insert``, ``floors`` ({nprobe: recall
+    floor}) and ``device="cpu"`` rehearse it without a card."""
+    from repro_torch.configs.spfresh import SEARCH_Q, UPDATE_B
+    from repro_torch.core import lire
+    from repro_torch.core.index import SPFreshIndex
+    from repro_torch.data.vectors import make_queries, make_spacev_like_bytes
+    from repro_torch.kernels.l2_topk import kernel as LK
+    from repro_torch.utils.tree import clone_state, tensor_leaves
+
+    cfg = cfg or path_config("fp32")
+    n = n or UPDATE_N
+    n_ins = n_insert or UPDATE_INSERT_BATCHES * UPDATE_B
+    if floors is None:
+        floors = {1: REFERENCE_RECALL_UPDATE_250K[1] - RECALL_MARGIN,
+                  cfg.nprobe: REFERENCE_RECALL_UPDATE_250K[64] - RECALL_MARGIN}
+    k, nprobe = 10, cfg.nprobe
+    data, gen_s = timed(torch, lambda: make_spacev_like_bytes(n + n_ins, cfg.dim, seed=seed))
+    base, fresh = data[:n], data[n:]
+    queries = make_queries(base, min(SEARCH_Q, n), seed=seed)
+    log(f"[update] data: make_spacev_like in bytes, N={n} inserts={n_ins} d={cfg.dim} "
+        f"codec={cfg.codec} made in {gen_s:.1f} s")
+
+    idx, build_s = timed(torch, lambda: SPFreshIndex.build(cfg, base, seed=seed, device=device))
+    st = idx.stats()
+    lens = idx.state.pool.posting_len[idx.state.centroid_valid]
+    log(f"[update] build: {build_s:.1f} s n_postings={st['n_postings']} used_blocks="
+        f"{st['used_blocks']} backlog={idx.backlog()} (postings over split_limit "
+        f"{cfg.split_limit}; {int((lens == cfg.posting_capacity).sum())} at capacity)")
+    report.update(build_s=build_s, n=n, n_insert=n_ins, n_postings=st["n_postings"],
+                  backlog_after_build=idx.backlog())
+
+    # one round replayed on a clone of its input is bit-identical
+    before = clone_state(idx.state)
+    did, round_s = timed(torch, idx.maintain_round)
+    check(did > 0, "[update] the first round after the build did no work")
+    after = tensor_leaves(idx.state)
+    replay = SPFreshIndex(before)
+    ops, kernels, busy_ms = round_launches(torch, lambda: replay.maintain_round(),
+                                           card=device != "cpu")
+    for name, t in tensor_leaves(replay.state).items():
+        check(bool(torch.equal(t, after[name])), f"[update] round replay differs in {name}")
+    del replay, before, after
+    log(f"[update] one round ({did} jobs, {round_s * 1e3:.1f} ms): replay on a clone is "
+        f"bit-identical; {ops} aten ops dispatched, {kernels} CUDA kernels launched, "
+        f"busy on the card {busy_ms} ms (profiler)")
+    report.update(first_round_jobs=did, first_round_ms=round_s * 1e3,
+                  round_aten_ops=ops, round_cuda_kernels=kernels, round_device_ms=busy_ms)
+
+    # inserts: every drain the backpressure runs is timed and counted
+    drains = dict(calls=0, rounds=0, jobs=0, s=0.0, l2_topk_launches=0)
+    drain = idx.maintain
+
+    def counted_drain(*a, **kw):
+        l0 = LK.LAUNCHES["l2_topk_tiles"]
+        jobs, s = timed(torch, lambda: drain(*a, **kw))
+        drains.update(calls=drains["calls"] + 1, rounds=drains["rounds"] + idx.last_drain_rounds,
+                      jobs=drains["jobs"] + jobs, s=drains["s"] + s,
+                      l2_topk_launches=drains["l2_topk_launches"]
+                      + LK.LAUNCHES["l2_topk_tiles"] - l0)
+        return jobs
+
+    idx.maintain = counted_drain
+    ins_vids = np.arange(n, n + n_ins, dtype=np.int32)
+    _, ins_s = timed(torch, lambda: idx.insert(fresh, ins_vids))
+    del idx.maintain
+    check(drains["rounds"] > 0, "[update] no insert waited for a backpressure drain")
+    if device == "cuda":
+        check(drains["l2_topk_launches"] > 0, "[update] #1 was not launched in the drains")
+    st = idx.stats()
+    check(st["n_inserts"] == n_ins + idx.retried_rows,
+          f"[update] {st['n_inserts']} inserts counted, {n_ins} sent + {idx.retried_rows} retried")
+    live = live_vids(torch, idx.state).cpu().numpy()
+    missing = np.setdiff1d(ins_vids, live)
+    check(missing.size == 0, f"[update] {missing.size} inserted rows are not live")
+    ms_round = drains["s"] * 1e3 / drains["rounds"]
+    idle = None if busy_ms is None else 1.0 - busy_ms / ms_round
+    log(f"[update] insert: {n_ins} rows in {ins_s:.1f} s ({n_ins / ins_s:.0f} rows/s with the "
+        f"drains); {drains['calls']} backpressure drains, {drains['rounds']} rounds, "
+        f"{drains['jobs']} jobs, {drains['s']:.1f} s ({ms_round:.2f} ms a round; the card idle "
+        f"{idle} of it by the profiled round), #1 launched {drains['l2_topk_launches']} times in "
+        f"them; {idx.retried_rows} rows retried; every inserted vid is live at its current "
+        "version")
+
+    rng = np.random.default_rng(seed + 7)
+    victims = rng.choice(n, size=n_ins, replace=False).astype(np.int32)
+    _, del_s = timed(torch, lambda: idx.delete(victims))
+    jobs, maint_s = timed(torch, idx.maintain)
+    lens = idx.state.pool.posting_len[idx.state.centroid_valid]
+    check(idx.backlog() == 0, f"[update] backlog {idx.backlog()} after maintain()")
+    check(int(lens.max()) <= cfg.split_limit, "[update] a posting is over split_limit")
+    st = idx.stats()
+    log(f"[update] delete {n_ins} rows in {del_s:.2f} s; maintain(): {jobs} jobs in "
+        f"{idx.last_drain_rounds} rounds, {maint_s:.1f} s; backlog 0, longest posting "
+        f"{int(lens.max())}; n_splits={st['n_splits']} n_merges={st['n_merges']} "
+        f"n_reassigned={st['n_reassigned']} n_reassign_overflow={st['n_reassign_overflow']} "
+        f"n_postings={st['n_postings']}")
+
+    q_t = torch.as_tensor(queries, device=device)
+    for name, v in lire.scan_page_stats(idx.state, q_t, nprobe=nprobe).items():
+        report[f"page_stats_{name}"] = int(v)
+    log(f"[update] scan_page_stats (Q={len(queries)}, budget {cfg.scan_page_budget}): "
+        + " ".join(f"{s}={report['page_stats_' + s]}" for s in ("n_pages", "n_unique", "overflow")))
+
+    keep = np.ones(n + n_ins, bool)
+    keep[victims] = False
+    ids = np.flatnonzero(keep)
+    live_t = torch.as_tensor(data[ids], device=device)
+    gone = set(victims.tolist())
+    recall = {}
+    for sched in ("batched", "per_query"):
+        for probes in (nprobe, 1):
+            _, v = idx.search_padded(queries, k, nprobe=probes, use_pallas_scan=True,
+                                     scan_schedule=sched)
+            check(not gone & set(v.reshape(-1).tolist()), f"[update] {sched} returned a deleted vid")
+            recall[f"{sched}@{probes}"] = recall_at_10(torch, live_t, queries, v, ids)
+    floor = {key: floors[int(key.split("@")[1])] for key in recall}
+    log(f"[update] recall@10 (schedule@nprobe): {recall} floors {floor}")
+    for key, r in recall.items():
+        check(r >= floor[key], f"[update] recall@10 {r} of {key} below the floor {floor[key]}")
+    found = 0
+    for s in range(0, n_ins, SEARCH_Q):
+        _, v = idx.search_padded(fresh[s:s + SEARCH_Q], k, nprobe=nprobe,
+                                 use_pallas_scan=True, scan_schedule="batched")
+        found += int((v == ins_vids[s:s + SEARCH_Q, None]).any(axis=1).sum())
+    self_frac = found / n_ins
+    log(f"[update] no deleted vid returned; inserted vectors in their own top-10: {self_frac:.4f}")
+    check(self_frac >= 0.95, f"[update] only {self_frac} of the inserts find themselves")
+    report.update(drains=drains, drain_ms_per_round=ms_round, drain_idle_share=idle,
+                  insert_s=ins_s,
+                  insert_rows_per_s_with_drains=n_ins / ins_s, delete_s=del_s,
+                  maintain_jobs=jobs, maintain_rounds=idx.last_drain_rounds, maintain_s=maint_s,
+                  recall_at_10=recall, recall_floor=floor, insert_self_top10=self_frac,
+                  stats=st)
+    return drains, ms_round
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="chip smoke for the PyTorch/CUDA port")
     ap.add_argument("--seed", type=int, default=0)
@@ -1155,6 +1368,19 @@ def main() -> int:
         log(f"[{cell}] launches on the main path: {got}")
         gc.collect()
         torch.cuda.empty_cache()
+    for c in counters:
+        for key in c:
+            c[key] = 0
+    report["update"] = {}
+    drains, ms_round = update_path(torch, np, args.seed, report["update"])
+    got = {**LK.LAUNCHES, **SK.LAUNCHES}
+    for name in PATH_KERNELS["update"]:
+        check(got[name] > 0, f"kernel {name} was not launched on the update main path")
+    for name, n in got.items():
+        launches[name] += n
+    report["update"]["launches"] = got
+    log(f"[update] {drains['rounds']} drain rounds at {ms_round:.2f} ms; launches on the "
+        f"main path: {got}, #1 in the drains {drains['l2_topk_launches']} ({card})")
     for name, n in launches.items():
         results[name]["launches"] = n
     for name in ("l2_topk_tiles", "scan_batched_topk", "scan_batched_topk_q8"):

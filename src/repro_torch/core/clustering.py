@@ -113,3 +113,69 @@ def hierarchical_balanced_kmeans(x, *, max_posting_size: int, branch: int = 8,
         sums = np.add.reduceat(xs[order], starts[nz], axis=0)
         centroids[nz] = sums / sizes[nz, None].astype(np.float32)
     return centroids, assign
+
+
+def balanced_two_means(x, valid, *, init_scores, iters: int = 8):
+    """LIRE split primitive: balanced 2-means over posting buffers, batched
+    over a leading job dim.
+
+    ``x (K, L, d)`` holds each job's (garbage-collected) posting, ``valid
+    (K, L)`` its live rows.  ``init_scores (K, L)`` carries the random
+    draw: the two valid rows with the highest scores (lowest index first
+    among equal ones) seed the centroids, as the reference's Gumbel top-2
+    does with its own draw.  Size-penalised Lloyd (balance weight 2) runs
+    ``iters`` steps; then balance is enforced hard — a side larger than
+    ``ceil(n_valid / 2)`` hands its smallest-margin rows to the other —
+    and the centroids are refreshed from the final assignment.
+
+    Returns ``(centroids (K, 2, d) f32, assign (K, L) in {-1, 0, 1})``.
+    Every reduction is a matmul or a sum over a fixed axis: no atomics."""
+    xf = x.float()
+    k_jobs, n, _ = xf.shape
+    validf = valid.float()
+    n_valid = torch.clamp(validf.sum(dim=1), min=1.0)              # (K,)
+    scores = torch.where(valid, init_scores.double(), -torch.inf)
+    _, init_idx = stable_topk(scores, 2, largest=True)              # (K, 2)
+    centroids = torch.gather(xf, 1, init_idx[..., None].expand(-1, -1, xf.shape[2]))
+    x_sqn = torch.sum(xf * xf, dim=-1)                             # (K, L)
+    mean_sq = torch.sum(x_sqn * validf, dim=1) / n_valid
+    sides = torch.arange(2, device=x.device)
+
+    def assign_step(centroids, sizes):
+        c_sqn = torch.sum(centroids * centroids, dim=-1)            # (K, 2)
+        cross = torch.bmm(xf, centroids.transpose(1, 2))            # (K, L, 2)
+        dists = torch.clamp(x_sqn[..., None] - 2.0 * cross + c_sqn[:, None, :], min=0.0)
+        penalty = 2.0 * (sizes / n_valid[:, None]) * (mean_sq[:, None] + 1e-6)
+        a = torch.argmin(dists + penalty[:, None, :], dim=-1)        # first among ties
+        return torch.where(valid, a, -1)
+
+    def means(assign):
+        onehot = (assign[..., None] == sides).float()               # (K, L, 2)
+        counts = onehot.sum(dim=1)                                  # (K, 2)
+        sums = torch.bmm(onehot.transpose(1, 2), xf)                # (K, 2, d)
+        return sums / torch.clamp(counts, min=1.0)[..., None], counts
+
+    sizes = torch.zeros((k_jobs, 2), dtype=torch.float32, device=x.device)
+    for _ in range(iters):
+        new, sizes = means(assign_step(centroids, sizes))
+        centroids = torch.where((sizes > 0)[..., None], new, centroids)
+    new, counts = means(assign_step(centroids, sizes))
+    centroids = torch.where((counts > 0)[..., None], new, centroids)
+
+    # hard rebalance on the signed preference d0 - d1 (> 0 prefers side 1)
+    d0 = torch.sum((xf - centroids[:, :1]) ** 2, dim=-1)
+    d1 = torch.sum((xf - centroids[:, 1:]) ** 2, dim=-1)
+    pref = d0 - d1
+    a = torch.where(valid, (pref > 0).long(), -1)
+    target = (valid.sum(dim=1) + 1) // 2                           # (K,)
+    margin = pref.abs()
+    for side in (1, 0):
+        count = (a == side).sum(dim=1)
+        cand = a == side
+        order = torch.sort(torch.where(cand, margin, torch.inf), dim=1, stable=True).indices
+        rank = torch.empty_like(order)
+        rank.scatter_(1, order, torch.arange(n, device=x.device).expand(k_jobs, n))
+        flip = cand & (rank < (count - target)[:, None]) & (count > target)[:, None]
+        a = torch.where(flip, 1 - side, a)
+    centroids, _ = means(a)
+    return centroids, a

@@ -4,12 +4,17 @@ Composition (paper Fig. 5):
   * offline build      — SPANN hierarchical balanced clustering + closure
                          replication (§3.1), vectorised on the device;
   * foreground Updater — ``insert`` / ``delete`` (``lire.insert_batch`` /
-                         ``lire.delete_batch``);
+                         ``lire.delete_batch``), with backpressure: rows
+                         whose primary append fails are retried after the
+                         Local Rebuilder has drained;
+  * background Local Rebuilder — ``maintain()`` drains split / merge /
+                         reassign jobs in batched rounds
+                         (``lire.maintenance_round``);
   * Searcher           — ``search`` (``lire.search``).
 
-The background Local Rebuilder (split / merge / reassign), the WAL and
-snapshots are not ported yet: an insert whose primary append fails raises
-``NotImplementedError`` where the reference would run maintenance.
+``SPFreshIndex`` owns its state: its updates write the block pool in
+place (the reference donates the state to its jitted steps).  The WAL and
+snapshots are not ported yet.
 """
 from __future__ import annotations
 
@@ -245,6 +250,33 @@ def delete_step():
     return lire.delete_batch
 
 
+def fused_maintenance_step(budget: int):
+    """``(state, *, inplace=False) -> (state, n_did_work)``: ``budget``
+    sequential one-job ``maintenance_step``s, the baseline the batched
+    round is measured against."""
+
+    def step(state, *, inplace: bool = False):
+        total = torch.zeros((), dtype=torch.int32, device=state.device)
+        for _ in range(budget):
+            state, did = lire.maintenance_step(state, inplace=inplace)
+            total = total + did.to(torch.int32)
+        return state, total
+
+    return step
+
+
+def fused_maintenance_round(jobs: int):
+    """``(state, access, *, inplace=False) -> (state, n_jobs_done)``: one
+    batched round of ``jobs`` split and ``jobs`` merge jobs with one fused
+    reassignment pass; ``access`` is the ``(P_cap,)`` probe histogram
+    folded into the telemetry before selection (zeros: a no-op)."""
+
+    def step(state, access, *, inplace: bool = False):
+        return lire.maintenance_round(state, jobs, access, inplace=inplace)
+
+    return step
+
+
 def _pad_to(x: np.ndarray, size: int, fill=0) -> np.ndarray:
     pad = size - x.shape[0]
     if pad <= 0:
@@ -254,10 +286,16 @@ def _pad_to(x: np.ndarray, size: int, fill=0) -> np.ndarray:
 
 
 class SPFreshIndex:
-    """Stateful host wrapper over the functional LIRE ops."""
+    """Stateful host wrapper over the LIRE ops.  It owns ``state``: the
+    updates and the rebuilder write its block pool in place, so a caller
+    keeps no other reference to the state it hands in."""
 
     def __init__(self, state: IndexState):
         self.state = state
+        self.last_drain_rounds = 0
+        # rows re-sent after a backpressure drain (``n_inserts`` counts
+        # each send, as the reference's does)
+        self.retried_rows = 0
 
     @classmethod
     def build(cls, cfg: LireConfig, vectors, *, seed: int = 0,
@@ -268,25 +306,29 @@ class SPFreshIndex:
         return torch.as_tensor(np.asarray(x)).to(device=self.state.device, dtype=dtype)
 
     # ---------------------------- Updater -----------------------------
-    def insert(self, vecs, vids) -> None:
-        """Insert in ``_INSERT_CHUNK``-row batches.  Raises
-        ``NotImplementedError`` if a primary append fails: the reference
-        would run the Local Rebuilder there, which is not ported yet."""
+    def insert(self, vecs, vids, *, max_retries: int = 4) -> None:
+        """Insert in ``_INSERT_CHUNK``-row batches, with backpressure: when
+        a primary append hits a full posting, drain the Local Rebuilder
+        (which splits it) and retry the rows that did not land, up to
+        ``max_retries`` times."""
         vecs = np.asarray(vecs, np.float32)
         vids = np.asarray(vids, np.int32)
         for s in range(0, len(vids), _INSERT_CHUNK):
             v = vecs[s:s + _INSERT_CHUNK]
             i = vids[s:s + _INSERT_CHUNK]
-            nvalid = len(i)
-            valid = np.arange(_INSERT_CHUNK) < nvalid
-            landed = self.insert_padded(
-                _pad_to(v, _INSERT_CHUNK), _pad_to(i, _INSERT_CHUNK, fill=-1), valid
-            )[:nvalid]
-            if not landed.all():
-                raise NotImplementedError(
-                    f"{int((~landed).sum())} rows hit a full posting; the "
-                    "maintenance round that splits it comes with a later slice"
-                )
+            for attempt in range(max_retries + 1):
+                nvalid = len(i)
+                if nvalid == 0:
+                    break
+                valid = np.arange(_INSERT_CHUNK) < nvalid
+                landed = self.insert_padded(
+                    _pad_to(v, _INSERT_CHUNK), _pad_to(i, _INSERT_CHUNK, fill=-1), valid
+                )[:nvalid]
+                if landed.all() or attempt == max_retries:
+                    break
+                self.maintain()
+                v, i = v[~landed], i[~landed]
+                self.retried_rows += len(i)
 
     def delete(self, vids) -> None:
         vids = np.asarray(vids, np.int32)
@@ -295,8 +337,37 @@ class SPFreshIndex:
             valid = np.arange(_INSERT_CHUNK) < len(i)
             self.delete_padded(_pad_to(i, _INSERT_CHUNK, fill=-1), valid)
 
-    def maintain(self, *args, **kwargs) -> int:
-        raise NotImplementedError("the Local Rebuilder comes with a later slice")
+    # ------------------------- Local Rebuilder -------------------------
+    def maintain(self, max_steps: int | None = None, jobs_per_round: int | None = None,
+                 access=None) -> int:
+        """Drain split / merge / reassign jobs in batched rounds (one
+        did-work readback per round); returns the jobs run.  The round
+        count is kept in ``last_drain_rounds``; ``access`` (a probe
+        histogram) folds into the first round's selection."""
+        acc = None if access is None else self._t(access, torch.int32)
+        self.state, jobs, rounds = lire.rebuild_drain(
+            self.state, max_steps, jobs_per_round, donate=True, access=acc
+        )
+        self.last_drain_rounds = rounds
+        return jobs
+
+    def maintain_round(self, jobs: int | None = None, access=None) -> int:
+        """One batched rebuilder round; returns how many jobs acted."""
+        jobs = jobs or self.state.cfg.jobs_per_round
+        if access is None:
+            access = np.zeros((self.state.cfg.num_postings_cap,), np.int32)
+        self.state, did = fused_maintenance_round(jobs)(
+            self.state, self._t(access, torch.int32), inplace=True
+        )
+        return int(did)
+
+    # the reference's earlier name for the one-dispatch maintenance slot
+    maintain_fused = maintain_round
+
+    def maintain_fused_seq(self, budget: int) -> int:
+        """``budget`` sequential one-job steps (the round's baseline)."""
+        self.state, did = fused_maintenance_step(budget)(self.state, inplace=True)
+        return int(did)
 
     # ---------------------------- Searcher -----------------------------
     def search(self, queries, k: int, *, nprobe=None, probe_chunk: int = 0,
@@ -329,10 +400,11 @@ class SPFreshIndex:
         return tuple(x.cpu().numpy() for x in out)
 
     def insert_padded(self, vecs, vids, valid) -> np.ndarray:
-        """One insert dispatch; returns the landed mask."""
+        """One insert dispatch (the pool written in place); returns the
+        landed mask."""
         self.state, landed = insert_step()(
             self.state, self._t(vecs, torch.float32), self._t(vids, torch.int32),
-            self._t(valid, torch.bool),
+            self._t(valid, torch.bool), inplace=True,
         )
         return landed.cpu().numpy()
 

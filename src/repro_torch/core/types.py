@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.storage.blockpool import BlockPool, make_block_pool
+from repro_torch.utils.scatter import masked_set_
 from repro_torch.utils.tree import state_dataclass
 
 
@@ -242,39 +243,55 @@ def free_pids(state: IndexState, pids: torch.Tensor, enable: torch.Tensor) -> In
     """Batched free: push ``k`` distinct ids back and invalidate their
     centroids; freed pids come back with zero telemetry."""
     do = enable & (pids >= 0)
+    p_cap = state.pid_free_stack.shape[0]
     pos = state.pid_free_top.long() + torch.cumsum(do.long(), 0) - 1
-    stack = state.pid_free_stack.clone()
-    stack[pos[do]] = pids[do].to(torch.int32)
-    tgt = pids[do].long()
-    valid = state.centroid_valid.clone()
-    valid[tgt] = False
+    tgt = torch.clamp(pids.long(), min=0)
     tel = state.telemetry
-    access, update, drift = (
-        tel.access_count.clone(), tel.update_count.clone(), tel.drift_vec.clone()
-    )
-    access[tgt] = 0
-    update[tgt] = 0
-    drift[tgt] = 0.0
     return state.replace(
-        pid_free_stack=stack,
+        pid_free_stack=masked_set_(state.pid_free_stack.clone(),
+                                   torch.clamp(pos, 0, p_cap - 1), pids, do),
         pid_free_top=state.pid_free_top + do.sum().to(torch.int32),
-        centroid_valid=valid,
-        telemetry=tel.replace(access_count=access, update_count=update, drift_vec=drift),
+        centroid_valid=masked_set_(state.centroid_valid.clone(), tgt, False, do),
+        telemetry=tel.replace(
+            access_count=masked_set_(tel.access_count.clone(), tgt, 0, do),
+            update_count=masked_set_(tel.update_count.clone(), tgt, 0, do),
+            drift_vec=masked_set_(tel.drift_vec.clone(), tgt, 0.0, do),
+        ),
     )
 
 
 def set_centroids(state: IndexState, pids, centroids, enable) -> IndexState:
     """Batched centroid writes for ``k`` distinct pids; disabled rows drop."""
     do = enable & (pids >= 0)
-    tgt = pids[do].long()
-    c = centroids[do].float()
-    cen = state.centroids.clone()
-    sqn = state.centroid_sqn.clone()
-    valid = state.centroid_valid.clone()
-    cen[tgt] = c
-    sqn[tgt] = torch.sum(c * c, dim=-1)
-    valid[tgt] = True
-    return state.replace(centroids=cen, centroid_sqn=sqn, centroid_valid=valid)
+    tgt = torch.clamp(pids.long(), min=0)
+    c = centroids.float()
+    return state.replace(
+        centroids=masked_set_(state.centroids.clone(), tgt, c, do),
+        centroid_sqn=masked_set_(state.centroid_sqn.clone(), tgt,
+                                 torch.sum(c * c, dim=-1), do),
+        centroid_valid=masked_set_(state.centroid_valid.clone(), tgt, True, do),
+    )
+
+
+def _one(x, state: IndexState) -> torch.Tensor:
+    return torch.as_tensor(x, device=state.device).reshape(1)
+
+
+def alloc_pid(state: IndexState, enable):
+    """Pop one posting id (``-1`` on exhaustion or when not enabled)."""
+    state, pids = alloc_pids(state, _one(enable, state))
+    return state, pids[0]
+
+
+def free_pid(state: IndexState, pid, enable) -> IndexState:
+    """Push one posting id back (see :func:`free_pids`)."""
+    return free_pids(state, _one(pid, state), _one(enable, state))
+
+
+def set_centroid(state: IndexState, pid, centroid, enable) -> IndexState:
+    """Write one centroid (see :func:`set_centroids`)."""
+    return set_centroids(state, _one(pid, state), centroid.reshape(1, -1),
+                         _one(enable, state))
 
 
 def bump_stat(stats: LireStats, name: str, amount) -> LireStats:

@@ -6,4 +6,6 @@ from repro_torch.data.vectors import (  # noqa: F401
     make_sift_like,
     make_spacev_int8,
     make_spacev_like,
+    make_spacev_like_bytes,
+    to_bytes,
 )

@@ -163,7 +163,20 @@ def make_spacev_int8(n: int, dim: int = 100, seed: int = 0) -> np.ndarray:
     z = rng.normal(size=(n, INTRINSIC)).astype(np.float32)
     z *= np.float32(SPREAD * np.sqrt(dim / INTRINSIC))
     x = centers[assign] + np.einsum("ni,nid->nd", z, basis[assign])
+    return to_bytes(x)
+
+
+def to_bytes(x: np.ndarray) -> np.ndarray:
+    """Unit-scale vectors as integer byte values: scaled by ``SCALE``,
+    rounded and clipped to [-127, 127], returned as f32 (the float → int8
+    payload cast of a ``vector_dtype="int8"`` config is then exact)."""
     return np.clip(np.round(x * SCALE), -127, 127).astype(np.float32)
+
+
+def make_spacev_like_bytes(n: int, dim: int = 100, seed: int = 0) -> np.ndarray:
+    """:func:`make_spacev_like` (Zipf cluster masses, drift along the row
+    order) in byte values (:func:`to_bytes`)."""
+    return to_bytes(make_spacev_like(n, dim, seed))
 
 
 def make_queries(base: np.ndarray, n_queries: int, seed: int = 0) -> np.ndarray:

@@ -3,8 +3,14 @@
 Postings live in fixed-size blocks of a device array ``blocks[B_cap, BS,
 d]``; the block mapping is ``posting_blocks[P_cap, MB]`` (int32 block ids,
 -1 unused).  GET is a block-table gather; APPEND writes one (block, slot)
-of a posting's tail block; the free pool is an int32 stack.  Every op
-returns a new pool; the tensors of the input pool are not written.
+of a posting's tail block; the free pool is an int32 stack.  Every write op
+returns a new pool and leaves the input pool's tensors as they were,
+unless the caller passes ``inplace=True``: then the op writes the input
+pool's tensors and returns a pool holding the same tensors.  Only an
+owner of the pool (``SPFreshIndex``) asks for that; both forms give
+bit-identical leaves, because both run the same writes, one on copies.
+Every scatter gives each location one value (``masked_set_``, no host
+sync) or adds integers, so a transition is deterministic on the card.
 
 ``dirty[B_cap]`` marks every block whose payload or slot metadata changed
 since the last checkpoint cleared it.  Lossy codecs (``storage.codec``)
@@ -15,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.storage import codec as pc
+from repro_torch.utils.scatter import masked_set_, writable
 from repro_torch.utils.tree import state_dataclass
 
 
@@ -111,18 +118,14 @@ def group_rank(keys: torch.Tensor, n_groups: int, enable: torch.Tensor) -> torch
     return rank
 
 
+
+
 # ---------------------------------------------------------------------------
 # APPEND — tail-block writes (paper §4.3)
 # ---------------------------------------------------------------------------
 
-def append_batch(
-    pool: BlockPool,
-    pids: torch.Tensor,
-    vecs: torch.Tensor,
-    vids: torch.Tensor,
-    vers: torch.Tensor,
-    enable: torch.Tensor,
-) -> tuple[BlockPool, torch.Tensor]:
+def append_batch(pool: BlockPool, pids, vecs, vids, vers, enable, *,
+                 inplace: bool = False) -> tuple[BlockPool, torch.Tensor]:
     """Batched APPEND with the outcome of appending the rows one by one in
     row order (the reference's n-step ``append_batch`` scan), computed in
     one vectorised pass.  Returns ``(pool, ok (n,) bool)``.
@@ -146,11 +149,9 @@ def append_batch(
     safe = torch.clamp(pids.long(), min=0)
 
     rank = group_rank(safe, p_cap, en)
-    length = pool.posting_len.long()[safe]
-    slot_g = length + rank
-    blk = slot_g // bs
+    slot_g = pool.posting_len.long()[safe] + rank
     slot = slot_g % bs
-    safe_blk = torch.clamp(blk, max=mb - 1)
+    safe_blk = torch.clamp(slot_g // bs, max=mb - 1)
     in_cap = en & (slot_g < cap)
 
     # leaders pop in row order; the first free_top of them succeed
@@ -167,87 +168,293 @@ def append_batch(
     ok = in_cap & (rank < first_fail[safe])
 
     new_bid = pool.free_stack.long()[torch.clamp(free_top - 1 - lrank, min=0)]
-    posting_blocks = pool.posting_blocks.clone()
-    posting_blocks[safe[lead_ok], safe_blk[lead_ok]] = new_bid[lead_ok].int()
-    bid = posting_blocks.long()[safe, safe_blk]
+    posting_blocks = writable(pool.posting_blocks, inplace)
+    masked_set_(posting_blocks, (safe, safe_blk), new_bid, lead_ok)
+    bid = torch.clamp(posting_blocks.long()[safe, safe_blk], min=0)
+    pool = _append_rows(pool, safe, bid, slot, slot_g, vecs, vids, vers, ok, inplace)
+    n_pop = lead_ok.sum().to(torch.int32)
+    return pool.replace(posting_blocks=posting_blocks,
+                        free_top=pool.free_top - n_pop), ok
 
-    # quant params: the row landing at global slot 0 trains them
+
+def _append_rows(pool: BlockPool, safe, bid, slot, slot_g, vecs, vids, vers,
+                 ok, inplace) -> BlockPool:
+    """Write the landed rows ``ok`` of an APPEND at ``(bid, slot)``: payload
+    (the row landing at global slot 0 trains its posting's quant params,
+    later rows of that posting read them), metadata, lengths, dirty."""
+    n = safe.shape[0]
     fresh = ok & (slot_g == 0)
-    rs, rz = pc.train_scale_zero(vecs[:, None, :], torch.ones((n, 1), dtype=torch.bool, device=dev))
-    post_scale = pool.post_scale.clone()
-    post_zero = pool.post_zero.clone()
-    post_scale[safe[fresh]] = rs[fresh]
-    post_zero[safe[fresh]] = rz[fresh]
-
-    tb, ts = bid[ok], slot[ok]
-    rows = vecs[ok]
-    enc = pc.encode_payload(
-        pool.codec, rows, post_scale[safe[ok]][:, None],
-        post_zero[safe[ok]][:, None], pool.blocks.dtype,
+    rs, rz = pc.train_scale_zero(
+        vecs[:, None, :], torch.ones((n, 1), dtype=torch.bool, device=vecs.device)
     )
-    blocks = pool.blocks.clone()
-    blocks[tb, ts] = enc
+    post_scale = masked_set_(writable(pool.post_scale, inplace), safe, rs, fresh)
+    post_zero = masked_set_(writable(pool.post_zero, inplace), safe, rz, fresh)
+    enc = pc.encode_payload(pool.codec, vecs, post_scale[safe][:, None],
+                            post_zero[safe][:, None], pool.blocks.dtype)
+    at = (bid, slot)
+    blocks = masked_set_(writable(pool.blocks, inplace), at, enc, ok)
     blocks_exact = pool.blocks_exact
     if blocks_exact is not None:
-        blocks_exact = blocks_exact.clone()
-        blocks_exact[tb, ts] = rows.float()
-    block_vid = pool.block_vid.clone()
-    block_vid[tb, ts] = vids[ok].int()
-    block_ver = pool.block_ver.clone()
-    block_ver[tb, ts] = vers[ok].to(torch.uint8)
-    posting_len = pool.posting_len.clone()
-    posting_len.index_add_(0, safe[ok], torch.ones_like(tb, dtype=torch.int32))
-    dirty = pool.dirty.clone()
-    dirty[tb] = True
-    n_pop = lead_ok.sum().to(torch.int32)
-    return (
-        pool.replace(
-            blocks=blocks,
-            blocks_exact=blocks_exact,
-            block_vid=block_vid,
-            block_ver=block_ver,
-            posting_blocks=posting_blocks,
-            posting_len=posting_len,
-            free_top=pool.free_top - n_pop,
-            dirty=dirty,
-            post_scale=post_scale,
-            post_zero=post_zero,
-        ),
-        ok,
+        blocks_exact = masked_set_(writable(blocks_exact, inplace), at, vecs.float(), ok)
+    block_vid = masked_set_(writable(pool.block_vid, inplace), at, vids, ok)
+    block_ver = masked_set_(writable(pool.block_ver, inplace), at, vers, ok)
+    posting_len = writable(pool.posting_len, inplace)
+    posting_len.index_add_(0, safe, ok.to(torch.int32))    # integer adds: exact
+    dirty = masked_set_(writable(pool.dirty, inplace), bid, True, ok)
+    return pool.replace(
+        blocks=blocks, blocks_exact=blocks_exact, block_vid=block_vid,
+        block_ver=block_ver, posting_len=posting_len, dirty=dirty,
+        post_scale=post_scale, post_zero=post_zero,
     )
+
+
+def append_one(pool: BlockPool, pid, vec, vid, ver, enable, *,
+               inplace: bool = False) -> tuple[BlockPool, torch.Tensor]:
+    """Append one vector to posting ``pid``: ``(pool, ok)``, ok False when
+    the posting is at capacity or the pool is out of blocks."""
+    dev = pool.posting_len.device
+    pool, ok = append_batch(
+        pool, _one(pid, dev), vec.reshape(1, -1), _one(vid, dev), _one(ver, dev),
+        _one(enable, dev), inplace=inplace,
+    )
+    return pool, ok[0]
+
+
+def _one(x, dev) -> torch.Tensor:
+    """A scalar argument of a single-posting op as a ``(1,)`` tensor."""
+    return torch.as_tensor(x, device=dev).reshape(1)
+
+
+def append_scatter(pool: BlockPool, pids, vecs, vids, vers, enable, *,
+                   inplace: bool = False) -> tuple[BlockPool, torch.Tensor]:
+    """Vectorised APPEND with the reference's group failure under pool OOM:
+    the maintenance round's reassign and merge moves.
+
+    Rows of one posting are ranked in row order (earlier rows win tail
+    slots); a row fails at its posting's capacity.  The fresh tail blocks
+    of every posting that crosses a block boundary are popped in one
+    cumsum-indexed gather; if the free pool cannot cover all of them,
+    every row needing a fresh block fails, so each posting still lands a
+    contiguous rank prefix.  Without OOM the outcome equals
+    :func:`append_batch`.  Returns ``(pool, ok)``."""
+    bs = pool.block_size
+    cap = pool.posting_capacity
+    mb = pool.max_blocks_per_posting
+    nb_cap = pool.num_blocks_cap
+    en = enable & (pids >= 0)
+    safe = torch.clamp(pids.long(), min=0)
+
+    rank = group_rank(safe, pool.num_postings_cap, en)
+    slot_g = pool.posting_len.long()[safe] + rank
+    ok_cap = en & (slot_g < cap)
+    slot = slot_g % bs
+    safe_blk = torch.clamp(slot_g // bs, max=mb - 1)
+    existing = pool.posting_blocks.long()[safe, safe_blk]
+
+    # one leader row per absent tail block (ranks are contiguous, so every
+    # block boundary has a slot == 0 row); all leaders pop at once
+    leader = ok_cap & (slot == 0) & (existing < 0)
+    n_new = leader.sum()
+    have = n_new <= pool.free_top
+    lpos = pool.free_top.long() - torch.cumsum(leader.long(), 0)
+    new_bid = pool.free_stack.long()[torch.clamp(lpos, 0, nb_cap - 1)]
+    posting_blocks = writable(pool.posting_blocks, inplace)
+    masked_set_(posting_blocks, (safe, safe_blk), new_bid, leader & have)
+
+    bid = torch.where(existing >= 0, existing, posting_blocks.long()[safe, safe_blk])
+    ok = ok_cap & (bid >= 0)
+    pool = _append_rows(pool, safe, torch.clamp(bid, min=0), slot, slot_g, vecs,
+                        vids, vers, ok, inplace)
+    return pool.replace(
+        posting_blocks=posting_blocks,
+        free_top=pool.free_top - torch.where(have, n_new, 0).to(torch.int32),
+    ), ok
 
 
 # ---------------------------------------------------------------------------
 # GET — block-table gather (ParallelGET is a batch of these)
 # ---------------------------------------------------------------------------
 
+def gather_posting_ids(pool: BlockPool, pid):
+    """Metadata-only posting read ``(vids, vers, valid)`` for ``pid`` of
+    any shape ``(...)`` → ``(..., cap)``: the reassign NPA re-check reads
+    no payload.  Slots past ``posting_len`` are invalid."""
+    pid = torch.as_tensor(pid, device=pool.posting_len.device).long()
+    safe = torch.clamp(pool.posting_blocks[pid].long(), min=0)     # (..., MB)
+    shape = pid.shape + (pool.posting_capacity,)
+    vids = pool.block_vid[safe].reshape(shape)
+    vers = pool.block_ver[safe].reshape(shape)
+    idx = torch.arange(pool.posting_capacity, device=pid.device)
+    valid = (idx < pool.posting_len[pid].unsqueeze(-1)) & (vids >= 0)
+    return vids, vers, valid
+
+
+def _payload_rows(pool: BlockPool, pids, payload):
+    """``payload[(block, slot)]`` of every capacity slot of ``pids (m,)``:
+    ``(m, cap, d)``."""
+    safe = torch.clamp(pool.posting_blocks[pids].long(), min=0)    # (m, MB)
+    return payload[safe].reshape(pids.shape[0], pool.posting_capacity, -1)
+
+
+def parallel_get(pool: BlockPool, pids):
+    """Paper's ParallelGET: ``pids (m,)`` → ``(vecs (m, cap, d), vids (m,
+    cap), vers (m, cap), valid (m, cap))``.  Lossy codecs serve the cold
+    exact tier, so maintenance rewrites never add quantisation error."""
+    pids = pids.long()
+    payload = pool.blocks_exact if pool.blocks_exact is not None else pool.blocks
+    return (_payload_rows(pool, pids, payload), *gather_posting_ids(pool, pids))
+
+
+def gather_posting(pool: BlockPool, pid):
+    """One posting read into fixed-capacity buffers (see :func:`parallel_get`)."""
+    return tuple(x[0] for x in parallel_get(pool, _one(pid, pool.posting_len.device)))
+
+
+def gather_postings(pool: BlockPool, pids):
+    """Multi-pid bulk GET for the maintenance round; negative pids read
+    posting 0 (the caller's enable masks make those rows inert)."""
+    return parallel_get(pool, torch.clamp(pids.long(), min=0))
+
+
 def parallel_get_hot(pool: BlockPool, pids: torch.Tensor):
     """Batched hot-tier posting read: ``pids (m,)`` → ``(vecs (m, cap, d)
-    f32 decoded, vids (m, cap), vers (m, cap), valid (m, cap))``.
-
-    Slots past ``posting_len`` are masked invalid.  The oracle search path
-    reads this so its distances see the same decoded values as the scan
-    kernels."""
+    f32 decoded, vids, vers, valid)``.  The oracle search path reads this
+    so its distances see the same decoded values as the scan kernels."""
     pids = pids.long()
-    bids = pool.posting_blocks[pids]                   # (m, MB)
-    safe = torch.clamp(bids.long(), min=0)
-    m = pids.shape[0]
-    scale = pool.post_scale[pids][:, None, None, None]
-    zero = pool.post_zero[pids][:, None, None, None]
-    vecs = pc.decode_payload(pool.codec, pool.blocks[safe], scale, zero)
-    cap = pool.posting_capacity
-    vecs = vecs.reshape(m, cap, pool.dim)
-    vids = pool.block_vid[safe].reshape(m, cap)
-    vers = pool.block_ver[safe].reshape(m, cap)
-    idx = torch.arange(cap, device=pids.device)
-    valid = (idx[None, :] < pool.posting_len[pids][:, None]) & (vids >= 0)
-    return vecs, vids, vers, valid
+    scale = pool.post_scale[pids][:, None, None]
+    zero = pool.post_zero[pids][:, None, None]
+    vecs = pc.decode_payload(pool.codec, _payload_rows(pool, pids, pool.blocks), scale, zero)
+    return (vecs, *gather_posting_ids(pool, pids))
 
 
 def gather_posting_hot(pool: BlockPool, pid: torch.Tensor):
     """One posting's hot-tier read: ``(vecs (cap, d), vids, vers, valid)``."""
     out = parallel_get_hot(pool, pid.reshape(1))
     return tuple(x[0] for x in out)
+
+
+# ---------------------------------------------------------------------------
+# PUT / DELETE — bulk posting rewrite and free
+# ---------------------------------------------------------------------------
+
+def free_postings(pool: BlockPool, pids, enable, *, inplace: bool = False) -> BlockPool:
+    """Release every block of ``k`` DISTINCT postings and empty them (the
+    round's retire and GC path).  Freed block ids are pushed in row-major
+    (posting, block) order; disabled rows and absent blocks are inert."""
+    enable = enable & (pids >= 0)
+    safe = torch.clamp(pids.long(), min=0)
+    bids = pool.posting_blocks[safe].long()            # (k, MB)
+    flat_do = (enable[:, None] & (bids >= 0)).reshape(-1)
+    flat_bids = torch.clamp(bids.reshape(-1), min=0)
+    nb_cap = pool.num_blocks_cap
+    pos = pool.free_top.long() + torch.cumsum(flat_do.long(), 0) - 1
+    free_stack = masked_set_(writable(pool.free_stack, inplace),
+                             torch.clamp(pos, 0, nb_cap - 1), flat_bids, flat_do)
+    block_vid = masked_set_(writable(pool.block_vid, inplace), flat_bids, -1, flat_do)
+    dirty = masked_set_(writable(pool.dirty, inplace), flat_bids, True, flat_do)
+    return pool.replace(
+        free_stack=free_stack,
+        free_top=pool.free_top + flat_do.sum().to(torch.int32),
+        block_vid=block_vid,
+        dirty=dirty,
+        posting_blocks=masked_set_(writable(pool.posting_blocks, inplace), safe, -1, enable),
+        posting_len=masked_set_(writable(pool.posting_len, inplace), safe, 0, enable),
+        post_scale=masked_set_(writable(pool.post_scale, inplace), safe, 1.0, enable),
+        post_zero=masked_set_(writable(pool.post_zero, inplace), safe, 0.0, enable),
+    )
+
+
+def free_posting(pool: BlockPool, pid, enable, *, inplace: bool = False) -> BlockPool:
+    """Release all blocks of ``pid`` to the free pool and empty it."""
+    dev = pool.posting_len.device
+    return free_postings(pool, _one(pid, dev), _one(enable, dev), inplace=inplace)
+
+
+def _put(pool: BlockPool, pids, vecs, vids, vers, ns, enable, *,
+         whole_blocks: bool, inplace: bool) -> tuple[BlockPool, torch.Tensor]:
+    """PUT of ``k`` DISTINCT postings: free their old blocks, pop
+    ``ceil(n/BS)`` fresh ones each (LIFO, first come first served: once
+    the cumulative demand exceeds the free pool, that row and every later
+    enabled row fail and are left empty), write, set the lengths and
+    retrain the quant params from the rows written.  ``whole_blocks``
+    writes every payload slot of a fresh block from the buffer, as the
+    batched reference does; otherwise slots past ``n`` keep what the block
+    held, as its single-posting PUT does."""
+    k, cap, d = vecs.shape
+    if cap != pool.posting_capacity:
+        raise ValueError(f"buffer capacity {cap} != posting capacity {pool.posting_capacity}")
+    mb, bs = pool.max_blocks_per_posting, pool.block_size
+    nb_cap = pool.num_blocks_cap
+    dev = vecs.device
+    enable = enable & (pids >= 0)
+    safe = torch.clamp(pids.long(), min=0)
+    pool = free_postings(pool, pids, enable, inplace=inplace)
+
+    ns = ns.long()
+    need = torch.where(enable, (ns + bs - 1) // bs, 0)
+    ok = enable & (torch.cumsum(need, 0) <= pool.free_top)
+    used = torch.where(ok, need, 0)
+    off = torch.cumsum(used, 0) - used                  # exclusive
+    i_idx = torch.arange(mb, device=dev)[None, :]
+    in_use = ok[:, None] & (i_idx < need[:, None])      # (k, MB)
+    pos = pool.free_top.long() - 1 - (off[:, None] + i_idx)
+    bids = torch.where(in_use, pool.free_stack.long()[torch.clamp(pos, 0, nb_cap - 1)], -1)
+
+    row_valid = torch.arange(cap, device=dev)[None, :] < ns[:, None]
+    scale, zero = pc.train_scale_zero(vecs, row_valid)   # (k,)
+    enc = pc.encode_payload(pool.codec, vecs, scale[:, None, None],
+                            zero[:, None, None], pool.blocks.dtype)
+    in_range = (i_idx[..., None] * bs + torch.arange(bs, device=dev)) < ns[:, None, None]
+    flat_b = torch.clamp(bids, min=0).reshape(-1)       # (k*MB,)
+    flat_use = in_use.reshape(-1)
+    if whole_blocks:
+        at, rows, m = flat_b, (k * mb, bs, d), flat_use
+    else:
+        at = (flat_b.repeat_interleave(bs), torch.arange(bs, device=dev).repeat(k * mb))
+        rows, m = (k * mb * bs, d), (in_use[..., None] & in_range).reshape(-1)
+    blocks = masked_set_(writable(pool.blocks, inplace), at, enc.reshape(rows), m)
+    blocks_exact = pool.blocks_exact
+    if blocks_exact is not None:
+        blocks_exact = masked_set_(writable(blocks_exact, inplace), at,
+                                   vecs.float().reshape(rows), m)
+    vid_b = torch.where(in_range, vids.reshape(k, mb, bs), -1).reshape(k * mb, bs)
+    ver_b = torch.where(in_range, vers.reshape(k, mb, bs), 0).reshape(k * mb, bs)
+    block_vid = masked_set_(writable(pool.block_vid, inplace), flat_b, vid_b, flat_use)
+    block_ver = masked_set_(writable(pool.block_ver, inplace), flat_b, ver_b, flat_use)
+    posting_blocks = masked_set_(writable(pool.posting_blocks, inplace), safe, bids, ok)
+    return pool.replace(
+        blocks=blocks,
+        blocks_exact=blocks_exact,
+        block_vid=block_vid,
+        block_ver=block_ver,
+        posting_blocks=posting_blocks,
+        posting_len=masked_set_(writable(pool.posting_len, inplace), safe, ns, ok),
+        free_top=pool.free_top - used.sum().to(torch.int32),
+        dirty=masked_set_(writable(pool.dirty, inplace), flat_b, True, flat_use),
+        post_scale=masked_set_(writable(pool.post_scale, inplace), safe, scale, ok),
+        post_zero=masked_set_(writable(pool.post_zero, inplace), safe, zero, ok),
+    ), ok
+
+
+def put_postings(pool: BlockPool, pids, vecs, vids, vers, ns, enable, *,
+                 inplace: bool = False) -> tuple[BlockPool, torch.Tensor]:
+    """Batched PUT: bulk-write ``k`` DISTINCT postings in one scatter (the
+    round's half-writes and GC write-backs).  ``vecs (k, cap, d)``,
+    ``vids`` / ``vers (k, cap)``; row ``j`` writes its first ``ns[j]``
+    entries.  Returns ``(pool, ok (k,))``; a row that does not fit the
+    free pool fails cleanly (posting left empty) and the drain retries."""
+    return _put(pool, pids, vecs, vids, vers, ns, enable, whole_blocks=True,
+                inplace=inplace)
+
+
+def put_posting(pool: BlockPool, pid, vecs, vids, vers, n, enable, *,
+                inplace: bool = False) -> tuple[BlockPool, torch.Tensor]:
+    """Bulk-write one posting (paper PUT) from ``(cap, ...)`` buffers whose
+    first ``n`` entries are meaningful.  Returns ``(pool, ok)``."""
+    dev = pool.posting_len.device
+    pool, ok = _put(pool, _one(pid, dev), vecs[None], vids[None], vers[None],
+                    _one(n, dev), _one(enable, dev), whole_blocks=False, inplace=inplace)
+    return pool, ok[0]
 
 
 def used_blocks(pool: BlockPool) -> torch.Tensor:

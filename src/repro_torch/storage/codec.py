@@ -74,9 +74,8 @@ def train_scale_zero(vecs: torch.Tensor, valid: torch.Tensor):
     Postings with no valid row (or a collapsed range) get scale 1."""
     v = vecs.float()
     m = valid[..., None]
-    inf = torch.tensor(float("inf"), dtype=torch.float32, device=v.device)
-    hi = torch.where(m, v, -inf).amax(dim=(-2, -1))
-    lo = torch.where(m, v, inf).amin(dim=(-2, -1))
+    hi = torch.where(m, v, -torch.inf).amax(dim=(-2, -1))
+    lo = torch.where(m, v, torch.inf).amin(dim=(-2, -1))
     any_valid = valid.any(dim=-1)
     hi = torch.where(any_valid, hi, 0.0)
     lo = torch.where(any_valid, lo, 0.0)

@@ -423,3 +423,96 @@ def test_index_on_the_card_matches_the_cpu_path(card):
     stats = lire.scan_page_stats(gpu.state, torch.as_tensor(q, device=card))
     assert int(stats["overflow"]) == 0
     assert dataclasses.is_dataclass(gpu.state)
+
+
+def _churned_cpu_index(**kw):
+    """A small index with a split and a merge backlog, on the CPU."""
+    rng = np.random.default_rng(3)
+    centers = rng.normal(size=(8, 16)) * 5
+    base = (centers[rng.integers(0, 8, 1000)] + rng.normal(size=(1000, 16))).astype(np.float32)
+    cfg = LireConfig(dim=16, block_size=8, max_blocks_per_posting=8, num_blocks=2048,
+                     num_postings_cap=256, num_vectors_cap=8192, split_limit=48, merge_limit=6,
+                     reassign_range=8, reassign_budget=128, replica_count=2, nprobe=8,
+                     jobs_per_round=4, use_pallas_nav=True, **kw)
+    idx = SPFreshIndex.build(cfg, base, device="cpu")
+    cen = idx.state.centroids[idx.state.centroid_valid].numpy()
+    hot = np.concatenate([(c[None] + 0.05 * rng.normal(size=(40, 16))).astype(np.float32)
+                          for c in cen[:4]])
+    idx.insert(hot, np.arange(4000, 4000 + len(hot), dtype=np.int32), max_retries=0)
+    idx.delete(np.argsort(((base - base[0]) ** 2).sum(-1))[:150].astype(np.int32))
+    return idx.state
+
+
+def _leaves_np(state):
+    from repro_torch.utils.tree import tensor_leaves
+
+    return {n: t.cpu() for n, t in tensor_leaves(state).items()}
+
+
+@pytest.mark.parametrize("policy", ["size", "drift"])
+def test_maintenance_round_on_the_card_matches_the_cpu(card, policy):
+    """One round through #1 on the card and through its plain version on
+    the CPU: integer leaves equal, float leaves within 1e-5."""
+    cpu = _churned_cpu_index(maintain_policy=policy)
+    gpu = map_tensors(lambda x: x.to(card), cpu)
+    before = LK.LAUNCHES["l2_topk_tiles"]
+    out_g, did_g = lire.maintenance_round(gpu, 4)
+    torch.cuda.synchronize()
+    assert LK.LAUNCHES["l2_topk_tiles"] > before
+    out_c, did_c = lire.maintenance_round(cpu, 4)
+    assert int(did_g) == int(did_c) > 0
+    a, b = _leaves_np(out_g), _leaves_np(out_c)
+    for name in a:
+        if a[name].is_floating_point():
+            np.testing.assert_allclose(a[name].numpy(), b[name].numpy(), rtol=1e-5, atol=1e-5,
+                                       err_msg=name)
+        else:
+            assert torch.equal(a[name], b[name]), name
+
+
+@pytest.mark.parametrize("codec", ["fp32", "int8"])
+def test_maintenance_round_in_place_equals_functional_and_replays_on_the_card(card, codec):
+    from repro_torch.utils.tree import clone_state
+
+    gpu = map_tensors(lambda x: x.to(card), _churned_cpu_index(codec=codec, rerank_factor=2))
+    func, did_f = lire.maintenance_round(gpu, 4)
+    again, _ = lire.maintenance_round(gpu, 4)
+    owned = clone_state(gpu)
+    inpl, did_i = lire.maintenance_round(owned, 4, inplace=True)
+    assert inpl.pool.blocks is owned.pool.blocks
+    assert int(did_f) == int(did_i) > 0
+    a, b, c = _leaves_np(func), _leaves_np(inpl), _leaves_np(again)
+    for name in a:
+        assert torch.equal(a[name], b[name]), name
+        assert torch.equal(a[name], c[name]), name
+
+
+def test_index_drain_on_the_card(card):
+    """Insert past capacity on the card: the backpressure drain lands every
+    row, leaves no backlog, and runs #1."""
+    cpu = _churned_cpu_index()
+    idx = SPFreshIndex(map_tensors(lambda x: x.to(card), cpu))
+    rng = np.random.default_rng(4)
+    cen = cpu.centroids[cpu.centroid_valid].numpy()[:2]
+    more = np.concatenate([(c[None] + 0.05 * rng.normal(size=(60, 16))).astype(np.float32)
+                           for c in cen])
+    before = LK.LAUNCHES["l2_topk_tiles"]
+    idx.insert(more, np.arange(6000, 6120, dtype=np.int32))
+    assert idx.maintain() >= 0 and idx.backlog() == 0
+    assert LK.LAUNCHES["l2_topk_tiles"] > before
+    _, got = idx.search(more, 5)
+    assert sum(6000 + i in got[i] for i in range(120)) >= 114
+
+
+def test_maintenance_round_reads_nothing_back(card):
+    """A round enqueues its work without waiting for the card: the drain's
+    one did-work read per round is its only host sync."""
+    state = map_tensors(lambda x: x.to(card), _churned_cpu_index())
+    lire.maintenance_round(state, 4)            # kernels built, caches warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, did = lire.maintenance_round(state, 4, inplace=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(did) > 0

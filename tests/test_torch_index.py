@@ -7,6 +7,7 @@ reference runs its Pallas kernels in interpret mode.
 """
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +24,7 @@ from repro_torch.core import index as tindex
 from repro_torch.core import lire as tlire
 from repro_torch.core.index import SPFreshIndex as TIndex
 from repro_torch.core.types import LireConfig as TConfig
+from repro_torch.storage import versionmap as tvm
 from repro_torch.utils.tree import clone_state
 from tests.conftest import make_clustered
 from tests.test_torch_storage import assert_leaves_equal, port_leaves, ref_leaves
@@ -293,16 +295,46 @@ def test_index_insert_delete_search_and_padded_entry_points():
     assert d.shape == (20, 5) and int(hist.sum()) == 10 * tcfg.nprobe
     st = idx.stats()
     assert st["n_inserts"] == 20 and st["n_deletes"] == 5
-    with pytest.raises(NotImplementedError):
-        idx.maintain()
+    assert idx.maintain() >= 0 and idx.backlog() == 0
 
 
-def test_insert_into_full_posting_raises_instead_of_dropping():
+def _reference_split_draw(rng, k, n):
+    """The reference round's split draw for key ``rng``: its next key and
+    each job's Gumbel noise, as ``lire.split_draw`` returns the port's."""
+    nxt, sub = jax.random.split(jnp.asarray(rng.cpu().numpy()))
+    g = jax.vmap(lambda key: jax.random.gumbel(key, (n,)))(jax.random.split(sub, k))
+    return torch.from_numpy(np.array(nxt)), torch.from_numpy(np.array(g))
+
+
+def _live(state):
+    vids = state.pool.block_vid.reshape(-1)
+    ok = (vids >= 0) & ~tvm.is_stale(state.versions, vids, state.pool.block_ver.reshape(-1))
+    return set(vids[ok].tolist())
+
+
+def test_insert_into_full_posting_raises_instead_of_dropping(monkeypatch):
+    """An insert whose primary posting is full is neither dropped nor
+    refused: the index drains the Local Rebuilder (which splits the
+    posting) and retries the rows that did not land, as the reference's
+    does.  With the reference's split draws fed in, the port's insert
+    leaves the reference's live set and state (floats within 1e-5), and a
+    later ``maintain()`` runs the reference's job count."""
+    monkeypatch.setattr(tlire, "split_draw", _reference_split_draw)
     rng = np.random.default_rng(9)
-    base = make_clustered(rng, 60, 16, n_clusters=1, spread=0.01)
-    tcfg = TConfig(**_cfg_kw(block_size=4, max_blocks_per_posting=4,
-                             split_limit=14, merge_limit=3, num_blocks=64))
-    idx = TIndex.build(tcfg, base, device="cpu")
-    more = np.repeat(base[:1], 80, axis=0)
-    with pytest.raises(NotImplementedError):
-        idx.insert(more, np.arange(1000, 1080, dtype=np.int32))
+    base = make_clustered(rng, 60, 16, n_clusters=1, spread=0.3)
+    kw = _cfg_kw(block_size=4, max_blocks_per_posting=4, split_limit=14, merge_limit=3,
+                 num_blocks=128)
+    ridx = RIndex.build(RConfig(**kw), base)
+    idx = TIndex(_to_port(ridx.state, TConfig(**kw)))
+    more = (base[:1] + 0.3 * rng.normal(size=(80, 16))).astype(np.float32)
+    ids = np.arange(1000, 1080, dtype=np.int32)
+    assert not idx.insert_padded(more[:16], ids[:16], np.ones(16, bool)).all()
+    idx = TIndex(_to_port(ridx.state, TConfig(**kw)))
+    ridx.insert(more, ids)
+    idx.insert(more, ids)
+    assert idx.last_drain_rounds > 0 and idx.retried_rows > 0
+    assert _live(idx.state) == _live(_to_port(ridx.state, TConfig(**kw))) \
+        == set(range(60)) | set(ids.tolist())
+    jobs = ridx.maintain()
+    assert jobs > 0 and idx.maintain() == jobs
+    assert idx.backlog() == 0

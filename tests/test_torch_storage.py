@@ -314,3 +314,187 @@ def test_clone_state_is_independent():
     twin = clone_state(port)
     twin.pool.posting_len[0] = 5
     assert int(port.pool.posting_len[0]) == 0
+
+
+# ---------------------------------------------------------------------------
+# block pool: the maintenance round's write and read paths
+# ---------------------------------------------------------------------------
+
+def _filled_pools(rng, codec="fp32", dtype="float32", **kw):
+    """A reference pool and its port twin after the same two appends."""
+    ref, port = _pools(codec, dtype, **kw)
+    for _ in range(2):
+        args = _append_case(rng, "collide", n=16)
+        args[0][:] = rng.integers(0, 4, size=16)       # postings 4, 5 stay empty
+        ref, _ = rbp.append_batch(ref, *(jnp.asarray(a) for a in args))
+        port, _ = tbp.append_batch(port, *(t(a) for a in args))
+    return ref, port
+
+
+def _put_args(rng, k, cap, d, ns):
+    vecs = np.round(rng.normal(size=(k, cap, d)) * 30).astype(np.float32)
+    vids = rng.integers(0, 1000, size=(k, cap)).astype(np.int32)
+    vers = rng.integers(0, 128, size=(k, cap)).astype(np.uint8)
+    return vecs, vids, vers, np.asarray(ns, np.int32)
+
+
+def _port_op(op, port, *args, inplace=False):
+    out = getattr(tbp, op)(port, *(t(a) for a in args), inplace=inplace)
+    return out if isinstance(out, tuple) else (out, None)
+
+
+def _check_op(op, ref, port, *args):
+    """The port's ``op`` against the reference's on the same inputs, and
+    its in-place form against its functional form."""
+    want = getattr(rbp, op)(ref, *(jnp.asarray(a) for a in args))
+    want, want_ok = want if isinstance(want, tuple) else (want, None)
+    before = port_leaves(port)
+    got, ok = _port_op(op, port, *args)
+    for name, arr in port_leaves(port).items():          # input untouched
+        np.testing.assert_array_equal(arr, before[name], err_msg=name)
+    assert_leaves_equal(got, want)
+    if want_ok is not None:
+        np.testing.assert_array_equal(ok.numpy(), np.asarray(want_ok))
+    owned = clone_state(port)
+    got2, ok2 = _port_op(op, owned, *args, inplace=True)
+    assert got2.block_vid is owned.block_vid                 # written in place
+    assert_leaves_equal(got2, want)
+    if want_ok is not None:
+        np.testing.assert_array_equal(ok2.numpy(), ok.numpy())
+    return got, want
+
+
+CODEC_CASES = [("fp32", "float32"), ("fp32", "int8"), ("bf16", "float32"), ("int8", "float32")]
+
+
+@pytest.mark.parametrize("case", ["collide", "full", "oom"])
+@pytest.mark.parametrize("codec,dtype", CODEC_CASES)
+def test_append_scatter_bit_equal(rng, case, codec, dtype):
+    ref, port = _filled_pools(rng, codec, dtype)
+    args = _append_case(rng, case, n=24)
+    got, _ = _check_op("append_scatter", ref, port, *args)
+    if case != "oom":
+        # without pool OOM the scatter lands what the sequential APPEND lands
+        seq, ok = tbp.append_batch(port, *(t(a) for a in args))
+        assert_leaves_equal(got, rbp.append_batch(ref, *(jnp.asarray(a) for a in args))[0])
+        assert_leaves_equal(seq, rbp.append_scatter(ref, *(jnp.asarray(a) for a in args))[0])
+
+
+def test_append_scatter_under_oom_fails_fresh_blocks_as_a_group(rng):
+    ref, port = _pools(num_blocks=3)
+    n = 14                                               # 3 blocks of 4 for 5 postings
+    pids = np.arange(n) % 5
+    args = (pids.astype(np.int32), np.ones((n, 8), np.float32),
+            np.arange(n, dtype=np.int32), np.zeros(n, np.uint8), np.ones(n, bool))
+    got, _ = _check_op("append_scatter", ref, port, *args)
+    assert int(got.free_top) == 3 and int(got.posting_len.sum()) == 0
+
+
+@pytest.mark.parametrize("codec,dtype", CODEC_CASES)
+def test_append_one_bit_equal(rng, codec, dtype):
+    ref, port = _filled_pools(rng, codec, dtype)
+    for pid, en in [(4, True), (4, True), (1, False), (0, True)]:
+        vec = np.round(rng.normal(size=8) * 30).astype(np.float32)
+        args = (np.int32(pid), vec, np.int32(rng.integers(1000)), np.uint8(3), en)
+        ref, rok = rbp.append_one(ref, *(jnp.asarray(a) for a in args))
+        port, tok = tbp.append_one(port, *(t(a) for a in args))
+        assert bool(tok) == bool(rok)
+        assert_leaves_equal(port, ref)
+
+
+@pytest.mark.parametrize("codec,dtype", CODEC_CASES)
+def test_free_postings_and_free_posting_bit_equal(rng, codec, dtype):
+    ref, port = _filled_pools(rng, codec, dtype)
+    pids = np.array([2, -1, 0, 4], np.int32)
+    enable = np.array([True, True, False, True])
+    port2, ref2 = _check_op("free_postings", ref, port, pids, enable)
+    _check_op("free_posting", ref2, port2, np.int32(1), np.bool_(True))
+    _check_op("free_posting", ref2, port2, np.int32(3), np.bool_(False))
+
+
+@pytest.mark.parametrize("codec,dtype", CODEC_CASES)
+def test_put_postings_and_put_posting_bit_equal(rng, codec, dtype):
+    ref, port = _filled_pools(rng, codec, dtype)
+    cap = port.posting_capacity
+    vecs, vids, vers, ns = _put_args(rng, 3, cap, 8, [7, 0, 12])
+    pids = np.array([0, 2, 5], np.int32)
+    port2, ref2 = _check_op("put_postings", ref, port, pids, vecs, vids, vers, ns,
+                            np.array([True, True, True]))
+    vecs1, vids1, vers1, _ = _put_args(rng, 1, cap, 8, [5])
+    for pid, n, en in [(1, 5, True), (3, 9, False), (4, 12, True)]:
+        port2, ref2 = _check_op("put_posting", ref2, port2, np.int32(pid), vecs1[0],
+                                vids1[0], vers1[0], np.int32(n), np.bool_(en))
+
+
+def test_put_postings_pool_oom_fails_cleanly(rng):
+    ref, port = _pools(num_blocks=4)
+    vecs, vids, vers, ns = _put_args(rng, 3, port.posting_capacity, 8, [8, 8, 4])
+    got, _ = _check_op("put_postings", ref, port, np.array([0, 1, 2], np.int32),
+                       vecs, vids, vers, ns, np.ones(3, bool))
+    # 2 + 2 blocks land, the third row finds the pool dry and stays empty
+    assert got.posting_len.tolist()[:3] == [8, 8, 0] and int(got.free_top) == 0
+    got, _ = _check_op("put_posting", ref, port, np.int32(1), vecs[0], vids[0],
+                       vers[0], np.int32(12), np.bool_(True))
+    assert int(got.posting_len[1]) == 12
+    port2, ref2 = _check_op("put_postings", ref, port, np.array([0], np.int32), vecs[:1],
+                            vids[:1], vers[:1], np.array([12], np.int32), np.ones(1, bool))
+    full, _ = _check_op("put_posting", ref2, port2, np.int32(1), vecs[1], vids[1],
+                        vers[1], np.int32(8), np.bool_(True))
+    assert int(full.posting_len[1]) == 0                 # OOM: left empty
+
+
+@pytest.mark.parametrize("codec", ["fp32", "int8"])
+def test_gather_paths_match(rng, codec):
+    ref, port = _filled_pools(rng, codec)
+    pids = np.array([0, 3, 4, -1], np.int32)
+    for fn, arg in [("gather_postings", pids), ("parallel_get", np.maximum(pids, 0)),
+                    ("gather_posting", np.int32(3)), ("gather_posting_ids", np.int32(1))]:
+        want = getattr(rbp, fn)(ref, jnp.asarray(arg))
+        got = getattr(tbp, fn)(port, t(arg))
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(to_np(g), np.asarray(w), err_msg=fn)
+    ids = tbp.gather_posting_ids(port, t(np.array([1, 2], np.int32)))
+    one = tbp.gather_posting_ids(port, t(np.int32(2)))
+    for a, b in zip(ids, one):
+        np.testing.assert_array_equal(a[1].numpy(), b.numpy())
+
+
+def test_single_pid_forms_match_reference_and_batched(rng):
+    kw = _small_cfg()
+    ref = rtypes.make_empty_state(rtypes.LireConfig(**kw))
+    port = ttypes.make_empty_state(ttypes.LireConfig(**kw), device="cpu")
+    batched = port
+    cen = rng.normal(size=(3, 8)).astype(np.float32)
+    for j, en in enumerate([True, False, True]):
+        ref, rp = rtypes.alloc_pid(ref, jnp.asarray(en))
+        port, tp = ttypes.alloc_pid(port, en)
+        assert int(tp) == int(rp)
+        ref = rtypes.set_centroid(ref, rp, jnp.asarray(cen[j]), jnp.asarray(en))
+        port = ttypes.set_centroid(port, tp, t(cen[j]), en)
+    ref = rtypes.free_pid(ref, jnp.asarray(9), jnp.asarray(True))
+    port = ttypes.free_pid(port, 9, True)
+    ref = rtypes.free_pid(ref, jnp.asarray(8), jnp.asarray(False))
+    port = ttypes.free_pid(port, 8, False)
+    # centroid_sqn: an 8-term f32 sum in two summation orders
+    assert_leaves_equal(port, ref, close=("centroid_sqn",), rtol=1e-6, atol=1e-6)
+    en = t(np.array([True, False, True]))
+    batched, bp_ = ttypes.alloc_pids(batched, en)
+    batched = ttypes.set_centroids(batched, bp_, t(cen), en)
+    batched = ttypes.free_pids(batched, t(np.array([9, 8], np.int32)), t(np.array([True, False])))
+    for name, arr in port_leaves(batched).items():
+        np.testing.assert_array_equal(arr, port_leaves(port)[name], err_msg=name)
+
+
+def test_masked_set_gives_one_value_per_location():
+    from repro_torch.utils.scatter import masked_set_
+
+    x = torch.arange(6, dtype=torch.float32)
+    masked_set_(x, t(np.array([1, 1, 4, 0])), t(np.array([10., 20., 40., 50.])),
+                t(np.array([False, True, True, False])))
+    assert x.tolist() == [0, 20, 2, 3, 40, 5]
+    masked_set_(x, t(np.array([2, 3])), 7.0, t(np.array([False, False])))
+    assert x.tolist() == [0, 20, 2, 3, 40, 5]            # none enabled: unchanged
+    y = torch.zeros((3, 2, 2), dtype=torch.int32)
+    masked_set_(y, (t(np.array([0, 2])), t(np.array([1, 0]))), t(np.array([[1, 2], [3, 4]])),
+                t(np.array([True, True])))
+    assert y[0, 1].tolist() == [1, 2] and y[2, 0].tolist() == [3, 4] and int(y.sum()) == 10

@@ -1,0 +1,51 @@
+"""CPU rehearsal of ``chip_smoke.py``'s ``update`` main path.
+
+The path runs through the port's ``SPFreshIndex`` on the CPU at a small
+size (d=16, the ``SMOKE`` geometry with room for the splits), with the
+recall floors taken, as on the card, from the JAX reference after the
+same sequence on the same data (``scripts/reference_recall.py``) minus
+``chip_smoke.RECALL_MARGIN``.  Every check of the path must pass.
+"""
+import dataclasses
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import torch
+
+import chip_smoke
+from repro.core.types import LireConfig as RConfig
+from repro_torch.configs.spfresh import SEARCH_Q, SMOKE
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _reference_recall_script():
+    spec = importlib.util.spec_from_file_location(
+        "reference_recall", REPO / "scripts" / "reference_recall.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_update_path_rehearses_on_the_cpu():
+    n, n_ins = 1500, 256
+    cfg = dataclasses.replace(SMOKE, num_blocks=2048, num_postings_cap=512,
+                              use_pallas_nav=True, use_pallas_scan=True,
+                              scan_schedule="batched")
+    ref = _reference_recall_script()
+    ridx, queries, rows, ids = ref.update_sequence(
+        RConfig(**dataclasses.asdict(cfg)), n, n_ins, seed=0, queries_n=min(SEARCH_Q, n))
+    floors = {p: ref.recall_at_10(ridx, queries, rows, ids, p) - chip_smoke.RECALL_MARGIN
+              for p in (1, cfg.nprobe)}
+    report = {}
+    drains, ms_round = chip_smoke.update_path(torch, np, 0, report, cfg=cfg, device="cpu",
+                                              n=n, n_insert=n_ins, floors=floors)
+    assert drains["rounds"] > 0 and drains["jobs"] > 0 and ms_round > 0
+    assert report["backlog_after_build"] > 0 and report["first_round_jobs"] > 0
+    assert report["insert_self_top10"] >= 0.95
+    assert report["round_aten_ops"] > 0 and report["round_cuda_kernels"] is None
+    assert report["drain_idle_share"] is None
+    assert report["stats"]["n_splits"] > 0
+    assert set(report["recall_at_10"]) == {"batched@8", "batched@1", "per_query@8",
+                                           "per_query@1"}
