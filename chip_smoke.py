@@ -16,9 +16,13 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
    dead pair exactly (BIG, slots 0..k-1)); #6 and #7 are also timed on
    the main path's page mix (10,393 live rows of the 32,768-row budget,
    the rest padding), and #7 is held on a tie-heavy input at k = BS
-   (exact slot order).  The per-query scans' rows give two byte bounds:
-   each distinct page read once, and each probe's page read once.  Each line of
-   ``-Xptxas -v`` (registers, spills) is printed, and summed per library.
+   (exact slot order).  #3 takes -1 padding ids and is held with them at
+   the ragged shapes (every padding row exactly BIG); its wrapper
+   ``ops.scan_unique_blocks`` is held and timed on the batched mix, with
+   the masking pass it no longer takes timed beside it.  The per-query
+   scans' rows give two byte bounds: each distinct page read once, and
+   each probe's page read once.  Each line of ``-Xptxas -v`` (registers,
+   spills) is printed, and summed per library.
 3. Drives two main paths through ``SPFreshIndex`` at the full spfresh-1b
    per-shard geometry (``CONFIG_PAGED`` with kernel navigation), each from
    N=1,000,000 int8-valued vectors of one seed, the first path's state
@@ -675,19 +679,81 @@ def phase_scan_unreduced(torch, gen, results, blocks):
     plain_ms = cuda_ms(plain_all, reps=1, warm=1)
     lib_ms = cuda_ms(lambda: lib_batched(torch, ids, q, blocks), reps=1, warm=1)
     by = nb * bs * d + 4 * (nb + q.numel()) + 4 * nb * q_n * bs
-    b = bound(by, 2.0 * nb * q_n * bs * d)
-    for dtype in (torch.float32, torch.bfloat16, torch.int8):     # ragged small
+    flops = 2.0 * nb * q_n * bs * d
+    b = bound(by, flops)
+    passes = tf32_passes(blocks.dtype)
+    tc = bound(by, passes * flops, TF32_FLOP_PER_S)
+    # ragged small: Q not a multiple of the 64-query tile, NB not a
+    # multiple of the 256-page run or the 4-page step, BS below 32, and -1
+    # padding among the ids (pages 4..7, one whole step, all padding)
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
         blk = _pool(torch, gen, 40, 32, 100, dtype)
-        q2 = torch.randn(13, 100, device="cuda", generator=gen)
-        u2 = torch.arange(0, 40, 4, device="cuda", dtype=torch.int32)[:9].contiguous()
-        a = K.scan_batched(u2, q2, blk)
-        torch.cuda.synchronize()
-        want = K.scan_batched_plain(u2, q2, blk)
-        err = max(err, compare_dense(a, want))
-        check_library(torch, lib_batched(torch, u2, q2, blk).transpose(0, 1), want,
-                      "scan_batched")
-    _log_kernel("scan_batched", err, 0, ms, plain_ms, lib_ms, b, f" (page chunks of {step})")
-    results["scan_batched"] = _result("scan_batched", 95, err, ms, plain_ms, lib_ms, b)
+        for bs2, q_n2, n2, pad in ((32, 13, 9, False), (32, 77, 71, True), (8, 40, 300, True)):
+            blk2 = blk[:, :bs2].contiguous()
+            q2 = torch.randn(q_n2, 100, device="cuda", generator=gen)
+            u2 = torch.randint(0, 40, (n2,), device="cuda", generator=gen, dtype=torch.int32)
+            if pad:
+                u2[[1, 4, 5, 6, 7, n2 - 1]] = -1
+            a = K.scan_batched(u2, q2, blk2)
+            torch.cuda.synchronize()
+            want = K.scan_batched_plain(u2, q2, blk2)
+            err = max(err, compare_dense(a, want))
+            check(bool((a[u2 < 0] == 3.0e38).all()), "scan_batched: a padding row is not BIG")
+            if not pad:
+                check_library(torch, lib_batched(torch, u2, q2, blk2).transpose(0, 1), want,
+                              "scan_batched")
+    # #3 runs its product on the tensor cores and beats the f32 bound: its
+    # bound is the tensor-core one (the 4.3 GB output), the f32 one beside
+    _log_kernel("scan_batched", err, 0, ms, plain_ms, lib_ms, tc, f" (page chunks of {step})",
+                f" = tensor_core_bound_ms ({passes} TF32 passes) f32_bound_ms={b[0]:.4f} "
+                f"({b[1]})")
+    results["scan_batched"] = _result("scan_batched", 95, err, ms, plain_ms, lib_ms, tc,
+                                      source="scan_batched_topk.cu")
+    results["scan_batched"]["tensor_core_bound_ms"] = tc[0]
+    results["scan_batched"]["f32_bound_ms"] = b[0]
+    results["scan_batched"]["main_mix"] = _unique_blocks_main_mix(torch, gen, blocks, q)
+
+
+def _unique_blocks_main_mix(torch, gen, blocks, q):
+    """``ops.scan_unique_blocks`` (#3 behind its wrapper) on the batched
+    main path's page mix: ``MAIN_PATH_PAGES`` real rows of the
+    32,768-row budget, the rest -1 padding, passed to the kernel as they
+    are.  Held against the plain version (which masks padding rows to
+    BIG) chunk by chunk, every padding row exactly BIG.  The bound counts
+    the live pages once, the product over them, and every output row
+    written; ``mask_pass_ms`` times the ``torch.where`` over the output
+    that the wrapper took before the kernel wrote its padding rows."""
+    from repro_torch.kernels.posting_scan import kernel as K
+    from repro_torch.kernels.posting_scan import ops
+
+    nb, bs, d, live_n = BATCHED_NB, PQ["bs"], PQ["d"], MAIN_PATH_PAGES
+    real = torch.sort(torch.randperm(blocks.shape[0], device="cuda", generator=gen)[:live_n]).values
+    uniq = torch.full((nb,), -1, dtype=torch.int32, device="cuda")
+    uniq[:live_n] = real.to(torch.int32)
+    out = ops.scan_unique_blocks(q, uniq, blocks)
+    torch.cuda.synchronize()
+    err = 0.0
+    for s in range(0, nb, PLAIN_STEP):
+        err = max(err, compare_dense(out[s:s + PLAIN_STEP],
+                                     K.scan_batched_plain(uniq[s:s + PLAIN_STEP], q, blocks)))
+    check(bool((out[live_n:] == 3.0e38).all()), "scan_unique_blocks: a padding row is not BIG")
+    pad = (uniq < 0)[:, None, None]
+    mask_ms = cuda_ms(lambda: torch.where(pad, 3.0e38, out), reps=3)
+    del out
+    ms = cuda_ms(lambda: ops.scan_unique_blocks(q, uniq, blocks), reps=5)
+    q_n = q.shape[0]
+    by = live_n * bs * d + 4 * (nb + q.numel()) + 4 * nb * q_n * bs
+    flops = 2.0 * live_n * q_n * bs * d
+    b = bound(by, flops)
+    passes = tf32_passes(blocks.dtype)
+    tc = bound(by, passes * flops, TF32_FLOP_PER_S)
+    log(f"scan_unique_blocks (main path mix: {live_n} real of {nb} rows, the rest -1): "
+        f"ms={ms:.4f} max_abs_err={err:.3g} bound_ms={b[0]:.4f} ({b[1]}; the live pages once, "
+        f"the product over them, every row written) tensor_core_bound_ms={tc[0]:.4f} "
+        f"({tc[1]}, {passes} TF32 passes) mask_pass_ms={mask_ms:.4f} (the torch.where the "
+        f"wrapper no longer takes); padding rows exactly BIG")
+    return dict(live_pages=live_n, ms=ms, max_abs_err=err, bound_ms=b[0], bound_by=b[1],
+                tensor_core_bound_ms=tc[0], tensor_core_bound_by=tc[1], mask_pass_ms=mask_ms)
 
 
 def phase_scan_q8(torch, gen, results, blocks):
@@ -1383,15 +1449,15 @@ def main() -> int:
         f"main path: {got}, #1 in the drains {drains['l2_topk_launches']} ({card})")
     for name, n in launches.items():
         results[name]["launches"] = n
-    for name in ("l2_topk_tiles", "scan_batched_topk", "scan_batched_topk_q8"):
+    for name in ("l2_topk_tiles", "scan_batched", "scan_batched_topk", "scan_batched_topk_q8"):
         report[f"{name}_tensor_core_bound_ms"] = results[name]["tensor_core_bound_ms"]
-    for name in ("scan_per_query_topk", "scan_per_query_topk_q8", "scan_batched_topk",
-                 "scan_batched_topk_q8"):
+    for name in ("scan_batched", "scan_per_query_topk", "scan_per_query_topk_q8",
+                 "scan_batched_topk", "scan_batched_topk_q8"):
         report[f"{name}_main_mix"] = results[name]["main_mix"]
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("tensor_core_bound_ms", "store_floor_ms", "per_probe_bound_ms",
+    extra = ("tensor_core_bound_ms", "f32_bound_ms", "store_floor_ms", "per_probe_bound_ms",
              "main_mix")                                      # where a kernel has them
     kernels = [{**{k: results[n][k] for k in keys},
                 **{k: results[n][k] for k in extra if k in results[n]}} for n in KERNEL_ORDER]

@@ -38,12 +38,12 @@ SIGNATURES = {
         "scan_per_query_topk": [_P, _P, _P, _C, _P, _P, _P, _C, _C, _C, _C, _C, _P],
         # table, q, blocks, dtype, out_d, Q, NB, BS, d, stream
         "scan_per_query": [_P, _P, _P, _C, _P, _C, _C, _C, _C, _P],
-        # ids, q, blocks, dtype, out_d, NB, Q, BS, d, stream
-        "scan_batched": [_P, _P, _P, _C, _P, _C, _C, _C, _C, _P],
         # table, q, codes, bias, sz, out_d, out_i, Q, NB, BS, d, k, stream
         "scan_per_query_topk_q8": [_P, _P, _P, _P, _P, _P, _P, _C, _C, _C, _C, _C, _P],
     },
     "scan_batched_topk": {
+        # ids, q, blocks, dtype, out_d, NB, Q, BS, d, stream
+        "scan_batched": [_P, _P, _P, _C, _P, _C, _C, _C, _C, _P],
         # ids, q, blocks, dtype, bias, out_d, out_i, NB, Q, BS, d, k, stream
         "scan_batched_topk": [_P, _P, _P, _C, _P, _P, _P, _C, _C, _C, _C, _C, _P],
         # ids, q, codes, bias, sz, out_d, out_i, NB, Q, BS, d, k, stream

@@ -1,15 +1,13 @@
 // Paged posting scan (sm_90a): the per-query schedule, with and without
-// the fused per-page k-min and over int8 codes, and the batched schedule
-// without the k-min.
+// the fused per-page k-min and over int8 codes.
 //
-// Replaces four TPU kernels of src/repro/kernels/posting_scan/kernel.py:
-//   * `scan_per_query_topk` (#4, :164), `scan_per_query_topk_q8` (#5, :225)
-//     and `scan_per_query` (#2, :52): page table[q, j] scored against query
-//     q, one kernel template;
-//   * `scan_batched` (#3, :95): each unique page ids[i] scored against
-//     every query.
-// The batched top-k forms, `scan_batched_topk` and `scan_batched_topk_q8`,
-// have a tensor-core kernel of their own (scan_batched_topk.cu).
+// Replaces three TPU kernels of src/repro/kernels/posting_scan/kernel.py:
+// `scan_per_query_topk` (#4, :164), `scan_per_query_topk_q8` (#5, :225)
+// and `scan_per_query` (#2, :52): page table[q, j] scored against query
+// q, one kernel template.  The batched schedule's three forms,
+// `scan_batched` (#3), `scan_batched_topk` (#6) and
+// `scan_batched_topk_q8` (#7), are one tensor-core kernel of their own
+// (scan_batched_topk.cu).
 // All compute d = max(||q||^2 - 2 q.b + ||b||^2, 0) per slot.  The `_topk`
 // forms add a per-slot bias (0 live, +BIG dead) and emit each (query,
 // page) pair's k smallest distances with their slot indices, lowest slot
@@ -76,13 +74,6 @@
 //   (the scoring loop, the select, the stores), with the pages in L2.
 //   Staging with the Tensor Memory Accelerator (one bulk copy a page on an
 //   mbarrier), deeper rings and deeper bias prefetch measured no faster.
-//   * batched (#3) at NB=32,768, Q=1024: 215 GFLOP of f32 FMA against 105 MB
-//     of pages and 4.3 GB of distances: f32-operations bound.  A block
-//     stages 4 pages as f32 in shared memory once (odd row stride:
-//     conflict-free), and each warp walks groups of 4 queries, staged
-//     transposed so one broadcast float4 feeds 4 queries; each lane keeps a
-//     4 pages x 4 queries register tile (16 FMA per 5 shared loads) and
-//     stores its slot's distance: a warp writes 128 contiguous bytes.
 // Registers and spills (`-Xptxas -v`) are printed by every chip_smoke.py
 // run.  Plain C interface, loaded with ctypes; each entry returns
 // cudaGetLastError().
@@ -103,12 +94,6 @@ using tf32mma::cp_async16;
 using tf32mma::cp_async4;
 using tf32mma::cp_async_commit;
 using tf32mma::cp_async_wait;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f32(int8_t v) {  // as load4: no conversion unit
-  return __uint_as_float(0x4b000000u | ((uint8_t)v ^ 0x80u)) - 8388736.f;
-}
 
 constexpr int kPqMaxWarps = 8;
 constexpr int kSmemPerBlock = 232448;           // the most one block may take
@@ -364,102 +349,6 @@ scan_per_query_kernel(const int* __restrict__ table,
   cp_async_wait<0>();
 }
 
-constexpr int kPages = 4;    // pages staged per block
-constexpr int kQGroup = 4;   // queries per warp step
-constexpr int kBWarps = 4;
-
-// Every slot's distance, (NB, Q, BS).
-template <typename T>
-__global__ void __launch_bounds__(kBWarps * 32)
-scan_batched_kernel(const int* __restrict__ ids,
-                    const float* __restrict__ q,
-                    const T* __restrict__ blocks,
-                    float* __restrict__ out_d,
-                    int nb, int n_q, int bs, int d, int stride) {
-  extern __shared__ float4 smem4[];
-  float* pg = reinterpret_cast<float*>(smem4);      // [kPages][32][stride]
-  float* qt = pg + kPages * 32 * stride;            // [kBWarps][d][kQGroup]
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int page0 = blockIdx.x * kPages;
-
-  const int page_elems = 32 * d;
-  for (int e = tid; e < kPages * page_elems; e += blockDim.x) {
-    const int p = e / page_elems;
-    const int rem = e - p * page_elems;
-    const int s = rem / d;
-    const int t = rem - s * d;
-    float v = 0.f;
-    if (page0 + p < nb && s < bs) v = to_f32(blocks[((size_t)ids[page0 + p] * bs + s) * d + t]);
-    pg[(p * 32 + s) * stride + t] = v;
-  }
-  __syncthreads();
-
-  float bsq[kPages];
-  bool page_ok[kPages];
-#pragma unroll
-  for (int p = 0; p < kPages; ++p) {
-    const float* r = pg + (p * 32 + lane) * stride;
-    float s2 = 0.f;
-    for (int t = 0; t < d; ++t) s2 = fmaf(r[t], r[t], s2);
-    bsq[p] = s2;
-    page_ok[p] = page0 + p < nb;
-  }
-
-  float* myq = qt + warp * d * kQGroup;
-  const float4* q4 = reinterpret_cast<const float4*>(myq);
-  const int n_groups = (n_q + kQGroup - 1) / kQGroup;
-  for (int g = warp; g < n_groups; g += kBWarps) {
-    const int qb = g * kQGroup;
-    __syncwarp();
-    for (int e = lane; e < kQGroup * d; e += 32) {
-      const int qq = e / d;
-      const int t = e - qq * d;
-      myq[t * kQGroup + qq] = qb + qq < n_q ? q[(size_t)(qb + qq) * d + t] : 0.f;
-    }
-    __syncwarp();
-    float qsq[kQGroup];
-#pragma unroll
-    for (int qq = 0; qq < kQGroup; ++qq) {
-      float s2 = 0.f;
-      for (int t = lane; t < d; t += 32) {
-        const float v = myq[t * kQGroup + qq];
-        s2 = fmaf(v, v, s2);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) s2 += __shfl_xor_sync(kFull, s2, off);
-      qsq[qq] = s2;
-    }
-    float acc[kPages][kQGroup];
-#pragma unroll
-    for (int p = 0; p < kPages; ++p)
-#pragma unroll
-      for (int qq = 0; qq < kQGroup; ++qq) acc[p][qq] = 0.f;
-    for (int t = 0; t < d; ++t) {
-      const float4 qv = q4[t];
-#pragma unroll
-      for (int p = 0; p < kPages; ++p) {
-        const float b = pg[(p * 32 + lane) * stride + t];
-        acc[p][0] = fmaf(b, qv.x, acc[p][0]);
-        acc[p][1] = fmaf(b, qv.y, acc[p][1]);
-        acc[p][2] = fmaf(b, qv.z, acc[p][2]);
-        acc[p][3] = fmaf(b, qv.w, acc[p][3]);
-      }
-    }
-#pragma unroll
-    for (int p = 0; p < kPages; ++p) {
-      if (!page_ok[p]) continue;  // warp-uniform
-#pragma unroll
-      for (int qq = 0; qq < kQGroup; ++qq) {
-        if (qb + qq >= n_q) continue;  // warp-uniform
-        const size_t o = (size_t)(page0 + p) * n_q + qb + qq;
-        if (lane < bs) out_d[o * bs + lane] = fmaxf(qsq[qq] - 2.f * acc[p][qq] + bsq[p], 0.f);
-      }
-    }
-  }
-}
-
 bool bad_shape(int bs, int d, int k) {
   return bs < 1 || bs > 32 || k < 1 || k > bs || d < 4 || d % 4 != 0;
 }
@@ -497,21 +386,6 @@ int launch_per_query(const int* table, const float* q, const void* blocks,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_batched(const int* ids, const float* q, const void* blocks, float* out_d,
-                   int nb, int n_q, int bs, int d, cudaStream_t stream) {
-  const int stride = d | 1;
-  const size_t smem = sizeof(float) *
-      ((size_t)kPages * 32 * stride + (size_t)kBWarps * d * kQGroup);
-  cudaError_t err = cudaFuncSetAttribute(
-      scan_batched_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned grid = (unsigned)((nb + kPages - 1) / kPages);
-  scan_batched_kernel<T><<<grid, kBWarps * 32, smem, stream>>>(
-      ids, q, static_cast<const T*>(blocks), out_d, nb, n_q, bs, d, stride);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = int8 (the payload of `blocks`).
@@ -544,21 +418,6 @@ extern "C" int scan_per_query(const int* table, const float* q,
   cudaStream_t s = (cudaStream_t)stream;
   DISPATCH_DTYPE(launch_per_query, false, false, table, q, blocks, nullptr, nullptr,
                  out_d, nullptr, n_q, nb, bs, d, 1, s)
-}
-
-// Full distances (NB, Q, BS), no bias, no k-min.
-extern "C" int scan_batched(const int* ids, const float* q, const void* blocks,
-                            int dtype, float* out_d, int nb, int n_q, int bs,
-                            int d, void* stream) {
-  if (bad_shape(bs, d, 1)) return (int)cudaErrorInvalidValue;
-  if (n_q == 0 || nb == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (dtype) {
-    case 0: return launch_batched<float>(ids, q, blocks, out_d, nb, n_q, bs, d, s);
-    case 1: return launch_batched<__nv_bfloat16>(ids, q, blocks, out_d, nb, n_q, bs, d, s);
-    case 2: return launch_batched<int8_t>(ids, q, blocks, out_d, nb, n_q, bs, d, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 // int8 codes; sz (Q, NB, 2) f32 per-page (scale, zero).

@@ -1,26 +1,36 @@
-// Batched paged scan with a fused per-(page, query) k-min on the tensor
-// cores (sm_90a), over raw payloads and over int8 codes.
+// Batched paged scan on the tensor cores (sm_90a): every slot's distance,
+// or a fused per-(page, query) k-min over raw payloads and over int8
+// codes.
 //
-// Replaces two TPU kernels of src/repro/kernels/posting_scan/kernel.py:
-//   * `scan_batched_topk` (`_scan_batched_topk_kernel`, #6): each unique
-//     page ids[i] (BS <= 32 slots of d values, f32, bf16 or int8) against
-//     every query, d = max(||q||^2 - 2 q.b + ||b||^2, 0) + bias[i, slot],
-//     and per (page, query) the k smallest with their slots, ascending,
-//     lowest slot first among equal values; out (NB, Q, k);
-//   * `scan_batched_topk_q8` (`_scan_batched_topk_q8_kernel`, #7): the same
-//     over int8 codes, each page dequantised as b = code * scale + zero
-//     with its sz[i] = (scale, zero), the multiply and the add each
-//     rounded (as the plain version rounds them).
+// Replaces three TPU kernels of src/repro/kernels/posting_scan/kernel.py:
+//   * `scan_batched` (`_scan_batched_kernel`, #3): each unique page ids[i]
+//     (BS <= 32 slots of d values, f32, bf16 or int8) against every
+//     query, every slot's d = max(||q||^2 - 2 q.b + ||b||^2, 0); out
+//     (NB, Q, BS).  An id of -1 is a padding page, whose rows are written
+//     as float32(3e38) (the TPU kernel scores the caller's clamped page 0
+//     and the caller masks it afterwards, one more pass over the output);
+//   * `scan_batched_topk` (`_scan_batched_topk_kernel`, #6): the same plus
+//     bias[i, slot], and per (page, query) the k smallest with their
+//     slots, ascending, lowest slot first among equal values; out (NB, Q,
+//     k);
+//   * `scan_batched_topk_q8` (`_scan_batched_topk_q8_kernel`, #7): #6 over
+//     int8 codes, each page dequantised as b = code * scale + zero with
+//     its sz[i] = (scale, zero), the multiply and the add each rounded
+//     (as the plain version rounds them).
 //
 // Bounds on this card at the spfresh-1b shapes (NB = 32,768 pages budget,
 // Q = 1024, BS = 32, d = 100): 215 GFLOP of products over the full
-// budget, 0.87 ms as two split-TF32 passes at 495 TFLOP/s.  #6 at k = 10
-// writes 2.68 GB of candidates (0.80 ms at 3.35 TB/s), so its bound is
-// the product; #7 at k = min(10 * 4, BS) = 32 writes 8.59 GB (8.70 GB
-// moved in all): bytes, 2.60 ms.  On the search path only the probed
-// pages are live (10,393 of 32,768 rows on the main path): the product
-// falls to 0.28 ms and the bounds are the stores, 0.81 ms (#6) and
-// 2.58 ms (#7).  This design:
+// budget, 0.87 ms as two split-TF32 passes at 495 TFLOP/s (1.5 ms at the
+// ~320 TFLOP/s that `mma.sync` reaches on this card,
+// scripts/mma_sync_rate_on_card.py).  #3 writes every slot, 4.29 GB
+// (4.40 GB moved with the pages): bytes, 1.31 ms, also where most rows
+// are padding, since those are stores too.  #6 at k = 10 writes 2.68 GB
+// of candidates (0.80 ms at 3.35 TB/s), so its bound is the product; #7
+// at k = min(10 * 4, BS) = 32 writes 8.59 GB (8.70 GB moved in all):
+// bytes, 2.60 ms.  On the search path only the probed pages are live
+// (10,393 of 32,768 rows on the main path): the product falls to 0.28 ms
+// and the bounds are the stores, 0.81 ms (#6) and 2.58 ms (#7).  This
+// design:
 //   * dead pages cost no product and no select.  A page whose every bias
 //     entry is >= BIG/2 (the budget's padding rows, clamped to page 0, and
 //     pages with no live slot) gets (BIG, slot j) for j < k written
@@ -30,7 +40,8 @@
 //     float32(3e38) for every slot (its ulp is 2^104), all values tie, and
 //     the plain version emits exactly these candidates (the TPU kernel the
 //     same values, with slot 0 k times: its k-min masks a taken slot with
-//     the same BIG);
+//     the same BIG).  #3's padding pages (id -1) take the same path: no
+//     load, BIG in every (query, slot) of their rows;
 //   * a block keeps a tile of 64 queries resident in shared memory (f32)
 //     and walks a run of 64 pages, 4 per step; warp w takes page w / 2 of
 //     the step against query half w % 2.  At d = 100 an int8 block holds
@@ -82,17 +93,41 @@
 //     through the same staging tile as coalesced rows, values and slots
 //     each, where k % 4 == 0 as 16-byte stores (four 128-byte lines a
 //     warp store).
-// What bounds it now (PERF.md section 6, chip_smoke.py): the live pages'
-// instruction issue (the select, the copy-out through the staging tile,
-// the product's operand loads and splits); at k = 32 the candidate stores
-// overlap it only in part, over the full budget and on the main path's
-// mix, where the padding rows are stores alone.
+// #3 is the mode KMAX = 0 of the same kernel: no bias, no select, k = BS.
+// It differs where the select no longer hides the product's overheads:
+//   * the query tile is split once per block, as the tile is staged, and
+//     kept as q_hi and q_lo tiles in fragment order: a lane's A fragment
+//     for one k-step and m-tile is one 16-byte load, with no split and no
+//     register moves in the product loop.  The page's four B loads of a
+//     16-column step issue together, and each accumulator's passes are
+//     issued pass by pass over the eight (m, n) tiles.  With no staging
+//     tile the block holds 83 KB at d = 100 (int8; bf16 108 KB, f32
+//     160 KB);
+//   * the accumulators are the output block: lane (g, t) stores its
+//     slots 8n + 2t, 8n + 2t + 1 of four queries as float2 pairs straight
+//     from registers (a warp store fills 32-byte sectors of 8 rows), so
+//     the warp's 32 queries x BS slots go out as one contiguous 4 KB run
+//     (BS = 32) without a pass through shared memory;
+//   * the grid walks the 16 query tiles fastest and a block takes a run
+//     of 256 pages, so the blocks of one run are resident together and
+//     read its pages from L2 after the first (the 4.3 GB of stores would
+//     evict them before the grid came back to the run), and the block's
+//     set-up is paid once per 256 pages.
+// What bounds it now (PERF.md section 6, chip_smoke.py): #6 and #7 the
+// live pages' instruction issue (the select, the copy-out through the
+// staging tile, the product's operand loads and splits); at k = 32 the
+// candidate stores overlap it only in part, over the full budget and on
+// the main path's mix, where the padding rows are stores alone.  #3 the
+// tensor pipe and the block's step structure: its product alone is 1.5 ms
+// at the measured `mma.sync` rate, its page staging, barriers and stores
+// without a product 1.9 ms, and the two overlap only in part (about
+// 3.1 ms over the full budget, int8).
 // Registers and spills (`-Xptxas -v`, printed by every chip_smoke.py run):
-// sixteen instantiations (payload x KMAX, and int8 q8 x KMAX) under the
-// 128 of __launch_bounds__(256, 2).
+// nineteen instantiations (payload x KMAX in {0 (#3), 4, 10, 16, 32}, and
+// int8 q8 x KMAX) under the 128 of __launch_bounds__(256, 2).
 // Contract: 1 <= BS <= 32, 1 <= k <= BS, d % 4 == 0, a 16-byte aligned
-// pool, ids in [0, B).  Plain C interface, loaded with ctypes; returns
-// cudaGetLastError().
+// pool, ids in [0, B) (#3: or -1, padding).  Plain C interface, loaded
+// with ctypes; returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -112,10 +147,31 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kQTile = 64;          // queries resident per block
 constexpr int kStep = kWarps / 2;   // pages per step, two warps each
 constexpr int kRun = 64;            // pages per block
+constexpr int kRunAll = 256;        // ... for #3, whose block set-up is the larger share
 
 // code * scale + zero, rounded after the multiply and after the add.
 __device__ __forceinline__ float dequant(float c, float scale, float zero) {
   return __fadd_rn(__fmul_rn(c, scale), zero);
+}
+
+// v = hi + lo (tf32_mma.cuh's split, value by value): v becomes hi.
+__device__ __forceinline__ void split4(float4& v, float4& lo) {
+  uint32_t h[4], l[4];
+  split(v.x, h[0], l[0]);
+  split(v.y, h[1], l[1]);
+  split(v.z, h[2], l[2]);
+  split(v.w, h[3], l[3]);
+  v = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]), __uint_as_float(h[2]),
+                  __uint_as_float(h[3]));
+  lo = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]),
+                   __uint_as_float(l[3]));
+}
+
+// #3's query tiles in fragment order: the float offset of the A fragment
+// (four values) of lane `lane` for k-step ks of 16-column block kb and
+// m-tile mt (16 queries of the 64-query tile).
+__device__ __forceinline__ int frag_offset(int kb, int ks, int mt, int lane) {
+  return (((kb * 2 + ks) * (kQTile / 16) + mt) * 32 + lane) * 4;
 }
 
 // Insert (v, j) into the ascending list (ld, li): strict <, so among equal
@@ -152,26 +208,32 @@ __device__ __forceinline__ int swz(int r) {
 
 // Shared-memory layout, in bytes from the start (every part 16-aligned):
 // the fixed-size parts first, at offsets known at compile time, so that
-// only the query tile's offset takes a register.
+// only the query tiles' offsets take registers.  kAll (#3) has no staging
+// tile and keeps the query tile split, q_hi in qs and q_lo in qlo, each
+// in fragment order (frag_offset).
+template <bool kAll>
 struct Layout {
   static constexpr int stage = 0;                          // [kWarps][32][32] f32
-  static constexpr int qsq = stage + 4 * kWarps * 32 * 32;  // [kQTile]
+  static constexpr int qsq = stage + (kAll ? 0 : 4 * kWarps * 32 * 32);  // [kQTile]
   static constexpr int qsum = qsq + 4 * kQTile;             // [kQTile]
   static constexpr int bias = qsum + 4 * kQTile;            // [2][kStep][32]
   static constexpr int sz = bias + 4 * 2 * kStep * 32;      // [2][kStep][2]
   static constexpr int live = sz + 4 * 2 * kStep * 2;       // [2][kStep]
   static constexpr int pages = live + 4 * 2 * kStep;        // [2][kStep][page_stride]
   static_assert(pages % 16 == 0, "the page ring takes 16-byte copies");
-  int page_stride, qs, total;                               // qs: [kQTile][stride]
+  int page_stride, qs, qlo, total;                          // qs, qlo: [kQTile][stride]
   __host__ __device__ Layout(int bs, int d, int elem, int stride) {
     page_stride = (bs * d * elem + 15) & ~15;
     qs = pages + 2 * kStep * page_stride;
-    total = qs + 4 * kQTile * stride;
+    qlo = qs + 4 * kQTile * stride;
+    total = qlo + (kAll ? 4 * kQTile * stride : 0);
   }
 };
 
 // kQ8: the payload is int8 codes, page i dequantised with sz[i] = (scale,
-// zero) (#7); else f32, bf16 or int8 values as they are (#6).
+// zero) (#7); else f32, bf16 or int8 values as they are (#6).  KMAX = 0
+// is #3: no bias, no k-min, every slot's distance stored (k = BS), and a
+// page whose id is -1 is padding, written as BIG.
 template <typename T, int KMAX, bool kQ8>
 __global__ void __launch_bounds__(kThreads, 2)
 scan_batched_topk_tc(const int* __restrict__ ids, const float* __restrict__ q,
@@ -182,35 +244,47 @@ scan_batched_topk_tc(const int* __restrict__ ids, const float* __restrict__ q,
                      int vec16, int vec_out) {
   static_assert(!kQ8 || sizeof(T) == 1, "the q8 form reads int8 codes");
   constexpr bool kSplitB = sizeof(T) == 4;  // f32 payloads need a lo part
+  constexpr bool kAll = KMAX == 0;          // #3: store every slot
   extern __shared__ float4 smem4[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(smem4);
-  const Layout L(bs, d, (int)sizeof(T), stride);
-  unsigned char* pages = sm + Layout::pages;
+  using Lay = Layout<kAll>;
+  const Lay L(bs, d, (int)sizeof(T), stride);
+  unsigned char* pages = sm + Lay::pages;
   float* qs = reinterpret_cast<float*>(sm + L.qs);
-  float* stg = reinterpret_cast<float*>(sm + Layout::stage);
-  float* qsq = reinterpret_cast<float*>(sm + Layout::qsq);
-  float* qsum = reinterpret_cast<float*>(sm + Layout::qsum);
-  float* pbias = reinterpret_cast<float*>(sm + Layout::bias);
-  float* psz = reinterpret_cast<float*>(sm + Layout::sz);
-  int* plive = reinterpret_cast<int*>(sm + Layout::live);
+  float* qlo = reinterpret_cast<float*>(sm + L.qlo);
+  float* stg = reinterpret_cast<float*>(sm + Lay::stage);
+  float* qsq = reinterpret_cast<float*>(sm + Lay::qsq);
+  float* qsum = reinterpret_cast<float*>(sm + Lay::qsum);
+  float* pbias = reinterpret_cast<float*>(sm + Lay::bias);
+  float* psz = reinterpret_cast<float*>(sm + Lay::sz);
+  int* plive = reinterpret_cast<int*>(sm + Lay::live);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int run0 = blockIdx.x * kRun;
-  const int qt0 = blockIdx.y * kQTile;
+  // #3 walks the query tiles fastest, so the blocks of one page run are
+  // resident together and read its pages from L2 after the first
+  constexpr int run = kAll ? kRunAll : kRun;
+  const int run0 = (kAll ? blockIdx.y : blockIdx.x) * run;
+  const int qt0 = (kAll ? blockIdx.x : blockIdx.y) * kQTile;
   const int page_bytes = bs * d * (int)sizeof(T);
-  const int n_steps = (min(kRun, nb - run0) + kStep - 1) / kStep;
+  const int n_steps = (min(run, nb - run0) + kStep - 1) / kStep;
 
-  // Warps 0..kStep-1 each read one page's bias, decide whether it is live,
-  // and start copying a live page's payload into the ring.
+  // Warps 0..kStep-1 each read one page's bias (#3: its id), decide
+  // whether it is live, and start copying a live page's payload into the
+  // ring.
   auto load_step = [&](int s, int buf) {
     if (warp < kStep) {
       const int page = run0 + s * kStep + warp;
-      float b = kBig;
-      if (page < nb && lane < bs) b = bias[(size_t)page * bs + lane];
-      pbias[(buf * kStep + warp) * 32 + lane] = b;
-      const bool live = __any_sync(kFull, b < 0.5f * kBig);
+      bool live;
+      if constexpr (kAll) {
+        live = page < nb && ids[page] >= 0;
+      } else {
+        float b = kBig;
+        if (page < nb && lane < bs) b = bias[(size_t)page * bs + lane];
+        pbias[(buf * kStep + warp) * 32 + lane] = b;
+        live = __any_sync(kFull, b < 0.5f * kBig);
+      }
       if (lane == 0) plive[buf * kStep + warp] = live;
       if (live) {
         if (kQ8 && lane < 2) psz[(buf * kStep + warp) * 2 + lane] = sz[(size_t)page * 2 + lane];
@@ -228,7 +302,8 @@ scan_batched_topk_tc(const int* __restrict__ ids, const float* __restrict__ q,
   };
   load_step(0, 0);
 
-  // the query tile (zero past d and past Q)
+  // the query tile (zero past d and past Q); #3 stores it split, q_hi in
+  // qs and q_lo in qlo (tf32_mma.cuh), once for all its pages
   const int per_row = kpad / 4;
   const bool vec_q = reinterpret_cast<uintptr_t>(q) % 16 == 0;  // d % 4 == 0
   for (int e = tid; e < kQTile * per_row; e += kThreads) {
@@ -239,7 +314,28 @@ scan_batched_topk_tc(const int* __restrict__ ids, const float* __restrict__ q,
       const float* src = q + (size_t)(qt0 + r) * d + t;
       v = vec_q ? *reinterpret_cast<const float4*>(src) : make_float4(src[0], src[1], src[2], src[3]);
     }
-    *reinterpret_cast<float4*>(qs + r * stride + t) = v;
+    if constexpr (kAll) {
+      // fragment order: the four values lane (g, t) passes as one A
+      // fragment of k-step ks of m-tile mt lie together, so the product
+      // loads each fragment with one 16-byte load.  Columns t..t+3 of row
+      // r are k-step 0's and k-step 1's columns t and t + 4 (the
+      // permutation of K below), rows g or g + 8 of their m-tile.
+      float4 lo;
+      split4(v, lo);
+      const int rh = (r >> 3) & 1;
+      const int fl = (r & 7) * 4 + ((t >> 2) & 3);
+      const int f0 = frag_offset(t >> 4, 0, r >> 4, fl), f1 = frag_offset(t >> 4, 1, r >> 4, fl);
+      qs[f0 + rh] = v.x;
+      qs[f0 + rh + 2] = v.y;
+      qs[f1 + rh] = v.z;
+      qs[f1 + rh + 2] = v.w;
+      qlo[f0 + rh] = lo.x;
+      qlo[f0 + rh + 2] = lo.y;
+      qlo[f1 + rh] = lo.z;
+      qlo[f1 + rh + 2] = lo.w;
+    } else {
+      *reinterpret_cast<float4*>(qs + r * stride + t) = v;
+    }
   }
   // ||q||^2 and sum(q) in f32, a warp per query: lane-strided partial
   // sums, butterfly
@@ -271,6 +367,8 @@ scan_batched_topk_tc(const int* __restrict__ ids, const float* __restrict__ q,
   const int n_valid = min(32, n_q - q0);
   float* st = stg + warp * 32 * 32;
   const float* ap = qs + (half * 32 + g) * stride + 4 * t4;
+  // #3 stores its accumulators as float2 pairs of slots where BS is even
+  const bool pair_out = (k & 1) == 0 && reinterpret_cast<uintptr_t>(out_d) % 8 == 0;
 
   for (int s = 0; s < n_steps; ++s) {
     const int buf = s & 1;
@@ -281,7 +379,7 @@ scan_batched_topk_tc(const int* __restrict__ ids, const float* __restrict__ q,
     const int page = run0 + s * kStep + wp;
     if (page >= nb || n_valid <= 0) continue;  // warp-uniform
     const size_t out0 = ((size_t)page * n_q + q0) * k;
-    if (!plive[buf * kStep + wp]) {
+    if (!plive[buf * kStep + wp]) {  // (#3: k = BS, no slots written)
       if (vec_out) {  // k % 4 == 0: 16-byte stores, four slots each
         float4* od = reinterpret_cast<float4*>(out_d + out0);
         int4* oi = reinterpret_cast<int4*>(out_i + out0);
@@ -289,14 +387,14 @@ scan_batched_topk_tc(const int* __restrict__ ids, const float* __restrict__ q,
         int c = (4 * lane) % k;
         for (int e = lane; e < n_valid * k / 4; e += 32) {
           od[e] = make_float4(kBig, kBig, kBig, kBig);
-          oi[e] = make_int4(c, c + 1, c + 2, c + 3);
+          if constexpr (!kAll) oi[e] = make_int4(c, c + 1, c + 2, c + 3);
           c += adv;
           if (c >= k) c -= k;
         }
       } else {
         for (int e = lane; e < n_valid * k; e += 32) {
           out_d[out0 + e] = kBig;
-          out_i[out0 + e] = e % k;
+          if constexpr (!kAll) out_i[out0 + e] = e % k;
         }
       }
       continue;
@@ -327,15 +425,27 @@ scan_batched_topk_tc(const int* __restrict__ ids, const float* __restrict__ q,
     for (int k0 = 0; k0 < kpad; k0 += 16) {
       const bool in_d = k0 + 4 * t4 < d;  // d % 4 == 0: all four or none
       float4 qa[2][2];
+      if constexpr (!kAll) {
 #pragma unroll
-      for (int m = 0; m < 2; ++m)
+        for (int m = 0; m < 2; ++m)
 #pragma unroll
-        for (int v = 0; v < 2; ++v)
-          qa[m][v] = *reinterpret_cast<const float4*>(ap + (m * 16 + v * 8) * stride + k0);
+          for (int v = 0; v < 2; ++v)
+            qa[m][v] = *reinterpret_cast<const float4*>(ap + (m * 16 + v * 8) * stride + k0);
+      }
       float4 bv[4];
+      if constexpr (kAll) {  // the four loads together, then the tail's zeros
+        const int kc = in_d ? k0 + 4 * t4 : 0;
+#pragma unroll
+        for (int n = 0; n < 4; ++n) bv[n] = load4(pp + (n * 8 + g) * d + kc);
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          if (!in_d) bv[n] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
-        bv[n] = in_d ? load4(pp + (n * 8 + g) * d + k0 + 4 * t4) : make_float4(0.f, 0.f, 0.f, 0.f);
+        if constexpr (!kAll)
+          bv[n] = in_d ? load4(pp + (n * 8 + g) * d + k0 + 4 * t4)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
         if constexpr (kQ8) {             // ||b||^2 of the dequantised values
           if (in_d) {
             const float x = dequant(bv[n].x, scale, zero), y = dequant(bv[n].y, scale, zero);
@@ -357,32 +467,73 @@ scan_batched_topk_tc(const int* __restrict__ ids, const float* __restrict__ q,
         uint32_t a_hi[2][4], a_lo[2][4];
 #pragma unroll
         for (int m = 0; m < 2; ++m) {
-          split(ks ? qa[m][0].z : qa[m][0].x, a_hi[m][0], a_lo[m][0]);
-          split(ks ? qa[m][1].z : qa[m][1].x, a_hi[m][1], a_lo[m][1]);
-          split(ks ? qa[m][0].w : qa[m][0].y, a_hi[m][2], a_lo[m][2]);
-          split(ks ? qa[m][1].w : qa[m][1].y, a_hi[m][3], a_lo[m][3]);
+          if constexpr (kAll) {          // split when the tile was staged
+            const int f = frag_offset(k0 >> 4, ks, 2 * half + m, lane);
+            const uint4 hi = *reinterpret_cast<const uint4*>(qs + f);
+            const uint4 lo = *reinterpret_cast<const uint4*>(qlo + f);
+            a_hi[m][0] = hi.x, a_hi[m][1] = hi.y, a_hi[m][2] = hi.z, a_hi[m][3] = hi.w;
+            a_lo[m][0] = lo.x, a_lo[m][1] = lo.y, a_lo[m][2] = lo.z, a_lo[m][3] = lo.w;
+          } else {
+            split(ks ? qa[m][0].z : qa[m][0].x, a_hi[m][0], a_lo[m][0]);
+            split(ks ? qa[m][1].z : qa[m][1].x, a_hi[m][1], a_lo[m][1]);
+            split(ks ? qa[m][0].w : qa[m][0].y, a_hi[m][2], a_lo[m][2]);
+            split(ks ? qa[m][1].w : qa[m][1].y, a_hi[m][3], a_lo[m][3]);
+          }
         }
+        if constexpr (kAll) {
+          // pass by pass over the eight (m, n) tiles, so that eight
+          // independent mma lie between two into one accumulator (each
+          // accumulator takes its passes in the order of the loop below)
+          uint32_t bh[4][2], bl[4][2];
 #pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          const float f0 = ks ? bv[n].z : bv[n].x;
-          const float f1 = ks ? bv[n].w : bv[n].y;
-          if constexpr (kSplitB) {
-            uint32_t b0h, b0l, b1h, b1l;
-            split(f0, b0h, b0l);
-            split(f1, b1h, b1l);
-#pragma unroll
-            for (int m = 0; m < 2; ++m) {
-              mma(acc[m][n], a_lo[m], b0h, b1h);
-              mma(acc[m][n], a_hi[m], b0l, b1l);
-              mma(acc[m][n], a_hi[m], b0h, b1h);
+          for (int n = 0; n < 4; ++n) {
+            const float f0 = ks ? bv[n].z : bv[n].x;
+            const float f1 = ks ? bv[n].w : bv[n].y;
+            if constexpr (kSplitB) {
+              split(f0, bh[n][0], bl[n][0]);
+              split(f1, bh[n][1], bl[n][1]);
+            } else {
+              bh[n][0] = __float_as_uint(f0);
+              bh[n][1] = __float_as_uint(f1);
             }
-          } else {  // exact in TF32 (q8: the codes)
-            const uint32_t b0 = __float_as_uint(f0);
-            const uint32_t b1 = __float_as_uint(f1);
+          }
 #pragma unroll
-            for (int m = 0; m < 2; ++m) {
-              mma(acc[m][n], a_lo[m], b0, b1);
-              mma(acc[m][n], a_hi[m], b0, b1);
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int m = 0; m < 2; ++m) mma(acc[m][n], a_lo[m], bh[n][0], bh[n][1]);
+          if constexpr (kSplitB) {
+#pragma unroll
+            for (int n = 0; n < 4; ++n)
+#pragma unroll
+              for (int m = 0; m < 2; ++m) mma(acc[m][n], a_hi[m], bl[n][0], bl[n][1]);
+          }
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int m = 0; m < 2; ++m) mma(acc[m][n], a_hi[m], bh[n][0], bh[n][1]);
+        } else {
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            const float f0 = ks ? bv[n].z : bv[n].x;
+            const float f1 = ks ? bv[n].w : bv[n].y;
+            if constexpr (kSplitB) {
+              uint32_t b0h, b0l, b1h, b1l;
+              split(f0, b0h, b0l);
+              split(f1, b1h, b1l);
+#pragma unroll
+              for (int m = 0; m < 2; ++m) {
+                mma(acc[m][n], a_lo[m], b0h, b1h);
+                mma(acc[m][n], a_hi[m], b0l, b1l);
+                mma(acc[m][n], a_hi[m], b0h, b1h);
+              }
+            } else {  // exact in TF32 (q8: the codes)
+              const uint32_t b0 = __float_as_uint(f0);
+              const uint32_t b1 = __float_as_uint(f1);
+#pragma unroll
+              for (int m = 0; m < 2; ++m) {
+                mma(acc[m][n], a_lo[m], b0, b1);
+                mma(acc[m][n], a_hi[m], b0, b1);
+              }
             }
           }
         }
@@ -402,139 +553,170 @@ scan_batched_topk_tc(const int* __restrict__ ids, const float* __restrict__ q,
         rq[m][v] = qsq[r];
         rz[m][v] = kQ8 ? zero * qsum[r] : 0.f;
       }
+    if constexpr (kAll) {
+      // #3: the accumulators are the output block.  Lane (g, t) holds
+      // slots 8n + 2t and 8n + 2t + 1 of queries g, g + 8, g + 16, g + 24
+      // of the half, stored as they are: a warp store covers 32 bytes of
+      // each of 8 rows (whole sectors), and the 16 stores of a warp write
+      // its 32 queries' BS slots, one contiguous run.
+      float* o = out_d + out0 + (size_t)g * k + 2 * t4;
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int col = n * 8 + 2 * t4 + h;  // slot
-        const float cb = __shfl_sync(kFull, bq[n], (2 * t4 + h) * 4);
-        const float cbias = pb[col];
+      for (int n = 0; n < 4; ++n) {
+        const float cb0 = __shfl_sync(kFull, bq[n], 8 * t4);
+        const float cb1 = __shfl_sync(kFull, bq[n], 8 * t4 + 4);
+        const int col = n * 8 + 2 * t4;
 #pragma unroll
         for (int m = 0; m < 2; ++m)
 #pragma unroll
           for (int v = 0; v < 2; ++v) {
-            const int r = m * 16 + g + v * 8;  // query in the half
-            float cross = acc[m][n][v * 2 + h];
-            if constexpr (kQ8) cross = fmaf(scale, cross, rz[m][v]);
-            st[r * 32 + (col ^ swz(r))] = fmaxf(rq[m][v] - 2.f * cross + cb, 0.f) + cbias;
+            const float d0 = fmaxf(rq[m][v] - 2.f * acc[m][n][2 * v] + cb0, 0.f);
+            const float d1 = fmaxf(rq[m][v] - 2.f * acc[m][n][2 * v + 1] + cb1, 0.f);
+            float* p = o + (size_t)(m * 16 + v * 8) * k + n * 8;
+            if (m * 16 + g + v * 8 < n_valid) {
+              if (pair_out) {
+                if (col < k) *reinterpret_cast<float2*>(p) = make_float2(d0, d1);
+              } else {
+                if (col < k) p[0] = d0;
+                if (col + 1 < k) p[1] = d1;
+              }
+            }
           }
       }
-    __syncwarp();
-
-    const float* mine = st + lane * 32;
-    const int sw = swz(lane);
-    if constexpr (KMAX <= 16) {
-      float ld[KMAX];
-      int li[KMAX];
-#pragma unroll
-      for (int j = 0; j < KMAX; ++j) {
-        ld[j] = CUDART_INF_F;
-        li[j] = 0;
-      }
-      // Live slots first, in slot order; a dead slot ranks after every
-      // live one (its bias is >= BIG/2, a live distance is far below), so
-      // the dead ones are inserted, in slot order, only when fewer than k
-      // slots live.  The list is then the one that slot order gives.
-      const unsigned live = __ballot_sync(kFull, pb[lane] < 0.5f * kBig);
-      for (int j = 0; j < bs; ++j)
-        if ((live >> j) & 1u) insert(ld, li, mine[j ^ sw], j);  // warp-uniform
-      if (__popc(live) < k)
-        for (int j = 0; j < bs; ++j)
-          if (!((live >> j) & 1u)) insert(ld, li, mine[j ^ sw], j);
-      __syncwarp();  // every lane has read its row; the tile takes the output
-#pragma unroll
-      for (int j = 0; j < KMAX; ++j)
-        if (j < k) st[lane * k + j] = ld[j];
-      __syncwarp();
-      for (int e = lane; e < n_valid * k; e += 32) out_d[out0 + e] = st[e];
-      __syncwarp();
-#pragma unroll
-      for (int j = 0; j < KMAX; ++j)
-        if (j < k) st[lane * k + j] = __int_as_float(li[j]);
-      __syncwarp();
-      for (int e = lane; e < n_valid * k; e += 32) out_i[out0 + e] = __float_as_int(st[e]);
-      __syncwarp();
     } else {
-      // The rank of every slot of the row, counted: slots past BS read +inf
-      // and rank after all others.  Slot j's rank starts at j (the slots
-      // before it) and each pair (i < j) moves one rank: j sorts before i
-      // iff v_j < v_i, else i sorts before j (so ties keep the lower slot
-      // first).  The ranks are kept four to a word in base 64, as f32: a
-      // field only ever holds 0..31 (j's starts at j and falls at most j
-      // times, i's rises at most 31 - i times), so no carry crosses fields
-      // and a word stays an integer below 2^23, exact in f32.  A compare
-      // is then one set (1.0 or 0.0) and two FMAs on the f32 pipes, not
-      // on the narrower integer pipe.
-      float v[32];
 #pragma unroll
-      for (int j = 0; j < 32; ++j) v[j] = j < bs ? mine[j ^ sw] : CUDART_INF_F;
-      float rk[8];
+      for (int n = 0; n < 4; ++n)
 #pragma unroll
-      for (int w = 0; w < 8; ++w)
-        rk[w] = (4 * w) + (4 * w + 1) * 64.f + (4 * w + 2) * 4096.f + (4 * w + 3) * 262144.f;
-      // Pairs by their gap j - i, so that neighbouring compares update
-      // different words.
+        for (int h = 0; h < 2; ++h) {
+          const int col = n * 8 + 2 * t4 + h;  // slot
+          const float cb = __shfl_sync(kFull, bq[n], (2 * t4 + h) * 4);
+          const float cbias = pb[col];
 #pragma unroll
-      for (int gap = 1; gap < 32; ++gap)
+          for (int m = 0; m < 2; ++m)
 #pragma unroll
-        for (int i = 0; i + gap < 32; ++i) {
-          const int j = i + gap;
-          const float c = lt1(v[j], v[i]);  // 1 where j sorts before i
-          rk[i >> 2] = fmaf(c, base64(i & 3), rk[i >> 2]);
-          rk[j >> 2] = fmaf(c, -base64(j & 3), rk[j >> 2]);
+            for (int v = 0; v < 2; ++v) {
+              const int r = m * 16 + g + v * 8;  // query in the half
+              float cross = acc[m][n][v * 2 + h];
+              if constexpr (kQ8) cross = fmaf(scale, cross, rz[m][v]);
+              st[r * 32 + (col ^ swz(r))] = fmaxf(rq[m][v] - 2.f * cross + cb, 0.f) + cbias;
+            }
         }
-      uint32_t rb[8];  // the words as integers: 2^23 + w has w in its mantissa
+      __syncwarp();
+
+      const float* mine = st + lane * 32;
+      const int sw = swz(lane);
+      if constexpr (KMAX <= 16) {
+        float ld[KMAX];
+        int li[KMAX];
 #pragma unroll
-      for (int w = 0; w < 8; ++w) rb[w] = __float_as_uint(rk[w] + 8388608.f);
-      // (an opaque unpack: each pass re-reads the packed words, so the 32
-      // ranks are never all live beside the values)
-      auto rank = [&](int i) {
-        int r;
-        asm volatile("bfe.u32 %0, %1, %2, 6;" : "=r"(r) : "r"(rb[i >> 2]), "r"(6 * (i & 3)));
-        return r;
-      };
-      // The staged rows out, coalesced.  Where k % 4 == 0, lane (b, c) of
-      // (l % 4, l / 4) moves columns 4c..4c+3 of row r0 + (b & 1) + 8 (b >> 1)
-      // as one 16-byte store, r0 over the eight values with bits 0 and 3
-      // clear: those four rows' swizzles differ in bits 0 and 1 only, so
-      // each of the four column loads meets 32 banks.  Else one row a
-      // step, a column a lane.
-      auto copy_out = [&](float* dst) {
-        if (vec_out) {
-          const int c = 4 * (lane >> 2);
-          const int rb = (lane & 1) + 8 * ((lane >> 1) & 1);
+        for (int j = 0; j < KMAX; ++j) {
+          ld[j] = CUDART_INF_F;
+          li[j] = 0;
+        }
+        // Live slots first, in slot order; a dead slot ranks after every
+        // live one (its bias is >= BIG/2, a live distance is far below), so
+        // the dead ones are inserted, in slot order, only when fewer than k
+        // slots live.  The list is then the one that slot order gives.
+        const unsigned live = __ballot_sync(kFull, pb[lane] < 0.5f * kBig);
+        for (int j = 0; j < bs; ++j)
+          if ((live >> j) & 1u) insert(ld, li, mine[j ^ sw], j);  // warp-uniform
+        if (__popc(live) < k)
+          for (int j = 0; j < bs; ++j)
+            if (!((live >> j) & 1u)) insert(ld, li, mine[j ^ sw], j);
+        __syncwarp();  // every lane has read its row; the tile takes the output
 #pragma unroll
-          for (int it = 0; it < 8; ++it) {
-            const int r = 2 * (it & 3) + 16 * (it >> 2) + rb;
-            const int z = swz(r);
-            const float* src = st + r * 32;
-            if (r < n_valid && c < k)
-              *reinterpret_cast<float4*>(dst + (size_t)r * k + c) =
-                  make_float4(src[c ^ z], src[(c + 1) ^ z], src[(c + 2) ^ z], src[(c + 3) ^ z]);
+        for (int j = 0; j < KMAX; ++j)
+          if (j < k) st[lane * k + j] = ld[j];
+        __syncwarp();
+        for (int e = lane; e < n_valid * k; e += 32) out_d[out0 + e] = st[e];
+        __syncwarp();
+#pragma unroll
+        for (int j = 0; j < KMAX; ++j)
+          if (j < k) st[lane * k + j] = __int_as_float(li[j]);
+        __syncwarp();
+        for (int e = lane; e < n_valid * k; e += 32) out_i[out0 + e] = __float_as_int(st[e]);
+        __syncwarp();
+      } else {
+        // The rank of every slot of the row, counted: slots past BS read +inf
+        // and rank after all others.  Slot j's rank starts at j (the slots
+        // before it) and each pair (i < j) moves one rank: j sorts before i
+        // iff v_j < v_i, else i sorts before j (so ties keep the lower slot
+        // first).  The ranks are kept four to a word in base 64, as f32: a
+        // field only ever holds 0..31 (j's starts at j and falls at most j
+        // times, i's rises at most 31 - i times), so no carry crosses fields
+        // and a word stays an integer below 2^23, exact in f32.  A compare
+        // is then one set (1.0 or 0.0) and two FMAs on the f32 pipes, not
+        // on the narrower integer pipe.
+        float v[32];
+#pragma unroll
+        for (int j = 0; j < 32; ++j) v[j] = j < bs ? mine[j ^ sw] : CUDART_INF_F;
+        float rk[8];
+#pragma unroll
+        for (int w = 0; w < 8; ++w)
+          rk[w] = (4 * w) + (4 * w + 1) * 64.f + (4 * w + 2) * 4096.f + (4 * w + 3) * 262144.f;
+        // Pairs by their gap j - i, so that neighbouring compares update
+        // different words.
+#pragma unroll
+        for (int gap = 1; gap < 32; ++gap)
+#pragma unroll
+          for (int i = 0; i + gap < 32; ++i) {
+            const int j = i + gap;
+            const float c = lt1(v[j], v[i]);  // 1 where j sorts before i
+            rk[i >> 2] = fmaf(c, base64(i & 3), rk[i >> 2]);
+            rk[j >> 2] = fmaf(c, -base64(j & 3), rk[j >> 2]);
           }
-        } else {
-          for (int r = 0; r < n_valid; ++r)
-            if (lane < k) dst[(size_t)r * k + lane] = st[r * 32 + (lane ^ swz(r))];
+        uint32_t rb[8];  // the words as integers: 2^23 + w has w in its mantissa
+#pragma unroll
+        for (int w = 0; w < 8; ++w) rb[w] = __float_as_uint(rk[w] + 8388608.f);
+        // (an opaque unpack: each pass re-reads the packed words, so the 32
+        // ranks are never all live beside the values)
+        auto rank = [&](int i) {
+          int r;
+          asm volatile("bfe.u32 %0, %1, %2, 6;" : "=r"(r) : "r"(rb[i >> 2]), "r"(6 * (i & 3)));
+          return r;
+        };
+        // The staged rows out, coalesced.  Where k % 4 == 0, lane (b, c) of
+        // (l % 4, l / 4) moves columns 4c..4c+3 of row r0 + (b & 1) + 8 (b >> 1)
+        // as one 16-byte store, r0 over the eight values with bits 0 and 3
+        // clear: those four rows' swizzles differ in bits 0 and 1 only, so
+        // each of the four column loads meets 32 banks.  Else one row a
+        // step, a column a lane.
+        auto copy_out = [&](float* dst) {
+          if (vec_out) {
+            const int c = 4 * (lane >> 2);
+            const int rb = (lane & 1) + 8 * ((lane >> 1) & 1);
+#pragma unroll
+            for (int it = 0; it < 8; ++it) {
+              const int r = 2 * (it & 3) + 16 * (it >> 2) + rb;
+              const int z = swz(r);
+              const float* src = st + r * 32;
+              if (r < n_valid && c < k)
+                *reinterpret_cast<float4*>(dst + (size_t)r * k + c) =
+                    make_float4(src[c ^ z], src[(c + 1) ^ z], src[(c + 2) ^ z], src[(c + 3) ^ z]);
+            }
+          } else {
+            for (int r = 0; r < n_valid; ++r)
+              if (lane < k) dst[(size_t)r * k + lane] = st[r * 32 + (lane ^ swz(r))];
+          }
+        };
+        __syncwarp();  // every lane has read its row; the tile takes the output
+        float* row = st + lane * 32;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int r = rank(i);
+          if (r < k) row[r ^ sw] = v[i];
         }
-      };
-      __syncwarp();  // every lane has read its row; the tile takes the output
-      float* row = st + lane * 32;
+        __syncwarp();
+        copy_out(out_d + out0);
+        __syncwarp();
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int r = rank(i);
-        if (r < k) row[r ^ sw] = v[i];
+        for (int i = 0; i < 32; ++i) {
+          const int r = rank(i);
+          if (r < k) row[r ^ sw] = __int_as_float(i);
+        }
+        __syncwarp();
+        copy_out(reinterpret_cast<float*>(out_i + out0));
+        __syncwarp();
       }
-      __syncwarp();
-      copy_out(out_d + out0);
-      __syncwarp();
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int r = rank(i);
-        if (r < k) row[r ^ sw] = __int_as_float(i);
-      }
-      __syncwarp();
-      copy_out(reinterpret_cast<float*>(out_i + out0));
-      __syncwarp();
     }
   }
 }
@@ -547,7 +729,7 @@ int launch(const int* ids, const float* q, const void* blocks, const float* bias
   // a query row's stride is 16 mod 32 floats: the 16-byte loads of a
   // quarter warp (rows g, g + 1; columns 4t) then hit 32 distinct banks
   const int stride = kpad % 32 == 16 ? kpad : kpad + 16;
-  const Layout L(bs, d, (int)sizeof(T), stride);
+  const Layout<KMAX == 0> L(bs, d, (int)sizeof(T), stride);
   if (L.total > 232448) return (int)cudaErrorInvalidValue;  // d too large
   const int vec16 = (bs * d * (int)sizeof(T)) % 16 == 0;
   const int vec_out = k % 4 == 0 && reinterpret_cast<uintptr_t>(out_d) % 16 == 0 &&
@@ -558,7 +740,10 @@ int launch(const int* ids, const float* q, const void* blocks, const float* bias
   if (err == cudaSuccess)  // all of L1 as shared memory: two blocks an SM
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((nb + kRun - 1) / kRun, (n_q + kQTile - 1) / kQTile);
+  constexpr int run = KMAX == 0 ? kRunAll : kRun;
+  const int runs = (nb + run - 1) / run, qtiles = (n_q + kQTile - 1) / kQTile;
+  const dim3 grid = KMAX == 0 ? dim3(qtiles, runs) : dim3(runs, qtiles);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   kernel<<<grid, kThreads, L.total, stream>>>(ids, q, static_cast<const T*>(blocks), bias, sz,
                                               out_d, out_i, nb, n_q, bs, d, k, kpad, stride,
                                               vec16, vec_out);
@@ -582,6 +767,28 @@ bool bad_shape(int bs, int d, int k) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = int8 (the payload of `blocks`).
+// Every slot's distance, (NB, Q, BS), no bias, no k-min; ids[i] = -1 is a
+// padding page, written as BIG.
+extern "C" int scan_batched(const int* ids, const float* q, const void* blocks,
+                            int dtype, float* out_d, int nb, int n_q, int bs,
+                            int d, void* stream) {
+  if (bad_shape(bs, d, bs)) return (int)cudaErrorInvalidValue;
+  if (n_q == 0 || nb == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (dtype) {
+    case 0:
+      return launch<float, 0, false>(ids, q, blocks, nullptr, nullptr, out_d, nullptr, nb, n_q,
+                                     bs, d, bs, s);
+    case 1:
+      return launch<__nv_bfloat16, 0, false>(ids, q, blocks, nullptr, nullptr, out_d, nullptr,
+                                             nb, n_q, bs, d, bs, s);
+    case 2:
+      return launch<int8_t, 0, false>(ids, q, blocks, nullptr, nullptr, out_d, nullptr, nb, n_q,
+                                      bs, d, bs, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 extern "C" int scan_batched_topk(const int* ids, const float* q,
                                  const void* blocks, int dtype,
                                  const float* bias, float* out_d, int* out_i,

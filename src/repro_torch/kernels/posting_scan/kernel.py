@@ -6,21 +6,22 @@ Replaces the six TPU kernels of ``repro/kernels/posting_scan/kernel.py``:
 ``scan_per_query_topk`` and ``scan_batched_topk`` (a fused per-page
 k-min), and their int8-code forms ``scan_per_query_topk_q8`` and
 ``scan_batched_topk_q8`` (each page dequantised as ``code * scale +
-zero`` with its posting's parameters).  The batched top-k forms,
-``scan_batched_topk`` and ``scan_batched_topk_q8``, are one tensor-core
-kernel in ``kernels/csrc/scan_batched_topk.cu`` (library
-``scan_batched_topk``); the other four are in
-``kernels/csrc/posting_scan.cu``, where the three per-query forms share
-one kernel that stages each live page in shared memory and skips pairs
-whose every slot is dead.  For tensors on the CPU a wrapper runs the
-plain version; for CUDA tensors it launches the kernel or raises.
+zero`` with its posting's parameters).  The three batched forms,
+``scan_batched``, ``scan_batched_topk`` and ``scan_batched_topk_q8``, are
+one tensor-core kernel in ``kernels/csrc/scan_batched_topk.cu`` (library
+``scan_batched_topk``); the three per-query forms share one kernel in
+``kernels/csrc/posting_scan.cu`` that stages each live page in shared
+memory and skips pairs whose every slot is dead.  For tensors on the CPU
+a wrapper runs the plain version; for CUDA tensors it launches the kernel
+or raises.
 
 Contract: ``BS <= 32`` (one lane per slot), ``k <= BS``, ``d % 4 == 0``;
 the payload is float32, bfloat16 or int8 (int8 codes for the ``_q8``
 forms); a per-query kernel refuses a page larger than a block's shared
 memory (float32 at ``BS = 32``: ``d`` above about 1,750).  Block ids must
 lie in ``[0, B)``; the callers clamp absent pages to 0 and mask them by
-bias.
+bias, except for ``scan_batched``, which takes -1 for a padding page and
+writes its rows as ``BIG`` itself.
 """
 from __future__ import annotations
 
@@ -79,8 +80,11 @@ def _batched_dist(queries, pages):
 
 
 def scan_batched_plain(unique_blocks, queries, blocks):
-    """Each page ``ids[i]`` against every query: ``(NB, Q, BS)``."""
-    return _batched_dist(queries, blocks[unique_blocks.long()].float())
+    """Each page ``ids[i]`` against every query: ``(NB, Q, BS)``; the rows
+    of a padding page (``ids[i] = -1``) are ``BIG``."""
+    pad = unique_blocks < 0
+    d = _batched_dist(queries, blocks[torch.clamp(unique_blocks, min=0).long()].float())
+    return torch.where(pad[:, None, None], BIG, d)
 
 
 def scan_per_query_topk_plain(block_table, queries, blocks, slot_bias, *, k: int):
@@ -182,7 +186,7 @@ def scan_per_query(block_table, queries, blocks):
 
 def scan_batched(unique_blocks, queries, blocks):
     """Batch-dedup paged scan, every slot: ``unique_blocks (NB,)`` i32
-    (>= 0) → ``(NB, Q, BS)`` f32 distances."""
+    (-1 padding) → ``(NB, Q, BS)`` f32 distances, padding rows ``BIG``."""
     queries = queries.float().contiguous()
     _check(unique_blocks, queries, blocks)
     if _on_cpu(blocks):
@@ -191,7 +195,7 @@ def scan_batched(unique_blocks, queries, blocks):
     _, bs, dim = blocks.shape
     out_d = _outputs((nb, q_n, bs), blocks, with_idx=False)
     _launch("scan_batched", blocks, unique_blocks, queries, blocks,
-            _DTYPE_CODE[blocks.dtype], out_d, nb, q_n, bs, dim)
+            _DTYPE_CODE[blocks.dtype], out_d, nb, q_n, bs, dim, lib="scan_batched_topk")
     return out_d
 
 

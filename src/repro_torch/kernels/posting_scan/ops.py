@@ -2,7 +2,8 @@
 
 They tie the block pool to the kernels: build the block table from
 posting ids, clamp absent pages to page 0, and mask their slots (and dead
-slots) with a +BIG distance bias.
+slots) with a +BIG distance bias; ``scan_batched`` takes the -1 padding
+ids as they are.
 """
 from __future__ import annotations
 
@@ -49,9 +50,9 @@ def scan_posting_blocks(queries, posting_blocks, pids, blocks):
 
 def scan_unique_blocks(queries, unique_blocks, blocks):
     """Batch-dedup scan, every slot: ``unique_blocks (NB,)`` i32 (-1
-    padding) → ``dists (NB, Q, BS)``, padding pages BIG."""
-    d = K.scan_batched(_clamped(unique_blocks), queries, blocks)
-    return torch.where((unique_blocks >= 0)[:, None, None], d, BIG)
+    padding) → ``dists (NB, Q, BS)``, padding pages BIG (written by the
+    kernel: no masking pass over the output)."""
+    return K.scan_batched(unique_blocks.to(torch.int32).contiguous(), queries, blocks)
 
 
 def scan_posting_blocks_topk(queries, page_table, slot_live, blocks, *, k: int):

@@ -12,7 +12,9 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+# the port, the chip smoke and the scripts run on the card (which has no JAX)
+PORT_FILES = (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+              + sorted((REPO / "scripts").glob("*_on_card.py")))
 
 
 def _imported_modules(path: Path) -> set[str]:

@@ -191,11 +191,18 @@ def test_scan_kernels_match_plain(card, dtype, bs, k):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
-@pytest.mark.parametrize("bs", [32, 8, 4])
-def test_unreduced_scan_kernels_match_plain(card, dtype, bs):
+@pytest.mark.parametrize("bs", [32, 16, 8, 7, 4])
+@pytest.mark.parametrize("d", [100, 128, 36])
+def test_unreduced_scan_kernels_match_plain(card, dtype, bs, d):
+    """#2 and #3 against their plain versions.  #3: Q not a multiple of
+    the 64-query tile (9, 77, 40), NB not a multiple of the page run or
+    the 4-page step, d not a multiple of 16 (100, 36), BS odd (7: scalar
+    stores), -1 padding among the ids, pages 4..7 (one whole step) all
+    padding; padding rows are exactly float32(3e38)."""
     gen = torch.Generator().manual_seed(2)
-    blocks = _blocks(gen, 64, bs, 100, dtype, card)
-    q = (torch.randn(9, 100, generator=gen) * (64 if dtype == torch.int8 else 1)).to(card)
+    blocks = _blocks(gen, 64, bs, d, dtype, card)
+    scale = 64 if dtype == torch.int8 else 1
+    q = (torch.randn(9, d, generator=gen) * scale).to(card)
     table = torch.randint(0, 64, (9, 12), generator=gen, dtype=torch.int32).to(card)
     atol = 1e-2 if dtype == torch.int8 else 1e-4
     before = dict(SK.LAUNCHES)
@@ -203,13 +210,48 @@ def test_unreduced_scan_kernels_match_plain(card, dtype, bs):
     torch.cuda.synchronize()
     want = SK.scan_per_query_plain(table, q, blocks)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=atol)
-    ids = torch.arange(0, 60, 7, dtype=torch.int32, device=card)
-    got = SK.scan_batched(ids, q, blocks)
-    torch.cuda.synchronize()
-    want = SK.scan_batched_plain(ids, q, blocks)
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=atol)
+    cases = [(q, torch.arange(0, 60, 7, dtype=torch.int32))]
+    for q_n, nb in ((77, 71), (40, 300)):        # 300: two page runs, one partial
+        ids = torch.randint(0, 64, (nb,), generator=gen, dtype=torch.int32)
+        ids[[1, nb - 1]] = -1
+        ids[4:8] = -1
+        cases.append(((torch.randn(q_n, d, generator=gen) * scale).to(card), ids))
+    big = torch.tensor(BIG, dtype=torch.float32)
+    for qb, ids in cases:
+        ids = ids.to(card)
+        got = SK.scan_batched(ids, qb, blocks)
+        torch.cuda.synchronize()
+        want = SK.scan_batched_plain(ids, qb, blocks)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=atol)
+        pad = (ids < 0).cpu()
+        assert bool((got.cpu()[pad] == big).all())
+        assert bool((got.cpu()[~pad] < BIG / 2).all())
     assert SK.LAUNCHES["scan_per_query"] == before["scan_per_query"] + 1
-    assert SK.LAUNCHES["scan_batched"] == before["scan_batched"] + 1
+    assert SK.LAUNCHES["scan_batched"] == before["scan_batched"] + len(cases)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_scan_unique_blocks_op_on_the_card_matches_the_cpu(card, dtype):
+    """``ops.scan_unique_blocks`` hands the -1 padding ids to #3 as they
+    are: on the card it equals its CPU result (the plain version), padding
+    rows exactly float32(3e38), in one launch."""
+    from repro_torch.kernels.posting_scan import ops
+
+    gen = torch.Generator().manual_seed(3)
+    blocks = _blocks(gen, 256, 32, 100, dtype, "cpu")
+    q = torch.randn(70, 100, generator=gen) * (64 if dtype == torch.int8 else 1)
+    ids = torch.full((200,), -1, dtype=torch.int32)
+    ids[:90] = torch.sort(torch.randperm(256, generator=gen)[:90]).values.to(torch.int32)
+    ids[40:45] = -1
+    before = SK.LAUNCHES["scan_batched"]
+    got = ops.scan_unique_blocks(q.to(card), ids.to(card), blocks.to(card))
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES["scan_batched"] == before + 1
+    want = ops.scan_unique_blocks(q, ids, blocks)
+    atol = 1e-2 if dtype == torch.int8 else 1e-4
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5, atol=atol)
+    pad = ids < 0
+    assert bool((got.cpu()[pad] == torch.tensor(BIG, dtype=torch.float32)).all())
 
 
 @pytest.mark.parametrize("bs,k", [(32, 32), (32, 10), (8, 8), (16, 1)])

@@ -362,6 +362,53 @@ def test_scan_batched_matches(rng, dtype, q_n, n_blocks, bs, d, nb):
         rtol=RTOL, atol=TOL)
 
 
+PADDING = {                                         # -1 rows of an 8-row id list
+    "start": [0, 1], "middle": [3, 4, 5], "end": [6, 7], "spread": [0, 4, 7],
+    "all": list(range(8)),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("where", sorted(PADDING))
+def test_scan_batched_padding_rows_are_big(rng, dtype, where):
+    """#3 takes -1 ids as padding and writes their rows as float32(3e38);
+    a real id's rows equal the reference's kernel on the clamped ids."""
+    n_blocks, bs, d, q_n = 24, 8, 36, 5
+    rblk, tblk, s = _payload(rng, (n_blocks, bs, d), dtype)
+    q = (rng.normal(size=(q_n, d)) / s).astype(np.float32)
+    ids = rng.choice(n_blocks, size=8, replace=False).astype(np.int32)
+    pad = np.zeros(8, bool)
+    pad[PADDING[where]] = True
+    ids[pad] = -1
+    got = TK.scan_batched(t(ids), t(q), tblk).numpy()
+    assert got.shape == (8, q_n, bs) and got.dtype == np.float32
+    assert (got[pad] == np.float32(BIG)).all() and (got[pad] >= BIG / 2).all()
+    want = np.asarray(RK.scan_batched(jnp.asarray(np.maximum(ids, 0)), jnp.asarray(q), rblk,
+                                      interpret=True))
+    np.testing.assert_allclose(got[~pad], want[~pad], rtol=RTOL, atol=TOL)
+    assert (got[~pad] < BIG / 2).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("where", ["start", "middle", "end", "spread"])
+def test_scan_unique_blocks_op_matches_with_padding(rng, dtype, where):
+    """The ops wrapper passes the -1 padding ids to #3 as they are and
+    still equals the reference's clamp-then-mask wrapper."""
+    n_blocks, bs, d, q_n = 16, 4, 12, 3
+    rblk, tblk, s = _payload(rng, (n_blocks, bs, d), dtype)
+    q = (rng.normal(size=(q_n, d)) / s).astype(np.float32)
+    ids = np.sort(rng.choice(n_blocks, size=8, replace=False)).astype(np.int32)
+    pad = np.zeros(8, bool)
+    pad[PADDING[where]] = True
+    ids[pad] = -1
+    rd = np.asarray(rops.scan_unique_blocks(jnp.asarray(q), jnp.asarray(ids), rblk,
+                                            interpret=True))
+    td = tops.scan_unique_blocks(t(q), t(ids), tblk).numpy()
+    np.testing.assert_array_equal(td >= BIG / 2, rd >= BIG / 2)
+    np.testing.assert_array_equal(td[pad], rd[pad])
+    np.testing.assert_allclose(td[~pad], rd[~pad], rtol=RTOL, atol=TOL)
+
+
 def test_scan_posting_blocks_and_unique_blocks_ops_match(rng):
     """The ops wrappers: block table from posting ids, absent pages and
     padding masked to BIG (tests/test_kernels_posting_scan.py:65,86)."""
