@@ -46,6 +46,22 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
    must launch in the drains), delete, ``maintain()`` (no backlog, no
    posting over ``split_limit``), and searches under both schedules with
    recall floors from the reference at the same N.
+   A fourth, ``serve``, takes over the update path's index and drives the
+   serving engine (``repro_torch.serve``): a cooperative phase of 64 steps
+   (a 128-query search, a 64-row insert, every 4th step a 64-vid delete;
+   the paper's 2:1 maintenance pipeline; the ``batched`` scan), whose
+   recorded dispatch stream must replay bit for bit on a clone, whose
+   ``engine.search`` must equal ``search_padded`` bit for bit, and whose
+   recall must reach the reference's after the same requests; one
+   ``search_begin`` per schedule under ``set_sync_debug_mode("error")``
+   that must return while the card still works; then an async phase (a
+   pump thread with deferred readback, the ``per_query`` scan) fed by 4
+   submitter threads of 200 operations: no ordering violation, no
+   resurrected delete, ANN misses at most 5%, a bit-identical replay, the
+   card's busy share from the profiler's trace.  A fifth, ``grouped``,
+   builds the two-level group index (512 groups of 256) on the final
+   state, holds full-gprobe navigation against #1's flat one, and
+   measures ``search_grouped``'s recall at gprobe 32.
    The launch counts are reset before each path and read after it, and
    every kernel of the path must have launched.
 4. Prints the ``kernels`` JSON line, the card's name and power limit, and
@@ -988,6 +1004,8 @@ PATH_KERNELS = {
     "fp32": ("l2_topk_tiles", "scan_per_query_topk", "scan_batched_topk"),
     "update": ("l2_topk_tiles", "scan_per_query_topk", "scan_batched_topk"),
     "int8": ("l2_topk_tiles", "scan_per_query_topk_q8", "scan_batched_topk_q8"),
+    "serve": ("l2_topk_tiles", "scan_batched_topk", "scan_per_query_topk"),
+    "grouped": ("scan_batched_topk",),
 }
 
 
@@ -1175,6 +1193,55 @@ UPDATE_INSERT_BATCHES = 1
 # minus RECALL_MARGIN.
 REFERENCE_RECALL_UPDATE_250K = {1: 0.417578125, 64: 0.9265625000000002}
 
+# The serve path's cooperative phase: SERVE_STEPS steps, each one search
+# ticket of SERVE_SEARCH_ROWS queries (cycling through the path's queries)
+# and one insert ticket (the rows the update path deleted, under fresh
+# vids), every SERVE_DELETE_EVERY-th step also a delete ticket of as many
+# live base vids; the engine runs the paper's 2:1 pipeline.
+SERVE_STEPS = 64
+SERVE_SEARCH_ROWS = 128
+SERVE_DELETE_EVERY = 4
+SERVE_ENGINE = dict(search_k=10, max_batch=1024, min_bucket=8, policy="ratio",
+                    fg_bg_ratio=2, maintain_budget=8, max_insert_retries=4)
+# The grouped path: two-level routing at the reference's geometry
+# (repro/configs/spfresh.py: 512 groups of 256, gprobe 32).
+GROUPED = dict(n_groups=512, capacity=256, gprobe=32)
+
+
+def serve_requests(np, seed, n, victims, queries, data, *, steps=SERVE_STEPS):
+    """The cooperative phase's requests after the update path (build from
+    ``n`` rows of ``data``, insert ``len(victims)`` rows under vids ``n..``,
+    delete base vids ``victims``).  Returns ``{"steps": [[(op, array,
+    vids)], ...], "ids": live vids after the phase, "rows": their vectors,
+    "inserted": vids, "deleted": vids}``; each step's tickets are submitted
+    in order.  The JAX reference runs the same requests
+    (``scripts/reference_recall.py``, cell ``serve``)."""
+    n_upd = len(victims)
+    per = n_upd // steps
+    rows_by_vid = np.concatenate([data[:n + n_upd], data[victims]])
+    ins_vids = np.arange(n + n_upd, n + n_upd + steps * per, dtype=np.int32)
+    alive = np.setdiff1d(np.arange(n), victims)
+    n_del = (steps // SERVE_DELETE_EVERY) * per
+    dels = np.random.default_rng(seed + 11).choice(alive, size=n_del, replace=False)
+    dels = dels.astype(np.int32)
+    out, d = [], 0
+    for i in range(steps):
+        q0 = (i * SERVE_SEARCH_ROWS) % len(queries)
+        step = [("search", queries[q0:q0 + SERVE_SEARCH_ROWS], None),
+                ("insert", rows_by_vid[ins_vids[i * per:(i + 1) * per]],
+                 ins_vids[i * per:(i + 1) * per])]
+        if i % SERVE_DELETE_EVERY == SERVE_DELETE_EVERY - 1:
+            step.append(("delete", None, dels[d:d + per]))
+            d += per
+        out.append(step)
+    keep = np.ones(len(rows_by_vid), bool)
+    keep[victims] = False
+    keep[dels] = False
+    keep[ins_vids[-1] + 1:] = False
+    ids = np.flatnonzero(keep)
+    return {"steps": out, "ids": ids, "rows": rows_by_vid[ids], "inserted": ins_vids,
+            "deleted": dels}
+
 
 def live_vids(torch, state):
     """The vids with a live replica (stored version current, not deleted)."""
@@ -1215,7 +1282,7 @@ def round_launches(torch, fn, card: bool):
 
 
 def update_path(torch, np, seed, report, *, cfg=None, device="cuda", n=None,
-                n_insert=None, floors=None):
+                n_insert=None, floors=None, carry=None):
     """The maintenance round's main path through ``SPFreshIndex``, on the
     reference's generator (``make_spacev_like`` in byte values): build from
     ``n`` vectors (most postings come out over ``split_limit``, filled by
@@ -1224,7 +1291,9 @@ def update_path(torch, np, seed, report, *, cfg=None, device="cuda", n=None,
     backpressure drains), delete as many base rows, ``maintain()``, and
     search under both schedules.  The default floors hold for the default
     ``n`` only.  ``cfg``, ``n``, ``n_insert``, ``floors`` ({nprobe: recall
-    floor}) and ``device="cpu"`` rehearse it without a card."""
+    floor}) and ``device="cpu"`` rehearse it without a card.  A ``carry``
+    dict receives the index, its data, the deleted vids and the queries,
+    for the serve path to take over."""
     from repro_torch.configs.spfresh import SEARCH_Q, UPDATE_B
     from repro_torch.core import lire
     from repro_torch.core.index import SPFreshIndex
@@ -1356,7 +1425,428 @@ def update_path(torch, np, seed, report, *, cfg=None, device="cuda", n=None,
                   maintain_jobs=jobs, maintain_rounds=idx.last_drain_rounds, maintain_s=maint_s,
                   recall_at_10=recall, recall_floor=floor, insert_self_top10=self_frac,
                   stats=st)
+    if carry is not None:
+        carry.update(idx=idx, data=data, victims=victims, queries=queries, n=n)
     return drains, ms_round
+
+
+# ---------------------------------------------------------------------------
+# the serve path: the engine over the update path's index, and the grouped
+# search
+# ---------------------------------------------------------------------------
+
+# Recall@10 of the JAX reference on the CPU after the update path and the
+# cooperative phase's requests through its ServeEngine, then drain(), by
+# nprobe, and of its search_grouped at GROUPED's geometry
+# (scripts/reference_recall.py, cell "serve"); the port must reach each
+# minus RECALL_MARGIN.
+REFERENCE_RECALL_SERVE_250K = {1: 0.4193359375, 64: 0.92646484375, "grouped": 0.9265625000000001}
+# the async phase: submitter threads, operations each, rows per request
+ASYNC_THREADS = 4
+ASYNC_OPS = 200
+ASYNC_ROWS = 64
+ASYNC_MISS_LIMIT = 0.05
+JOIN_S = 600
+
+
+def submit_step(engine, step):
+    """Submit one step's tickets in order, then wait for each."""
+    tickets = []
+    for op, arr, vids in step:
+        if op == "search":
+            tickets.append(engine.submit_search(arr))
+        elif op == "insert":
+            tickets.append(engine.submit_insert(arr, vids))
+        else:
+            tickets.append(engine.submit_delete(vids))
+    return [t.result(timeout=JOIN_S) for t in tickets]
+
+
+def async_clients(np, engine, vecs_for, n_threads, ops_each, *, vid0, stride, max_rows,
+                  pool, k=10, nprobe=None, seed=100):
+    """Drive ``engine`` from ``n_threads`` submitter threads of ``ops_each``
+    operations, each thread from its own seed: 50% searches of 1 to
+    ``max_rows`` queries (the thread's own live vectors, its last deleted
+    ones, the rest from ``pool``), 30% inserts of 1 to ``max_rows`` rows
+    (``vecs_for(rng, m)``, fresh vids from ``vid0 + stride * thread``), 20%
+    deletes of its own live vids.  Every ticket is awaited.
+
+    A search ticket carries the backend's applied dispatch seqno when it
+    was dispatched, an update ticket the seqno once it ran.  An own live
+    vector whose vid is not in its search's top-``k`` is an ordering
+    violation when the search was dispatched before the insert (its
+    submitter had awaited the insert before it submitted the search), and
+    an ANN miss otherwise; a deleted vid in a search dispatched after the
+    delete is a resurrection.  Returns ``(tally, live, dead)``: the counts,
+    and per thread ``{vid: vector}`` of the rows alive and deleted."""
+    import threading
+
+    tally = {"violations": 0, "resurrected": 0, "misses": 0, "checks": 0, "ops": 0}
+    lock = threading.Lock()
+    errors = []
+    live_sets = [{} for _ in range(n_threads)]
+    dead_sets = [{} for _ in range(n_threads)]
+
+    def worker(tid):
+        trng = np.random.default_rng(seed + tid)
+        vid = vid0 + stride * tid
+        live, dead = live_sets[tid], dead_sets[tid]      # vid -> (vector, seqno)
+        try:
+            for _ in range(ops_each):
+                op = trng.integers(0, 10)
+                m = int(trng.integers(1, max_rows + 1))
+                if op < 3 or not live:
+                    ids = np.arange(vid, vid + m, dtype=np.int32)
+                    vecs = vecs_for(trng, m)
+                    tk = engine.submit_insert(vecs, ids)
+                    _, landed = tk.result(timeout=JOIN_S)
+                    if not landed.all():
+                        raise AssertionError(f"thread {tid}: an insert was dropped")
+                    for j in range(m):
+                        live[int(ids[j])] = (vecs[j], tk.seqno)
+                    vid += m
+                elif op < 8:
+                    own = sorted(live)
+                    picks = [int(p) for p in trng.choice(own, size=min(len(own), m),
+                                                         replace=False)]
+                    gone = sorted(dead)[-min(4, m - len(picks)):] if m > len(picks) else []
+                    rest = m - len(picks) - len(gone)
+                    q = np.concatenate(
+                        [np.stack([live[p][0] for p in picks] + [dead[g][0] for g in gone]),
+                         pool[trng.integers(0, len(pool), rest)]]).astype(np.float32)
+                    tk = engine.submit_search(q, k=k, nprobe=nprobe)
+                    _, hit = tk.result(timeout=JOIN_S)
+                    with lock:
+                        for row, p in enumerate(picks):
+                            tally["checks"] += 1
+                            if p in hit[row].tolist():
+                                continue
+                            key = "violations" if tk.seqno < live[p][1] else "misses"
+                            tally[key] += 1
+                        for row, g in enumerate(gone, start=len(picks)):
+                            if tk.seqno >= dead[g][1] and g in hit[row].tolist():
+                                tally["resurrected"] += 1
+                else:
+                    own = sorted(live)
+                    picks = trng.choice(own, size=min(len(own), m), replace=False)
+                    tk = engine.submit_delete(picks.astype(np.int32))
+                    tk.result(timeout=JOIN_S)
+                    for p in picks:
+                        dead[int(p)] = (live.pop(int(p))[0], tk.seqno)
+                with lock:
+                    tally["ops"] += 1
+        except BaseException as e:  # noqa: BLE001 — raised in the caller
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(t,), daemon=True)
+               for t in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=JOIN_S)
+    hung = [t.name for t in threads if t.is_alive()]
+    check(not hung, f"submitter threads outlived their join timeout: {hung}")
+    if errors:
+        raise errors[0]
+    check(tally["ops"] == n_threads * ops_each, f"only {tally['ops']} operations ran")
+    live = {v: x for s in live_sets for v, (x, _) in s.items()}
+    dead = {v: x for s in dead_sets for v, (x, _) in s.items()}
+    return tally, live, dead
+
+
+def device_busy(torch, np, fn, card: bool):
+    """``(fn(), device busy ms, wall ms, device activities)``: the union of
+    the card's activity intervals (kernels, copies) in the profiler's trace
+    over ``fn``, read from the raw trace (building the profiler's event
+    tables for ~10^5 kernels would take minutes).  None without a card."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CUDA]) if card else contextlib.nullcontext()
+    with prof:
+        out, wall_s = timed(torch, fn)
+    if not card:
+        return out, None, wall_s * 1e3, None
+    spans = np.array([(e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                      if str(e.device_type()).endswith("CUDA")], np.int64).reshape(-1, 2)
+    spans = spans[np.argsort(spans[:, 0], kind="stable")]
+    reach = np.maximum.accumulate(spans[:, 1])
+    starts = np.concatenate([[True], spans[1:, 0] > reach[:-1]])   # a new busy run
+    run_id = np.cumsum(starts) - 1
+    run_end = np.zeros(int(starts.sum()), np.int64)
+    np.maximum.at(run_end, run_id, spans[:, 1])
+    busy_ns = int((run_end - spans[starts, 0]).sum())
+    return out, busy_ns / 1e6, wall_s * 1e3, len(spans)
+
+
+def same_leaves(torch, a, b, what):
+    from repro_torch.utils.tree import tensor_leaves
+
+    ta, tb = tensor_leaves(a), tensor_leaves(b)
+    bad = [name for name in ta if not torch.equal(ta[name], tb[name])]
+    check(not bad, f"{what}: replay differs in {bad}")
+
+
+def dispatch_is_deferred(torch, np, idx, queries, k, nprobe):
+    """Per schedule: one ``search_begin`` under ``set_sync_debug_mode
+    ("error")`` (a host sync raises) behind a ~0.2 s device sleep, which
+    must still be running when it returns; its readback must equal the
+    blocking search.  Returns the host ms of each dispatch."""
+    from repro_torch.serve import LocalBackend
+
+    out = {}
+    valid = np.ones(len(queries), bool)
+    for sched in ("batched", "per_query"):
+        be = LocalBackend(idx, use_pallas_scan=True, scan_schedule=sched)
+        want = idx.search_padded(queries, k, nprobe=nprobe, use_pallas_scan=True,
+                                 scan_schedule=sched)
+        be.search(queries, k, nprobe, valid)        # the pinned buffers are cached now
+        torch.cuda.synchronize()
+        torch.cuda._sleep(400_000_000)
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fin = be.search_begin(queries, k, nprobe, valid)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        out[sched] = (time.perf_counter() - t0) * 1e3
+        pending = not torch.cuda.current_stream().query()
+        check(pending, f"{sched}: the device finished before search_begin returned")
+        d, v = fin()
+        check(bool(np.array_equal(d, want[0]) and np.array_equal(v, want[1])),
+              f"{sched}: the deferred readback differs from the blocking search")
+    return out
+
+
+def serve_path(torch, np, seed, report, carry, *, device="cuda", steps=SERVE_STEPS,
+               threads=ASYNC_THREADS, ops_each=ASYNC_OPS, async_rows=ASYNC_ROWS,
+               floors=None):
+    """The serving engine over the update path's index (``carry``, after
+    its ``maintain()`` and searches).
+
+    Cooperative phase: ``serve_requests`` through ``ServeEngine`` (the
+    paper's 2:1 pipeline, the configured ``batched`` scan), ``drain()``;
+    the recorded dispatch stream replayed on a clone of the starting state
+    must be bit-identical, ``engine.search`` must equal ``search_padded``
+    bit for bit, recall at nprobe 64 and 1 must reach ``floors`` (the
+    reference's after the same requests), no deleted vid may be returned,
+    the inserted rows must find themselves, and the counters must add up.
+    Async phase: a pump thread (``per_query`` scan, deferred readback,
+    ``lock_check``) fed by ``threads`` submitter threads
+    (:func:`async_clients`): no ordering violation, no resurrection, ANN
+    misses at most ``ASYNC_MISS_LIMIT``, the stream replays bit-identically
+    again.  Returns the live ``(vids, rows)`` for the grouped path."""
+    from repro_torch.core.index import SPFreshIndex
+    from repro_torch.serve import EngineConfig, LocalBackend, ServeEngine
+    from repro_torch.storage.durability import RecordingSink
+    from repro_torch.utils.tree import clone_state
+
+    idx, data, victims, queries, n = (carry[key] for key in
+                                      ("idx", "data", "victims", "queries", "n"))
+    cfg = idx.state.cfg
+    k, nprobe = SERVE_ENGINE["search_k"], cfg.nprobe
+    if floors is None:
+        floors = {1: REFERENCE_RECALL_SERVE_250K[1] - RECALL_MARGIN,
+                  nprobe: REFERENCE_RECALL_SERVE_250K[64] - RECALL_MARGIN}
+    reqs = serve_requests(np, seed, n, victims, queries, data, steps=steps)
+    n_rows = len(reqs["inserted"])
+    stages, mark = {}, [time.perf_counter()]
+
+    def lap(name):
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        stages[name] = now - mark[0]
+        mark[0] = now
+
+    # ---- cooperative phase
+    engine = ServeEngine(idx, EngineConfig(nprobe=nprobe, **SERVE_ENGINE))
+    st0 = idx.stats()
+    before = clone_state(idx.state)
+    sink = RecordingSink()
+    engine.backend.attach_replication(sink)
+    lap("setup")
+    _, coop_s = timed(torch, lambda: [submit_step(engine, st) for st in reqs["steps"]])
+    jobs, drain_s = timed(torch, engine.drain)
+    rep = engine.report()
+    st = idx.stats()
+    check(rep["backlog"] == 0, f"[serve] backlog {rep['backlog']} after drain()")
+    check(rep["insert_dropped"] == 0, f"[serve] {rep['insert_dropped']} insert rows dropped")
+    sent = sum(int(r.payload["valid"].sum()) for r in sink.records if r.op == "insert")
+    check(st["n_inserts"] - st0["n_inserts"] == sent and sent >= n_rows,
+          f"[serve] n_inserts grew by {st['n_inserts'] - st0['n_inserts']}, {n_rows} rows "
+          f"sent and {sent - n_rows} retried")
+    check(st["n_deletes"] - st0["n_deletes"] == len(reqs["deleted"]),
+          "[serve] n_deletes does not match the deletes sent")
+    lap("cooperative")
+    twin = LocalBackend(SPFreshIndex(before), track_access=False)
+    _, replay_s = timed(torch, lambda: twin.replay(sink.records))
+    same_leaves(torch, twin.index.state, idx.state, "[serve] cooperative phase")
+    del twin, before
+    ops = {op: sum(r.op == op for r in sink.records)
+           for op in ("insert", "delete", "maintain", "drain")}
+    log(f"[serve] cooperative: {steps} steps ({steps * SERVE_SEARCH_ROWS} queries, {n_rows} "
+        f"inserted rows, {len(reqs['deleted'])} deletes) in {coop_s:.2f} s, drain() {jobs} jobs "
+        f"in {drain_s:.2f} s; {len(sink.records)} dispatches logged {ops}; replay on a clone of "
+        f"the starting state ({replay_s:.2f} s) is bit-identical")
+
+    lap("cooperative_replay")
+    q_all = queries[:SERVE_ENGINE["max_batch"]]
+    d_e, v_e = engine.search(q_all)
+    d_i, v_i = idx.search_padded(q_all, k, nprobe=nprobe)
+    check(bool(np.array_equal(d_e, d_i) and np.array_equal(v_e, v_i)),
+          "[serve] engine.search differs from search_padded")
+    live_t = torch.as_tensor(reqs["rows"], device=device)
+    gone = set(victims.tolist()) | set(reqs["deleted"].tolist())
+    recall = {}
+    for probes in (nprobe, 1):
+        _, v = engine.search(queries, nprobe=probes)
+        check(not gone & set(v.reshape(-1).tolist()), "[serve] a deleted vid was returned")
+        recall[probes] = recall_at_10(torch, live_t, queries, v, reqs["ids"])
+    log(f"[serve] engine.search equals search_padded bit for bit; recall@10 by nprobe "
+        f"{recall}, floors {floors}")
+    for probes, r in recall.items():
+        check(r >= floors[probes], f"[serve] recall@10 {r} at nprobe {probes} below "
+              f"{floors[probes]}")
+    rows_by_vid = np.concatenate([data, data[victims]])
+    found = 0
+    for s in range(0, n_rows, len(q_all)):
+        vids = reqs["inserted"][s:s + len(q_all)]
+        _, v = engine.search(rows_by_vid[vids])
+        found += int((v == vids[:, None]).any(axis=1).sum())
+    self_frac = found / n_rows
+    check(self_frac >= 0.95, f"[serve] only {self_frac} of the inserted rows find themselves")
+    coop = dict(seconds=coop_s, drain_s=drain_s, drain_jobs=jobs, replay_s=replay_s,
+                dispatches=ops, rows_sent=n_rows, rows_retried=sent - n_rows,
+                recall_at_10=recall, recall_floor=floors, insert_self_top10=self_frac,
+                report=rep, queries_per_s=steps * SERVE_SEARCH_ROWS / coop_s,
+                insert_rows_per_s=n_rows / coop_s)
+    lap("cooperative_checks")
+    if device == "cuda":
+        coop["search_begin_host_ms"] = dispatch_is_deferred(torch, np, idx, q_all, k, nprobe)
+        log(f"[serve] search_begin under set_sync_debug_mode('error') returns while the "
+            f"card still works, host ms {coop['search_begin_host_ms']}; its readback equals "
+            "the blocking search")
+
+    lap("deferred_check")
+    # ---- async phase
+    acfg = EngineConfig(nprobe=nprobe, async_serve=True, max_wait_ms=1.0, max_inflight=2,
+                        lock_check=True, scan_schedule="per_query", **SERVE_ENGINE)
+    engine = ServeEngine(idx, acfg)
+    st0 = idx.stats()
+    before = clone_state(idx.state)
+    sink = RecordingSink()
+    engine.backend.attach_replication(sink)
+    base_rows = data[:n]
+
+    def vecs_for(trng, m):
+        rows = base_rows[trng.integers(0, n, m)] + trng.integers(-3, 4, (m, base_rows.shape[1]))
+        return np.clip(rows, -127, 127).astype(np.float32)
+
+    def clients():
+        return async_clients(np, engine, vecs_for, threads, ops_each,
+                             vid0=int(reqs["inserted"][-1]) + 1, stride=ops_each * async_rows,
+                             max_rows=async_rows, pool=queries, k=k, seed=seed + 100)
+
+    try:
+        (tally, live, dead), busy_ms, wall_ms, n_act = device_busy(torch, np, clients,
+                                                                   device == "cuda")
+        engine.pump()
+        check(engine._pump_error is None, "[serve] the pump thread died")
+        arep = engine.report()
+    finally:
+        engine.shutdown(timeout=JOIN_S)
+    lap("async")
+    st = idx.stats()
+    sent = sum(int(r.payload["valid"].sum()) for r in sink.records if r.op == "insert")
+    n_ins = len(live) + len(dead)
+    check(tally["violations"] == 0, f"[serve] {tally['violations']} ordering violations")
+    check(tally["resurrected"] == 0, f"[serve] {tally['resurrected']} deleted vids returned")
+    check(tally["misses"] <= ASYNC_MISS_LIMIT * tally["checks"],
+          f"[serve] {tally['misses']} ANN misses in {tally['checks']} checks")
+    check(arep["insert_dropped"] == 0, "[serve] async insert rows dropped")
+    check(st["n_inserts"] - st0["n_inserts"] == sent and sent >= n_ins,
+          "[serve] async n_inserts is not the rows sent plus retried")
+    check(st["n_deletes"] - st0["n_deletes"] == len(dead), "[serve] async n_deletes differs")
+    twin = LocalBackend(SPFreshIndex(before), track_access=False)
+    twin.replay(sink.records)
+    same_leaves(torch, twin.index.state, idx.state, "[serve] async phase")
+    del twin, before
+    gone_t = np.asarray(sorted(dead), np.int64)
+    if gone_t.size:
+        _, v = ServeEngine(idx, EngineConfig(nprobe=nprobe, **SERVE_ENGINE)).search(
+            np.stack([dead[int(g)] for g in gone_t]))
+        check(not set(gone_t.tolist()) & set(v.reshape(-1).tolist()),
+              "[serve] a vid deleted in the async phase came back")
+    lap("async_replay_and_checks")
+    busy = None if busy_ms is None else busy_ms / wall_ms
+    log(f"[serve] async: {threads} threads x {ops_each} ops in {wall_ms / 1e3:.2f} s; "
+        f"{tally['checks']} visibility checks: {tally['violations']} ordering violations, "
+        f"{tally['misses']} ANN misses, {tally['resurrected']} resurrections; {len(dead)} "
+        f"deletes stay gone; replay bit-identical; card busy {busy} of the phase ({n_act} "
+        f"activities in the profiler's trace); "
+        f"stage seconds {({k: round(v, 2) for k, v in stages.items()})}")
+    report.update(cooperative=coop, async_phase=dict(
+        seconds=wall_ms / 1e3, tally=tally, report=arep, device_busy_ms=busy_ms,
+        device_activities=n_act,
+        device_busy_share=busy, rows_inserted=n_ins, rows_deleted=len(dead),
+        dispatches=len(sink.records)), stage_s=stages)
+    ids = np.concatenate([reqs["ids"], np.asarray(sorted(live), np.int64)])
+    rows = np.concatenate([reqs["rows"]] + ([np.stack([live[v] for v in sorted(live)])]
+                                            if live else []))
+    return ids, rows
+
+
+def grouped_path(torch, np, seed, report, carry, ids, rows, *, device="cuda",
+                 grouped=GROUPED, floor=None):
+    """Two-level routing on the serve path's final state: a group index of
+    ``grouped``'s geometry; ``navigate_grouped`` over every group against
+    the flat ``navigate`` (#1) on 64 queries (distances within 1e-4
+    relative, probe overlap > 0.9, the reference test's criteria); then
+    ``search_grouped`` at ``gprobe`` on the path's queries, recall@10 at
+    least ``floor``."""
+    from repro_torch.core import grouping, lire
+    from repro_torch.kernels.l2_topk import kernel as LK
+
+    idx, queries = carry["idx"], carry["queries"]
+    state, nprobe, k = idx.state, idx.state.cfg.nprobe, 10
+    if floor is None:
+        floor = REFERENCE_RECALL_SERVE_250K["grouped"] - RECALL_MARGIN
+    gidx, build_s = timed(torch, lambda: grouping.build_group_index(
+        state, n_groups=grouped["n_groups"], capacity=grouped["capacity"], seed=seed))
+    q64 = torch.as_tensor(queries[:64], device=device)
+    saved = dict(LK.LAUNCHES)
+    d0, p0 = lire.navigate(state, q64, nprobe)
+    LK.LAUNCHES.update(saved)
+    (d1, p1), full_s = timed(torch, lambda: grouping.navigate_grouped(
+        state, gidx, q64, nprobe=nprobe, gprobe=grouped["n_groups"]))
+    # navigate expands ||q||^2 - 2 q.c + ||c||^2 in f32, level 2 takes
+    # diff²: the reference test's 1e-4 relative and 1e-4 absolute at unit
+    # scale (||q||^2 ~ 16), with the absolute part scaled by ||q||^2
+    qsq = torch.sum(q64 * q64, dim=1, keepdim=True)
+    live = p0 >= 0
+    excess = ((d1 - d0).abs() - 1e-4 * d0.abs() - 1e-5 * qsq)[live]
+    err = ((d1 - d0).abs() / d0.abs().clamp(min=1e-6))[live].max().item()
+    check(bool((excess <= 0).all()), f"[grouped] full-gprobe distances differ from navigate "
+          f"by more than 1e-4 |d| + 1e-5 ||q||^2 (max rel err {err})")
+    ov = overlap(p0.cpu().numpy(), p1.cpu().numpy())
+    check(ov > 0.9, f"[grouped] full-gprobe probes overlap navigate by {ov}")
+    q_t = torch.as_tensor(queries, device=device)
+    (_, v), search_s = timed(torch, lambda: grouping.search_grouped(
+        state, gidx, q_t, k=k, nprobe=nprobe, gprobe=grouped["gprobe"]))
+    recall = recall_at_10(torch, torch.as_tensor(rows, device=device), queries,
+                          v.cpu().numpy(), ids)
+    log(f"[grouped] group index {grouped['n_groups']} x {grouped['capacity']} built in "
+        f"{build_s:.2f} s; gprobe={grouped['n_groups']} vs navigate on 64 queries: within "
+        f"1e-4 |d| + 1e-5 ||q||^2 (max rel err {err:.3g}), overlap {ov:.4f} ({full_s * 1e3:.1f} ms); search_grouped at gprobe "
+        f"{grouped['gprobe']} on {len(queries)} queries in {search_s * 1e3:.1f} ms: recall@10 "
+        f"{recall} (floor {floor})")
+    check(recall >= floor, f"[grouped] recall@10 {recall} below {floor}")
+    report.update(build_s=build_s, full_gprobe_rel_err=err, full_gprobe_overlap=ov,
+                  search_ms=search_s * 1e3, recall_at_10=recall, recall_floor=floor,
+                  geometry=grouped)
+    return recall
 
 
 def main() -> int:
@@ -1417,36 +1907,74 @@ def main() -> int:
 
     counters = (LK.LAUNCHES, SK.LAUNCHES)
     launches = {name: 0 for c in counters for name in c}
-    for cell in CELLS:
+
+    def reset():
         for c in counters:
             for key in c:
                 c[key] = 0
-        report[cell] = {}
-        p50, ins_rate, del_rate = main_path(torch, np, args.seed, report[cell], cell=cell)
+
+    def launched(path):
         got = {**LK.LAUNCHES, **SK.LAUNCHES}
-        for name in PATH_KERNELS[cell]:
-            check(got[name] > 0, f"kernel {name} was not launched on the {cell} main path")
+        for name in PATH_KERNELS[path]:
+            check(got[name] > 0, f"kernel {name} was not launched on the {path} main path")
         for name, n in got.items():
             launches[name] += n
-        report[cell]["launches"] = got
+        report[path]["launches"] = got
+        return got
+
+    for cell in CELLS:
+        reset()
+        report[cell] = {}
+        t0 = time.perf_counter()
+        p50, ins_rate, del_rate = main_path(torch, np, args.seed, report[cell], cell=cell)
+        report[cell]["seconds"] = time.perf_counter() - t0
+        got = launched(cell)
         log(f"[{cell}] search p50 ms at Q={SEARCH_Q}: {p50}; insert rows/s {ins_rate:.0f}; "
             f"delete rows/s {del_rate:.0f} ({card})")
-        log(f"[{cell}] launches on the main path: {got}")
+        log(f"[{cell}] launches on the main path: {got}; {report[cell]['seconds']:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
-    for c in counters:
-        for key in c:
-            c[key] = 0
+
+    reset()
     report["update"] = {}
-    drains, ms_round = update_path(torch, np, args.seed, report["update"])
-    got = {**LK.LAUNCHES, **SK.LAUNCHES}
-    for name in PATH_KERNELS["update"]:
-        check(got[name] > 0, f"kernel {name} was not launched on the update main path")
-    for name, n in got.items():
-        launches[name] += n
-    report["update"]["launches"] = got
+    carry = {}
+    t0 = time.perf_counter()
+    drains, ms_round = update_path(torch, np, args.seed, report["update"], carry=carry)
+    report["update"]["seconds"] = time.perf_counter() - t0
+    got = launched("update")
     log(f"[update] {drains['rounds']} drain rounds at {ms_round:.2f} ms; launches on the "
-        f"main path: {got}, #1 in the drains {drains['l2_topk_launches']} ({card})")
+        f"main path: {got}, #1 in the drains {drains['l2_topk_launches']}; "
+        f"{report['update']['seconds']:.1f} s ({card})")
+
+    reset()
+    report["serve"] = {}
+    t0 = time.perf_counter()
+    ids, rows = serve_path(torch, np, args.seed, report["serve"], carry)
+    report["serve"]["seconds"] = time.perf_counter() - t0
+    got = launched("serve")
+    for phase in ("cooperative", "async_phase"):
+        r = report["serve"][phase]["report"]
+        m = r["maintenance"]
+        log(f"[serve] {phase}: search ticket p50/p99 {r['search'].get('p50_ms')}/"
+            f"{r['search'].get('p99_ms')} ms, insert ticket p50/p99 {r['insert'].get('p50_ms')}/"
+            f"{r['insert'].get('p99_ms')} ms; maintenance slots {m['slots']} (idle "
+            f"{m['idle_slots']}, deferred {m['deferred']}, forced {m['forced']}) in "
+            f"{m['time_s']:.3f} s; insert_stall_s {r['insert_stall_s']:.3f}; queue padding "
+            f"waste {r['queue']['padding_waste_frac']:.4f} ({card})")
+    coop = report["serve"]["cooperative"]
+    log(f"[serve] cooperative {coop['queries_per_s']:.0f} queries/s and "
+        f"{coop['insert_rows_per_s']:.0f} insert rows/s; card busy "
+        f"{report['serve']['async_phase']['device_busy_share']} of the async phase; launches "
+        f"on the path: {got}; {report['serve']['seconds']:.1f} s ({card})")
+
+    reset()
+    report["grouped"] = {}
+    t0 = time.perf_counter()
+    grouped_path(torch, np, args.seed, report["grouped"], carry, ids, rows)
+    report["grouped"]["seconds"] = time.perf_counter() - t0
+    got = launched("grouped")
+    log(f"[grouped] launches on the path: {got}; {report['grouped']['seconds']:.1f} s ({card})")
+    del carry
     for name, n in launches.items():
         results[name]["launches"] = n
     for name in ("l2_topk_tiles", "scan_batched", "scan_batched_topk", "scan_batched_topk_q8"):

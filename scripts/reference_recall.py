@@ -14,7 +14,14 @@ unchanged), once per cell of the smoke:
   capacity (the insert drains the Local Rebuilder and retries), delete
   4,096 base rows, ``maintain()``, then search; ground truth over the
   live rows.  Recall on this generator falls as N grows, so its floor is
-  taken at the smoke's N (about 15 minutes on 8 CPU cores).
+  taken at the smoke's N (about 15 minutes on 8 CPU cores);
+* ``serve`` continues ``update`` with the chip smoke's cooperative serve
+  phase (``chip_smoke.serve_requests``: 64 steps of a 128-query search, a
+  64-row insert and every 4th step a 64-vid delete) through the
+  reference's ``ServeEngine`` under the smoke's ``EngineConfig``, then
+  ``engine.drain()``; ground truth over the live rows.  It also builds
+  the two-level group index (512 groups of 256) and measures
+  ``search_grouped`` at gprobe 32.
 
 Each searches 1,024 queries from ``make_queries`` with k=10 through the
 gather oracle at nprobe=1 and at the config's nprobe=64 and prints
@@ -29,13 +36,18 @@ import argparse
 import dataclasses
 import gc
 import json
+import sys
+from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 
 from repro.configs.spfresh import CONFIG
 from repro.core import clustering
+from repro.core.grouping import build_group_index, search_grouped
 from repro.core.index import SPFreshIndex
+from repro.serve.engine import EngineConfig, ServeEngine
 from repro_torch.data.vectors import make_queries, make_spacev_int8, make_spacev_like_bytes
 
 N = 20_000
@@ -43,22 +55,30 @@ UPDATE_N = 250_000
 UPDATE_INSERT = 4096
 QUERIES = 1024
 NPROBES = (1, CONFIG.nprobe)
-CELLS = {"fp32": {}, "int8": {"codec": "int8", "rerank_factor": 4}, "update": {}}
+CELLS = {"fp32": {}, "int8": {"codec": "int8", "rerank_factor": 4}, "update": {},
+         "serve": {}}
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (the serve phase's requests)
+
+
+def ground_truth(queries, rows, ids):
+    """Exact top-10 vids of each query over ``rows`` (vids ``ids``)."""
+    q64, b64 = queries.astype(np.float64), rows.astype(np.float64)
+    d = (q64 * q64).sum(1)[:, None] - 2 * q64 @ b64.T + (b64 * b64).sum(1)[None]
+    return ids[np.argsort(d, axis=1)[:, :10]]
+
+
+def recall_of(gt, got):
+    return float(np.mean([len(set(a) & set(b)) / 10 for a, b in zip(gt.tolist(), got.tolist())]))
 
 
 def recall_at_10(idx, queries, rows, ids, nprobe):
     """Recall@10 of ``idx`` against brute force over ``rows`` (vids ``ids``)."""
-    q64, b64 = queries.astype(np.float64), rows.astype(np.float64)
-    d = (q64 * q64).sum(1)[:, None] - 2 * q64 @ b64.T + (b64 * b64).sum(1)[None]
-    gt = ids[np.argsort(d, axis=1)[:, :10]]
     _, got = idx.search(queries, 10, nprobe=nprobe)
-    return float(np.mean([len(set(a) & set(b)) / 10 for a, b in zip(gt.tolist(), got.tolist())]))
+    return recall_of(ground_truth(queries, rows, ids), got)
 
 
-def update_sequence(cfg, n: int, n_insert: int, seed: int, queries_n: int = QUERIES):
-    """The chip smoke's update path on the reference: returns ``(index,
-    queries, live rows, their vids)`` after build, insert, delete and
-    maintain."""
+def _update_run(cfg, n, n_insert, seed, queries_n):
     data = make_spacev_like_bytes(n + n_insert, cfg.dim, seed=seed)
     base = data[:n]
     queries = make_queries(base, queries_n, seed=seed)
@@ -67,10 +87,44 @@ def update_sequence(cfg, n: int, n_insert: int, seed: int, queries_n: int = QUER
     victims = np.random.default_rng(seed + 7).choice(n, size=n_insert, replace=False)
     idx.delete(victims.astype(np.int32))
     idx.maintain()
+    return idx, queries, data, victims
+
+
+def update_sequence(cfg, n: int, n_insert: int, seed: int, queries_n: int = QUERIES):
+    """The chip smoke's update path on the reference: returns ``(index,
+    queries, live rows, their vids)`` after build, insert, delete and
+    maintain."""
+    idx, queries, data, victims = _update_run(cfg, n, n_insert, seed, queries_n)
     keep = np.ones(n + n_insert, bool)
     keep[victims] = False
     ids = np.flatnonzero(keep)
     return idx, queries, data[ids], ids
+
+
+def serve_sequence(cfg, n: int, n_insert: int, seed: int, queries_n: int = QUERIES,
+                   steps: int = chip_smoke.SERVE_STEPS):
+    """``update_sequence``, then the chip smoke's cooperative serve phase
+    through the reference's ``ServeEngine`` and ``engine.drain()``:
+    returns ``(index, queries, live rows, their vids, engine report)``."""
+    idx, queries, data, victims = _update_run(cfg, n, n_insert, seed, queries_n)
+    engine = ServeEngine(idx, EngineConfig(nprobe=cfg.nprobe, **chip_smoke.SERVE_ENGINE))
+    reqs = chip_smoke.serve_requests(np, seed, n, victims, queries, data, steps=steps)
+    for step in reqs["steps"]:
+        chip_smoke.submit_step(engine, step)
+    engine.drain()
+    return idx, queries, reqs["rows"], reqs["ids"], engine.report()
+
+
+def grouped_recall(idx, queries, rows, ids, *, n_groups, capacity, gprobe, chunk=128):
+    """Recall@10 of ``search_grouped`` at ``gprobe`` over a fresh group
+    index (queries in chunks: level 2 gathers ``(Q, gprobe*capacity, d)``)."""
+    gidx = build_group_index(idx.state, n_groups=n_groups, capacity=capacity)
+    got = []
+    for s in range(0, len(queries), chunk):
+        _, v = search_grouped(idx.state, gidx, jnp.asarray(queries[s:s + chunk]), k=10,
+                              gprobe=gprobe)
+        got.append(np.asarray(v))
+    return recall_of(ground_truth(queries, rows, ids), np.concatenate(got))
 
 
 def _bounded_compiles(kmeans, every: int = 50):
@@ -97,13 +151,19 @@ def main() -> None:
     args = ap.parse_args()
     clustering.balanced_kmeans = _bounded_compiles(clustering.balanced_kmeans)
     for cell in args.cells.split(","):
-        n = UPDATE_N if cell == "update" else N
+        n = UPDATE_N if cell in ("update", "serve") else N
         cfg = dataclasses.replace(
             CONFIG, num_blocks=max(8192, n // 4),
             num_postings_cap=max(2048, n // 16), num_vectors_cap=2 * n, **CELLS[cell],
         )
+        extra = {}
         if cell == "update":
             idx, queries, rows, ids = update_sequence(cfg, n, UPDATE_INSERT, args.seed)
+        elif cell == "serve":
+            idx, queries, rows, ids, rep = serve_sequence(cfg, n, UPDATE_INSERT, args.seed)
+            g = dict(chip_smoke.GROUPED)
+            extra = {"grouped_recall_at_10": grouped_recall(idx, queries, rows, ids, **g),
+                     "grouped": g, "engine_report": rep}
         else:
             rows = make_spacev_int8(N, CONFIG.dim, seed=args.seed)
             queries = make_queries(rows, QUERIES, seed=args.seed)
@@ -111,7 +171,8 @@ def main() -> None:
             idx = SPFreshIndex.build(cfg, rows, seed=args.seed)
         recall = {nprobe: recall_at_10(idx, queries, rows, ids, nprobe) for nprobe in NPROBES}
         print(json.dumps({"cell": cell, "n": n, "queries": QUERIES, "seed": args.seed,
-                          "recall_at_10_by_nprobe": recall, "stats": idx.stats()}))
+                          "recall_at_10_by_nprobe": recall, **extra, "stats": idx.stats()},
+                         default=str))
 
 
 if __name__ == "__main__":

@@ -68,3 +68,22 @@ def state_to_numpy(state: IndexState) -> dict[str, np.ndarray]:
         else:
             out[name] = t.numpy()
     return out
+
+
+_GROUP_LEAVES = ("group_centroids", "group_sqn", "members", "member_valid")
+
+
+def group_index_from_numpy(leaves: dict, *, device="cuda"):
+    """The port's ``GroupIndex`` holding the reference's group index leaves
+    (``{"group_centroids": ..., "members": ..., ...}``) on ``device``."""
+    from repro_torch.core.grouping import GroupIndex
+    from repro_torch.core.types import resolve_device
+
+    dev = resolve_device(device)
+    return GroupIndex(**{name: torch.from_numpy(np.array(leaves[name], order="C")).to(dev)
+                         for name in _GROUP_LEAVES})
+
+
+def group_index_to_numpy(gidx) -> dict[str, np.ndarray]:
+    """Inverse of :func:`group_index_from_numpy`."""
+    return {name: getattr(gidx, name).detach().cpu().numpy() for name in _GROUP_LEAVES}

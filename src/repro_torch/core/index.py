@@ -303,7 +303,14 @@ class SPFreshIndex:
         return cls(build_state(cfg, vectors, seed=seed, device=device))
 
     def _t(self, x, dtype=None) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x)).to(device=self.state.device, dtype=dtype)
+        """``x`` on the state's device.  A host array goes to the card
+        through pinned memory without blocking the host, ordered on the
+        current stream (a pageable copy would wait for the stream)."""
+        dev = self.state.device
+        t = torch.as_tensor(np.asarray(x)).to(dtype=dtype)
+        if dev.type != "cuda":
+            return t
+        return t.contiguous().pin_memory().to(dev, non_blocking=True)
 
     # ---------------------------- Updater -----------------------------
     def insert(self, vecs, vids, *, max_retries: int = 4) -> None:
@@ -388,8 +395,12 @@ class SPFreshIndex:
 
     def search_padded(self, queries, k: int, *, nprobe=None, probe_chunk: int = 0,
                       use_pallas_scan=None, scan_schedule=None,
-                      with_access: bool = False, qvalid=None):
-        """One fixed-shape search dispatch; numpy results."""
+                      with_access: bool = False, qvalid=None, as_tensor: bool = False):
+        """One fixed-shape search dispatch; numpy results.  ``as_tensor=True``
+        returns the device tensors without a readback: on the card the
+        dispatch is then queued on the current stream and nothing has
+        waited for it, so the caller overlaps it with other host work and
+        reads it back later (the serving engine's deferred readback)."""
         step = search_step(k, nprobe, probe_chunk, use_pallas_scan,
                            scan_schedule, with_access)
         q = self._t(queries, torch.float32)
@@ -397,6 +408,8 @@ class SPFreshIndex:
             out = step(self.state, q)
         else:
             out = step(self.state, q, qvalid=self._t(qvalid, torch.bool))
+        if as_tensor:
+            return tuple(out)
         return tuple(x.cpu().numpy() for x in out)
 
     def insert_padded(self, vecs, vids, valid) -> np.ndarray:

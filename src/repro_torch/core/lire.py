@@ -109,11 +109,13 @@ def _bump_append_telemetry(state: IndexState, pids, vecs, landed):
 
 
 def probe_histogram(cfg, pids, probe_valid):
-    """Per-posting probe counts for one search micro-batch."""
+    """Per-posting probe counts for one search micro-batch.  Invalid
+    probes count into a spare bin that is cut (a boolean-mask gather
+    would read its size back to the host)."""
     cap = cfg.num_postings_cap
-    tgt = pids[probe_valid].long()
-    hist = torch.zeros((cap,), dtype=torch.int32, device=pids.device)
-    return hist.index_add_(0, tgt, torch.ones_like(tgt, dtype=torch.int32))
+    tgt = torch.where(probe_valid, pids.long(), cap).reshape(-1)
+    hist = torch.zeros((cap + 1,), dtype=torch.int32, device=pids.device)
+    return hist.index_add_(0, tgt, torch.ones_like(tgt, dtype=torch.int32))[:cap]
 
 
 # ---------------------------------------------------------------------------

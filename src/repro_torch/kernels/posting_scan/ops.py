@@ -117,10 +117,13 @@ def dedup_pages(pages, *, budget: int, num_blocks: int):
     first[1:] = srt[1:] != srt[:-1]
     first = first & (srt < sentinel)
     n_unique = first.sum().to(torch.int32)
-    pos = torch.nonzero(first).squeeze(1)[:budget]
-    pos = torch.cat([pos, torch.zeros(budget - pos.numel(), dtype=pos.dtype, device=dev)])
+    # compaction by rank (no nonzero: its output size would need a
+    # device → host read); ranks past the budget write the spare row
+    rank = torch.cumsum(first, 0) - 1
+    tgt = torch.where(first & (rank < budget), rank, budget)
+    uniq = torch.full((budget + 1,), sentinel, dtype=torch.int32, device=dev)
+    uniq = uniq.scatter_(0, tgt, srt)[:budget]
     kept = torch.clamp(n_unique, max=budget)
-    uniq = torch.where(torch.arange(budget, device=dev) < kept, srt[pos], sentinel)
     overflow = torch.clamp(n_unique - kept, min=0)
     member = torch.searchsorted(uniq, flat).clamp(max=budget - 1)
     hit = (uniq[member] == flat) & (pages >= 0)

@@ -61,7 +61,15 @@ def _tiny_cfg():
                       split_limit=12, merge_limit=3, replica_count=2, nprobe=2)
 
 
-@pytest.mark.parametrize("entry", ["SPFreshIndex.build", "build_state", "make_empty_state"])
+def test_the_boundary_covers_the_serving_layer_and_grouping():
+    names = {str(p.relative_to(PORT)) for p in PORT_FILES if PORT in p.parents}
+    for mod in ("serve/__init__.py", "serve/engine.py", "serve/queue.py", "serve/policy.py",
+                "serve/ownership.py", "storage/durability.py", "core/grouping.py"):
+        assert mod in names, mod
+
+
+@pytest.mark.parametrize("entry", ["SPFreshIndex.build", "build_state", "make_empty_state",
+                                   "group_index_from_numpy"])
 def test_entry_points_default_to_the_card(entry):
     """Without ``device=`` an entry point runs on CUDA; on a machine with
     no card it raises rather than falling back to the CPU."""
@@ -70,10 +78,16 @@ def test_entry_points_default_to_the_card(entry):
 
     cfg = _tiny_cfg()
     x = np.random.default_rng(0).normal(size=(40, 8)).astype(np.float32)
+    from repro_torch.convert import group_index_from_numpy
+
+    leaves = {"group_centroids": np.zeros((2, 8), np.float32),
+              "group_sqn": np.zeros(2, np.float32), "members": np.zeros((2, 4), np.int32),
+              "member_valid": np.ones((2, 4), bool)}
     call = {
         "SPFreshIndex.build": lambda: SPFreshIndex.build(cfg, x).state,
         "build_state": lambda: build_state(cfg, x),
         "make_empty_state": lambda: make_empty_state(cfg),
+        "group_index_from_numpy": lambda: group_index_from_numpy(leaves).members,
     }[entry]
     if torch.cuda.is_available():
         assert call().device.type == "cuda"

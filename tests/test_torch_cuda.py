@@ -558,3 +558,88 @@ def test_maintenance_round_reads_nothing_back(card):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert int(did) > 0
+
+
+def _serve_index(card, **kw):
+    """A small kernel-path index on the card (the churned CPU build)."""
+    cpu = _churned_cpu_index(use_pallas_scan=True, **kw)
+    return SPFreshIndex(map_tensors(lambda x: x.to(card), cpu))
+
+
+@pytest.mark.parametrize("schedule", ["batched", "per_query"])
+def test_deferred_readback_equals_the_blocking_search(card, schedule):
+    """``search_begin``'s pinned, event-guarded readback gives exactly the
+    blocking ``search_padded`` results, and its probe histogram folds into
+    the pending access counts at finalize."""
+    from repro_torch.serve import LocalBackend
+
+    idx = _serve_index(card)
+    q = np.random.default_rng(5).normal(size=(64, 16)).astype(np.float32) * 3
+    valid = np.arange(64) < 50
+    be = LocalBackend(idx, use_pallas_scan=True, scan_schedule=schedule)
+    want = idx.search_padded(q, 10, nprobe=8, use_pallas_scan=True, scan_schedule=schedule,
+                             with_access=True, qvalid=valid)
+    fin = be.search_begin(q, 10, 8, valid)
+    assert be._pending_access.sum() == 0
+    d, v = fin()
+    np.testing.assert_array_equal(d, want[0])
+    np.testing.assert_array_equal(v, want[1])
+    np.testing.assert_array_equal(be._pending_access, want[2])
+
+
+@pytest.mark.parametrize("schedule", ["batched", "per_query"])
+def test_search_dispatch_runs_without_a_host_sync(card, schedule):
+    """One search dispatch of each schedule under
+    ``set_sync_debug_mode("error")``, queued behind a device sleep: it
+    raises on any host sync, and returns while the card still works."""
+    from repro_torch.serve import LocalBackend
+
+    idx = _serve_index(card)
+    q = np.random.default_rng(6).normal(size=(32, 16)).astype(np.float32) * 3
+    valid = np.ones(32, bool)
+    be = LocalBackend(idx, use_pallas_scan=True, scan_schedule=schedule)
+    want = be.search(q, 10, 8, valid)          # kernels built, pinned buffers cached
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fin = be.search_begin(q, 10, 8, valid)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert not torch.cuda.current_stream().query()
+    d, v = fin()
+    np.testing.assert_array_equal(d, want[0])
+    np.testing.assert_array_equal(v, want[1])
+
+
+def test_async_engine_on_the_card_replays_bit_identically(card):
+    """The async pump on the card: deferred searches interleaved with
+    in-place inserts, deletes and slots on one stream; the recorded stream
+    replays on a clone leaf for leaf, and awaited inserts are visible."""
+    from repro_torch.serve import EngineConfig, LocalBackend, ServeEngine
+    from repro_torch.storage.durability import RecordingSink
+    from repro_torch.utils.tree import clone_state, tensor_leaves
+
+    idx = _serve_index(card)
+    before = clone_state(idx.state)
+    eng = ServeEngine(idx, EngineConfig(nprobe=8, max_batch=64, async_serve=True,
+                                        max_wait_ms=1.0, lock_check=True, maintain_budget=4))
+    sink = RecordingSink()
+    eng.backend.attach_replication(sink)
+    rng = np.random.default_rng(7)
+    try:
+        for i in range(12):
+            vecs = (rng.normal(size=(16, 16)) * 5).astype(np.float32)
+            ids = np.arange(7000 + 16 * i, 7016 + 16 * i, dtype=np.int32)
+            _, landed = eng.submit_insert(vecs, ids).result(timeout=120)
+            assert landed.all()
+            _, got = eng.submit_search(vecs, k=5).result(timeout=120)
+            assert sum(ids[j] in got[j] for j in range(16)) >= 15
+            eng.submit_delete(ids[:4]).result(timeout=120)
+        eng.pump()
+    finally:
+        eng.shutdown(timeout=120)
+    twin = LocalBackend(SPFreshIndex(before), track_access=False)
+    twin.replay(sink.records)
+    a, b = tensor_leaves(idx.state), tensor_leaves(twin.index.state)
+    assert all(torch.equal(a[n], b[n]) for n in a)

@@ -49,3 +49,42 @@ def test_update_path_rehearses_on_the_cpu():
     assert report["stats"]["n_splits"] > 0
     assert set(report["recall_at_10"]) == {"batched@8", "batched@1", "per_query@8",
                                            "per_query@1"}
+
+
+def test_serve_and_grouped_paths_rehearse_on_the_cpu():
+    """The smoke's ``serve`` and ``grouped`` paths after the ``update``
+    path, cut to 4 cooperative steps, 2 async threads of 20 operations and
+    16 groups of 64; the recall floors come from the reference after the
+    same requests through its ServeEngine (``serve_sequence``, and its
+    ``search_grouped`` there), minus the margin."""
+    n, n_ins, steps = 1500, 256, 4
+    cfg = dataclasses.replace(SMOKE, num_blocks=2048, num_postings_cap=512,
+                              use_pallas_nav=True, use_pallas_scan=True,
+                              scan_schedule="batched")
+    ref = _reference_recall_script()
+    ridx, queries, rows, ids, rrep = ref.serve_sequence(
+        RConfig(**dataclasses.asdict(cfg)), n, n_ins, seed=0,
+        queries_n=min(SEARCH_Q, n), steps=steps)
+    floors = {p: ref.recall_at_10(ridx, queries, rows, ids, p) - chip_smoke.RECALL_MARGIN
+              for p in (1, cfg.nprobe)}
+    geometry = dict(n_groups=16, capacity=64, gprobe=4)
+    grouped_floor = ref.grouped_recall(ridx, queries, rows, ids, **geometry) \
+        - chip_smoke.RECALL_MARGIN
+    carry = {}
+    chip_smoke.update_path(torch, np, 0, {}, cfg=cfg, device="cpu", n=n, n_insert=n_ins,
+                           floors={1: 0.0, cfg.nprobe: 0.0}, carry=carry)
+    report = {}
+    live_ids, live_rows = chip_smoke.serve_path(
+        torch, np, 0, report, carry, device="cpu", steps=steps, threads=2, ops_each=20,
+        async_rows=8, floors=floors)
+    coop = report["cooperative"]
+    assert coop["dispatches"]["drain"] == 1 and coop["dispatches"]["insert"] >= steps
+    # the port's engine formed the reference engine's micro-batches
+    assert coop["report"]["queue"] == rrep["queue"]
+    assert report["async_phase"]["tally"]["violations"] == 0
+    assert report["async_phase"]["device_busy_share"] is None
+    grouped = {}
+    recall = chip_smoke.grouped_path(
+        torch, np, 0, grouped, carry, live_ids, live_rows, device="cpu", grouped=geometry,
+        floor=grouped_floor)
+    assert grouped["full_gprobe_overlap"] > 0.9 and recall == grouped["recall_at_10"]
