@@ -61,7 +61,19 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
    card's busy share from the profiler's trace.  A fifth, ``grouped``,
    builds the two-level group index (512 groups of 256) on the final
    state, holds full-gprobe navigation against #1's flat one, and
-   measures ``search_grouped``'s recall at gprobe 32.
+   measures ``search_grouped``'s recall at gprobe 32.  A sixth,
+   ``durable``, frees the earlier paths' state and opens a durable service
+   (``repro_torch.api.open(service_spec(durable_root=...))``, the update
+   cell's geometry and generator at ``UPDATE_N``) under a temporary root
+   in ``build/``: the open-time base unit, ``drain()`` and a re-base; 16
+   of the serve path's request steps with group commit, a delta
+   checkpoint, 16 more (the WAL tail); a crash and ``api.open(spec)``,
+   which must recover every leaf bit for bit with the same search ids;
+   then an async phase (pump thread, ``per_query`` scan, 4 submitter
+   threads) in which no update ticket may resolve before its fsync, a
+   crash, and a bit-identical recovery again.  It prints the units' bytes
+   and write seconds, the WAL's records, bytes and fsyncs a dispatch, and
+   recovery split into load, upload and replay.
    The launch counts are reset before each path and read after it, and
    every kernel of the path must have launched.
 4. Prints the ``kernels`` JSON line, the card's name and power limit, and
@@ -1006,6 +1018,7 @@ PATH_KERNELS = {
     "int8": ("l2_topk_tiles", "scan_per_query_topk_q8", "scan_batched_topk_q8"),
     "serve": ("l2_topk_tiles", "scan_batched_topk", "scan_per_query_topk"),
     "grouped": ("scan_batched_topk",),
+    "durable": ("l2_topk_tiles", "scan_batched_topk", "scan_per_query_topk"),
 }
 
 
@@ -1463,7 +1476,7 @@ def submit_step(engine, step):
 
 
 def async_clients(np, engine, vecs_for, n_threads, ops_each, *, vid0, stride, max_rows,
-                  pool, k=10, nprobe=None, seed=100):
+                  pool, k=10, nprobe=None, seed=100, on_update=None):
     """Drive ``engine`` from ``n_threads`` submitter threads of ``ops_each``
     operations, each thread from its own seed: 50% searches of 1 to
     ``max_rows`` queries (the thread's own live vectors, its last deleted
@@ -1477,8 +1490,10 @@ def async_clients(np, engine, vecs_for, n_threads, ops_each, *, vid0, stride, ma
     violation when the search was dispatched before the insert (its
     submitter had awaited the insert before it submitted the search), and
     an ANN miss otherwise; a deleted vid in a search dispatched after the
-    delete is a resurrection.  Returns ``(tally, live, dead)``: the counts,
-    and per thread ``{vid: vector}`` of the rows alive and deleted."""
+    delete is a resurrection.  ``on_update(ticket)`` is called with each
+    update ticket as soon as its ``result`` returns.  Returns ``(tally,
+    live, dead)``: the counts, and per thread ``{vid: vector}`` of the
+    rows alive and deleted."""
     import threading
 
     tally = {"violations": 0, "resurrected": 0, "misses": 0, "checks": 0, "ops": 0}
@@ -1500,6 +1515,8 @@ def async_clients(np, engine, vecs_for, n_threads, ops_each, *, vid0, stride, ma
                     vecs = vecs_for(trng, m)
                     tk = engine.submit_insert(vecs, ids)
                     _, landed = tk.result(timeout=JOIN_S)
+                    if on_update is not None:
+                        on_update(tk)
                     if not landed.all():
                         raise AssertionError(f"thread {tid}: an insert was dropped")
                     for j in range(m):
@@ -1531,6 +1548,8 @@ def async_clients(np, engine, vecs_for, n_threads, ops_each, *, vid0, stride, ma
                     picks = trng.choice(own, size=min(len(own), m), replace=False)
                     tk = engine.submit_delete(picks.astype(np.int32))
                     tk.result(timeout=JOIN_S)
+                    if on_update is not None:
+                        on_update(tk)
                     for p in picks:
                         dead[int(p)] = (live.pop(int(p))[0], tk.seqno)
                 with lock:
@@ -1849,6 +1868,260 @@ def grouped_path(torch, np, seed, report, carry, ids, rows, *, device="cuda",
     return recall
 
 
+# ---------------------------------------------------------------------------
+# the durable path: a durable service through crash and recovery
+# ---------------------------------------------------------------------------
+
+# Cooperative request steps (``serve_requests``' steps: a 128-query search,
+# a 64-row insert, every 4th step a 64-vid delete); the delta checkpoint
+# falls after the first DURABLE_DELTA_AT of them, the rest leave the WAL
+# tail.  The async phase: submitter threads, operations each, rows per
+# request; update dispatches per WAL fsync window.
+DURABLE_STEPS = 32
+DURABLE_DELTA_AT = 16
+DURABLE_THREADS = 4
+DURABLE_OPS = 50
+DURABLE_ROWS = 16
+DURABLE_GROUP_COMMIT = 8
+
+
+def fs_type(path) -> str:
+    """The filesystem type of the mount holding ``path`` (/proc/mounts)."""
+    import os
+
+    path = os.path.realpath(path)
+    best, kind = "", "unknown"
+    with open("/proc/mounts") as fh:
+        for line in fh:
+            parts = line.split()
+            if len(parts) < 3:
+                continue
+            mnt = parts[1].replace("\\040", " ")
+            inside = path == mnt or path.startswith(mnt.rstrip("/") + "/")
+            if inside and len(mnt) > len(best):
+                best, kind = mnt, parts[2]
+    return f"{kind} ({best})"
+
+
+def durable_path(torch, np, seed, report, *, cfg=None, device="cuda", n=None,
+                 steps=DURABLE_STEPS, delta_at=DURABLE_DELTA_AT, threads=DURABLE_THREADS,
+                 ops_each=DURABLE_OPS, async_rows=DURABLE_ROWS, root_dir=None):
+    """A durable service (``repro_torch.api``) through crash and recovery at
+    the update cell's geometry, on the reference's generator.
+
+    Set-up: ``api.open(service_spec(durable_root=...), vectors=base)``
+    builds and writes the open-time base unit; ``drain()`` runs the build's
+    split backlog down and ``checkpoint(delta=False)`` re-bases.
+    Cooperative phase (``group_commit``): ``delta_at`` of ``serve_requests``'
+    steps through ``svc.search`` / ``insert`` / ``delete``, a delta
+    checkpoint, the remaining steps (the WAL tail), a clone of the state and
+    one Q=1024 search; then a crash (the engine stops: no checkpoint, no
+    close) and ``api.open(spec)``: every leaf bit-identical, the same ids,
+    distances within tolerance, no deleted vid returned.  Async phase: the
+    recovered service checkpoints a second delta, reopens with the pump
+    thread and the ``per_query`` scan, takes ``threads`` submitter threads
+    (:func:`async_clients`) — no update ticket may resolve before the fsync
+    that covers its seqno — and crashes and recovers bit-identically again.
+    The durable root is a temporary directory under ``root_dir`` (default
+    the checkout's ``build/``), removed at the end."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch import api
+    from repro_torch.configs.spfresh import SEARCH_Q, service_spec
+    from repro_torch.data.vectors import make_queries, make_spacev_like_bytes
+    from repro_torch.utils.tree import clone_state
+
+    cfg = cfg or path_config("fp32")
+    n = n or UPDATE_N
+    k = 10
+    n_fresh = steps * (SERVE_SEARCH_ROWS // 2)
+    data, gen_s = timed(torch, lambda: make_spacev_like_bytes(n + n_fresh, cfg.dim, seed=seed))
+    base = data[:n]
+    queries = make_queries(base, min(SEARCH_Q, n), seed=seed)
+    # the fresh rows data[n:] are not in the index: serve_requests re-sends
+    # its "victims" under fresh vids, so they stand in for them here
+    reqs = serve_requests(np, seed, n, np.arange(n, n + n_fresh), queries, data, steps=steps)
+    parent = root_dir or ROOT / "build"
+    os.makedirs(parent, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="durable_", dir=parent)
+    fs = fs_type(root)
+    spec = service_spec(durable_root=root)
+    spec = dataclasses.replace(
+        spec, index=api.IndexSpec(config=cfg),
+        durability=dataclasses.replace(spec.durability, group_commit=DURABLE_GROUP_COMMIT))
+    aspec = dataclasses.replace(
+        spec, serve=dataclasses.replace(spec.serve, async_serve=True, max_wait_ms=1.0),
+        scan=dataclasses.replace(spec.scan, scan_schedule="per_query"))
+    log(f"[durable] data: make_spacev_like in bytes, N={n} fresh={n_fresh} made in "
+        f"{gen_s:.1f} s; durable root on {fs}")
+    wal_sets, current = [], [None]
+
+    def opened(sp, **kw):
+        svc, s = timed(torch, lambda: api.open(sp, device=device, **kw))
+        current[0] = svc
+        wal_sets.append(svc.backend.wal_set)
+        return svc, s
+
+    def crash(svc):
+        svc.engine.shutdown(timeout=JOIN_S)      # no checkpoint, no close
+        current[0] = None
+
+    try:
+        # ---- set-up: build, open-time base, drain, re-base
+        svc, open_s = opened(spec, vectors=base)
+        base0 = dict(svc.last_checkpoint)
+        jobs, drain_s = timed(torch, svc.drain)
+        rounds = svc.index.last_drain_rounds
+        check(svc.backlog() == 0, f"[durable] backlog {svc.backlog()} after drain()")
+        _, rebase_s = timed(torch, lambda: svc.checkpoint(delta=False))
+        rebase = dict(svc.last_checkpoint)
+        log(f"[durable] open (build + open-time base {base0['bytes']} bytes in "
+            f"{base0['seconds']:.2f} s) {open_s:.1f} s; drain() {jobs} jobs in {rounds} rounds, "
+            f"{drain_s:.1f} s; "
+            f"re-base {rebase['bytes']} bytes in {rebase['seconds']:.2f} s")
+
+        # ---- cooperative phase
+        def run(step_list):
+            for step in step_list:
+                for op, arr, vids in step:
+                    if op == "search":
+                        svc.search(arr)
+                    elif op == "insert":
+                        svc.insert(arr, vids)
+                    else:
+                        svc.delete(vids)
+
+        ws = svc.backend.wal_set
+        wal_file = ws.shard_path(0)
+        _, head_s = timed(torch, lambda: run(reqs["steps"][:delta_at]))
+        head_stats = ws.stats()
+        head_wal_bytes = os.path.getsize(wal_file)
+        svc.checkpoint(delta=True)
+        delta = dict(svc.last_checkpoint)
+        check(delta["unit"].startswith("delta-"), f"[durable] {delta['unit']} is not a delta")
+        _, tail_s = timed(torch, lambda: run(reqs["steps"][delta_at:]))
+        stats = ws.stats()
+        tail_records = stats["appends"] - head_stats["appends"]
+        tail_bytes = os.path.getsize(wal_file)
+        rep = svc.report()
+        kept = clone_state(svc.index.state)
+        want_d, want_v = svc.search(queries)
+        crash(svc)
+        del svc
+        svc, reopen_s = opened(spec)
+        rec = svc.recovery
+        check(svc.recovered, "[durable] the reopened service did not recover")
+        same_leaves(torch, kept, svc.index.state, "[durable] cooperative recovery")
+        del kept
+        got_d, got_v = svc.search(queries)
+        check(bool(np.array_equal(got_v, want_v)), "[durable] recovered search ids differ")
+        check(bool(np.all(np.abs(got_d - want_d) <= 1e-3 + RTOL * np.abs(want_d))),
+              f"[durable] recovered search distances differ beyond {TOL_TEXT}")
+        gone = reqs["deleted"]
+        _, v = svc.search(data[gone[:SEARCH_Q]])
+        check(not set(gone.tolist()) & set(v.reshape(-1).tolist()),
+              "[durable] a deleted vid came back after recovery")
+        check(rec["replayed_records"] == tail_records,
+              f"[durable] replayed {rec['replayed_records']} records of a {tail_records}-record tail")
+        replay_rate = rec["replayed_records"] / rec["replay_s"] if rec["replay_s"] else None
+        coop = dict(
+            head_steps=delta_at, tail_steps=steps - delta_at, head_s=head_s, tail_s=tail_s,
+            base_bytes=rebase["bytes"], base_write_s=rebase["seconds"],
+            open_time_base_bytes=base0["bytes"], open_time_base_write_s=base0["seconds"],
+            delta_bytes=delta["bytes"], delta_write_s=delta["seconds"],
+            delta_over_full=delta["bytes"] / rebase["bytes"],
+            wal_head_records=head_stats["appends"], wal_head_bytes=head_wal_bytes,
+            wal_tail_records=tail_records, wal_tail_bytes=tail_bytes,
+            wal_fsyncs=stats["fsyncs"], wal_fsyncs_per_dispatch=stats["fsyncs_per_append"],
+            insert_dropped=rep["insert_dropped"], recovery=rec, reopen_s=reopen_s,
+            replayed_records_per_s=replay_rate)
+        log(f"[durable] cooperative: {delta_at} steps ({head_s:.2f} s), delta {delta['bytes']} "
+            f"bytes in {delta['seconds']:.2f} s ({coop['delta_over_full']:.4f} of the base), "
+            f"{steps - delta_at} steps ({tail_s:.2f} s) leave a WAL tail of {tail_records} "
+            f"records, {tail_bytes} bytes; {stats['appends']} dispatches logged, "
+            f"{stats['fsyncs']} fsyncs ({stats['fsyncs_per_append']:.3f} a dispatch); "
+            f"{rep['insert_dropped']} insert rows dropped by backpressure")
+        log(f"[durable] crash + open: {reopen_s:.2f} s (load {rec['load_s']:.2f} s, upload "
+            f"{rec['upload_s']:.2f} s, WAL read {rec['wal_read_s']:.3f} s, replay "
+            f"{rec['replay_s']:.2f} s for {rec['replayed_records']} records, {replay_rate} "
+            "records/s); every leaf bit-identical, the same ids, no deleted vid returned")
+
+        # ---- async phase
+        svc.checkpoint(delta=True)
+        delta2 = dict(svc.last_checkpoint)
+        crash(svc)
+        del svc
+        svc, aopen_s = opened(aspec)
+        check(svc.engine.is_async, "[durable] the async service has no pump thread")
+        ws = svc.backend.wal_set
+        durable_seqno = [ws.next_seqno - 1]
+        sync = ws.sync
+
+        def counted_sync():
+            sync()
+            durable_seqno[0] = ws.next_seqno - 1
+
+        ws.sync = counted_sync
+        early = []
+
+        def on_update(tk):
+            if tk.seqno > durable_seqno[0]:
+                early.append(tk.seqno)
+
+        def vecs_for(trng, m):
+            rows = base[trng.integers(0, n, m)] + trng.integers(-3, 4, (m, base.shape[1]))
+            return np.clip(rows, -127, 127).astype(np.float32)
+
+        (tally, live, dead), async_s = timed(torch, lambda: async_clients(
+            np, svc.engine, vecs_for, threads, ops_each,
+            vid0=int(reqs["inserted"][-1]) + 1, stride=ops_each * async_rows,
+            max_rows=async_rows, pool=queries, k=k, seed=seed + 200, on_update=on_update))
+        svc.flush()
+        arep = svc.report()
+        astats = ws.stats()
+        check(not early, f"[durable] {len(early)} update tickets resolved before their fsync")
+        check(tally["violations"] == 0, f"[durable] {tally['violations']} ordering violations")
+        check(tally["resurrected"] == 0, f"[durable] {tally['resurrected']} deletes came back")
+        check(tally["misses"] <= ASYNC_MISS_LIMIT * tally["checks"],
+              f"[durable] {tally['misses']} ANN misses in {tally['checks']} checks")
+        kept = clone_state(svc.index.state)
+        crash(svc)
+        del svc
+        svc, areopen_s = opened(aspec)
+        arec = svc.recovery
+        same_leaves(torch, kept, svc.index.state, "[durable] async recovery")
+        del kept
+        crash(svc)
+        arate = arec["replayed_records"] / arec["replay_s"] if arec["replay_s"] else None
+        log(f"[durable] async: {threads} threads x {ops_each} ops in {async_s:.2f} s over a "
+            f"base + 2 deltas ({delta2['bytes']} bytes); {astats['appends']} dispatches, "
+            f"{astats['fsyncs']} fsyncs ({astats['fsyncs_per_append']:.3f} a dispatch), 0 "
+            f"update tickets resolved before their fsync; {tally['checks']} visibility "
+            f"checks, {tally['violations']} violations, {tally['misses']} ANN misses; crash + "
+            f"open {areopen_s:.2f} s (replay {arec['replay_s']:.2f} s for "
+            f"{arec['replayed_records']} records, {arate} records/s): every leaf bit-identical")
+        report.update(
+            fs=fs, n=n, open_s=open_s, drain_jobs=jobs, drain_rounds=rounds, drain_s=drain_s,
+            cooperative=coop,
+            async_phase=dict(seconds=async_s, tally=tally, dispatches=astats["appends"],
+                             fsyncs=astats["fsyncs"],
+                             fsyncs_per_dispatch=astats["fsyncs_per_append"],
+                             early_acks=len(early), report=arep, open_s=aopen_s,
+                             second_delta_bytes=delta2["bytes"],
+                             second_delta_write_s=delta2["seconds"],
+                             recovery=arec, reopen_s=areopen_s,
+                             replayed_records_per_s=arate))
+    finally:
+        if current[0] is not None:
+            current[0].engine.shutdown(timeout=JOIN_S)
+        for ws in wal_sets:
+            ws.close()
+        shutil.rmtree(root, ignore_errors=True)
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="chip smoke for the PyTorch/CUDA port")
     ap.add_argument("--seed", type=int, default=0)
@@ -1974,7 +2247,26 @@ def main() -> int:
     report["grouped"]["seconds"] = time.perf_counter() - t0
     got = launched("grouped")
     log(f"[grouped] launches on the path: {got}; {report['grouped']['seconds']:.1f} s ({card})")
-    del carry
+    del carry, ids, rows
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    reset()
+    report["durable"] = {}
+    t0 = time.perf_counter()
+    durable_path(torch, np, args.seed, report["durable"])
+    report["durable"]["seconds"] = time.perf_counter() - t0
+    got = launched("durable")
+    dur = report["durable"]
+    coop, rec = dur["cooperative"], dur["cooperative"]["recovery"]
+    log(f"[durable] base {coop['base_bytes']} bytes in {coop['base_write_s']:.2f} s, delta "
+        f"{coop['delta_bytes']} bytes in {coop['delta_write_s']:.2f} s (delta/full "
+        f"{coop['delta_over_full']:.4f}); WAL tail {coop['wal_tail_records']} records, "
+        f"{coop['wal_tail_bytes']} bytes, {coop['wal_fsyncs_per_dispatch']:.3f} fsyncs a "
+        f"dispatch (async {dur['async_phase']['fsyncs_per_dispatch']:.3f}); recovery load "
+        f"{rec['load_s']:.2f} s, upload {rec['upload_s']:.2f} s, replay {rec['replay_s']:.2f} s "
+        f"({coop['replayed_records_per_s']} records/s); root on {dur['fs']} ({card})")
+    log(f"[durable] launches on the path: {got}; {dur['seconds']:.1f} s ({card})")
     for name, n in launches.items():
         results[name]["launches"] = n
     for name in ("l2_topk_tiles", "scan_batched", "scan_batched_topk", "scan_batched_topk_q8"):

@@ -2,7 +2,8 @@
 
 One LIRE shard per device holds ~2M live vectors (≈8M replica slots) with
 int8 payloads.  The shard-mesh cells of the reference are not ported; this
-module carries the per-shard configs and the serving step shapes.
+module carries the per-shard configs, the serving step shapes and the
+service spec.
 """
 from __future__ import annotations
 
@@ -53,3 +54,38 @@ CONFIG_PAGED = dataclasses.replace(
     scan_schedule="batched",
     scan_page_budget=32_768,
 )
+
+
+# ---------------------------------------------------------------------------
+# Service specs — the deployable description of this architecture for
+# `repro_torch.api.open` (the serving knobs live here, next to the geometry
+# they tune).
+# ---------------------------------------------------------------------------
+
+def service_spec(*, paged: bool = True, smoke: bool = False,
+                 n_shards: int = 1, durable_root: str | None = None,
+                 n_replicas: int = 1):
+    """The production ServiceSpec for spfresh-1b (or its smoke twin).
+
+    ``repro_torch.api.open(service_spec(smoke=True), vectors=...)`` stands
+    up a runnable miniature of the deployment; ``durable_root`` roots its
+    WAL and snapshots.  ``n_shards`` and ``n_replicas`` above 1 name the
+    distributed deployment, which the port does not run yet (``open``
+    raises).
+    """
+    from repro_torch import api
+
+    base = SMOKE if smoke else (CONFIG_PAGED if paged else CONFIG)
+    return api.ServiceSpec(
+        index=api.IndexSpec(config=base),
+        serve=api.ServeSpec(search_k=10, nprobe=base.nprobe, max_batch=SEARCH_Q),
+        scan=api.ScanSpec(probe_chunk=PROBE_CHUNK),
+        maintenance=api.MaintenanceSpec(
+            jobs_per_round=base.jobs_per_round,
+            policy=base.maintain_policy,
+            alpha=base.maintain_alpha,
+            beta=base.maintain_beta,
+        ),
+        durability=api.DurabilitySpec(root=durable_root),
+        shards=api.ShardSpec(n_shards=n_shards, n_replicas=n_replicas),
+    )

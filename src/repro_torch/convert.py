@@ -13,26 +13,27 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.types import IndexState, LireConfig, make_empty_state
+from repro_torch.core.types import IndexState, LireConfig, make_empty_state, resolve_device
 from repro_torch.utils.tree import tensor_leaves
 
 
-def _to_tensor(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+def _to_tensor(arr: np.ndarray, like: torch.Tensor, device) -> torch.Tensor:
     arr = np.array(arr, order="C")        # a copy; keeps 0-d leaves 0-d
     if like.dtype == torch.bfloat16:
+        # the uint16 bit pattern, or the 2-byte void np.save writes
         bits = arr.view(np.uint16).view(np.int16)
-        return torch.from_numpy(bits).view(torch.bfloat16).to(like.device)
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
     if arr.dtype.name == "bfloat16":
         raise TypeError("bfloat16 leaf given for a non-bfloat16 tensor")
-    return torch.from_numpy(arr).to(device=like.device, dtype=like.dtype)
+    return torch.from_numpy(arr).to(device=device, dtype=like.dtype)
 
 
-def state_from_numpy(cfg: LireConfig, leaves: dict, *, device="cuda") -> IndexState:
-    """The port's ``IndexState`` holding ``leaves`` on ``device``.
-
-    Every tensor leaf of the port's state must be present with the same
-    shape; dtypes are the port's own (which are the reference's)."""
-    template = make_empty_state(cfg, device=device)
+def fill_state(template, leaves: dict, *, device):
+    """A copy of ``template`` whose tensor leaves are ``leaves``'s arrays
+    on ``device``.  ``template`` gives only names, shapes and dtypes, so it
+    may live on the meta device: no state is allocated besides the one
+    filled.  Every tensor leaf must be present with the template's shape."""
+    dev = torch.device(device)
     want = tensor_leaves(template)
     missing = sorted(set(want) - set(leaves))
     if missing:
@@ -42,8 +43,17 @@ def state_from_numpy(cfg: LireConfig, leaves: dict, *, device="cuda") -> IndexSt
         arr = np.asarray(leaves[name])
         if tuple(arr.shape) != tuple(like.shape):
             raise ValueError(f"{name}: shape {arr.shape} != {tuple(like.shape)}")
-        got[name] = _to_tensor(arr, like)
+        got[name] = _to_tensor(arr, like, dev)
     return _rebuild(template, got)
+
+
+def state_from_numpy(cfg: LireConfig, leaves: dict, *, device="cuda") -> IndexState:
+    """The port's ``IndexState`` holding ``leaves`` on ``device``.
+
+    Every tensor leaf of the port's state must be present with the same
+    shape; dtypes are the port's own (which are the reference's)."""
+    dev = resolve_device(device)
+    return fill_state(make_empty_state(cfg, device="meta"), leaves, device=dev)
 
 
 def _rebuild(template, got: dict, prefix: str = ""):
@@ -77,7 +87,6 @@ def group_index_from_numpy(leaves: dict, *, device="cuda"):
     """The port's ``GroupIndex`` holding the reference's group index leaves
     (``{"group_centroids": ..., "members": ..., ...}``) on ``device``."""
     from repro_torch.core.grouping import GroupIndex
-    from repro_torch.core.types import resolve_device
 
     dev = resolve_device(device)
     return GroupIndex(**{name: torch.from_numpy(np.array(leaves[name], order="C")).to(dev)

@@ -13,12 +13,18 @@ Composition (paper Fig. 5):
   * Searcher           — ``search`` (``lire.search``).
 
 ``SPFreshIndex`` owns its state: its updates write the block pool in
-place (the reference donates the state to its jitted steps).  The WAL and
-snapshots are not ported yet.
+place (the reference donates the state to its jitted steps).  Crash
+recovery (paper §4.4) in its single-log form: with a ``wal_path`` every
+``insert`` / ``delete`` request is appended to a write-ahead log before it
+runs, ``snapshot`` commits a full snapshot and truncates the log, and
+``restore`` replays the log's tail on the snapshot.  The serving layer's
+dispatch-level log (``storage.durability``) supersedes it under
+``repro_torch.api.open``.
 """
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
@@ -33,6 +39,8 @@ from repro_torch.core.types import (
     resolve_device,
 )
 from repro_torch.storage import codec as pcodec
+from repro_torch.storage.snapshot import load_snapshot, save_snapshot, snapshot_exists
+from repro_torch.storage.wal import WriteAheadLog, iter_wal
 
 _INSERT_CHUNK = 256
 _QUERY_CHUNK = 64
@@ -277,6 +285,17 @@ def fused_maintenance_round(jobs: int):
     return step
 
 
+def check_vids(vids: np.ndarray, cfg: LireConfig) -> None:
+    """Refuse caller vids outside ``[0, num_vectors_cap)`` before they are
+    logged or dispatched.  (The reference's version-map reads clamp such a
+    vid onto the scratch slot and its writes drop it; here the gather
+    would raise inside a dispatch, after the WAL append.)"""
+    bad = (vids < 0) | (vids >= cfg.num_vectors_cap)
+    if bad.any():
+        raise ValueError(f"vids outside [0, num_vectors_cap={cfg.num_vectors_cap}): "
+                         f"{np.unique(vids[bad])[:8].tolist()}")
+
+
 def _pad_to(x: np.ndarray, size: int, fill=0) -> np.ndarray:
     pad = size - x.shape[0]
     if pad <= 0:
@@ -290,8 +309,10 @@ class SPFreshIndex:
     updates and the rebuilder write its block pool in place, so a caller
     keeps no other reference to the state it hands in."""
 
-    def __init__(self, state: IndexState):
+    def __init__(self, state: IndexState, wal_path: str | None = None):
         self.state = state
+        self.wal = WriteAheadLog(wal_path) if wal_path else None
+        self._wal_applied = self.wal.next_seqno - 1 if self.wal else -1
         self.last_drain_rounds = 0
         # rows re-sent after a backpressure drain (``n_inserts`` counts
         # each send, as the reference's does)
@@ -299,8 +320,8 @@ class SPFreshIndex:
 
     @classmethod
     def build(cls, cfg: LireConfig, vectors, *, seed: int = 0,
-              device="cuda") -> "SPFreshIndex":
-        return cls(build_state(cfg, vectors, seed=seed, device=device))
+              wal_path: str | None = None, device="cuda") -> "SPFreshIndex":
+        return cls(build_state(cfg, vectors, seed=seed, device=device), wal_path=wal_path)
 
     def _t(self, x, dtype=None) -> torch.Tensor:
         """``x`` on the state's device.  A host array goes to the card
@@ -313,13 +334,17 @@ class SPFreshIndex:
         return t.contiguous().pin_memory().to(dev, non_blocking=True)
 
     # ---------------------------- Updater -----------------------------
-    def insert(self, vecs, vids, *, max_retries: int = 4) -> None:
+    def insert(self, vecs, vids, *, log: bool = True, max_retries: int = 4) -> None:
         """Insert in ``_INSERT_CHUNK``-row batches, with backpressure: when
         a primary append hits a full posting, drain the Local Rebuilder
         (which splits it) and retry the rows that did not land, up to
-        ``max_retries`` times."""
+        ``max_retries`` times.  With a WAL (and ``log``) the request is
+        appended first."""
         vecs = np.asarray(vecs, np.float32)
         vids = np.asarray(vids, np.int32)
+        check_vids(vids, self.state.cfg)
+        if log and self.wal is not None:
+            self._wal_applied = self.wal.append("insert", {"vecs": vecs, "vids": vids})
         for s in range(0, len(vids), _INSERT_CHUNK):
             v = vecs[s:s + _INSERT_CHUNK]
             i = vids[s:s + _INSERT_CHUNK]
@@ -337,8 +362,11 @@ class SPFreshIndex:
                 v, i = v[~landed], i[~landed]
                 self.retried_rows += len(i)
 
-    def delete(self, vids) -> None:
+    def delete(self, vids, *, log: bool = True) -> None:
         vids = np.asarray(vids, np.int32)
+        check_vids(vids, self.state.cfg)
+        if log and self.wal is not None:
+            self._wal_applied = self.wal.append("delete", {"vids": vids})
         for s in range(0, len(vids), _INSERT_CHUNK):
             i = vids[s:s + _INSERT_CHUNK]
             valid = np.arange(_INSERT_CHUNK) < len(i)
@@ -425,6 +453,40 @@ class SPFreshIndex:
         self.state = delete_step()(
             self.state, self._t(vids, torch.int32), self._t(valid, torch.bool)
         )
+
+    # ------------------------- Crash recovery --------------------------
+    def snapshot(self, path: str) -> None:
+        """A full snapshot stamped with the applied WAL seqno; the WAL
+        restarts empty after it commits."""
+        save_snapshot(path, self.state, extra={"wal_seqno": self._wal_applied})
+        if self.wal is not None:
+            self.wal.truncate()
+
+    @classmethod
+    def restore(cls, path: str, cfg: LireConfig, *, wal_path: str | None = None,
+                device="cuda") -> "SPFreshIndex":
+        """Latest snapshot + WAL replay (paper §4.4).  The state is filled
+        on ``device`` straight from the snapshot's arrays; with no snapshot
+        the WAL replays over an empty state."""
+        dev = resolve_device(device)
+        if snapshot_exists(path):
+            state, manifest = load_snapshot(path, make_empty_state(cfg, device="meta"),
+                                            device=dev)
+            after = manifest["extra"].get("wal_seqno", -1)
+        else:
+            state, after = make_empty_state(cfg, device=dev), -1
+        idx = cls(state)
+        idx._wal_applied = after
+        if wal_path and os.path.exists(wal_path):
+            for rec in iter_wal(wal_path, after_seqno=after):
+                if rec.op == "insert":
+                    idx.insert(rec.payload["vecs"], rec.payload["vids"], log=False)
+                elif rec.op == "delete":
+                    idx.delete(rec.payload["vids"], log=False)
+                idx._wal_applied = rec.seqno
+        if wal_path:
+            idx.wal = WriteAheadLog(wal_path)
+        return idx
 
     # ---------------------------- Accounting ---------------------------
     def backlog(self) -> int:

@@ -232,7 +232,10 @@ def alloc_pids(state: IndexState, enable: torch.Tensor):
     cnt = torch.cumsum(enable.long(), 0)
     pos = state.pid_free_top.long() - cnt
     ok = enable & (pos >= 0)
-    pids = torch.where(ok, state.pid_free_stack[torch.clamp(pos, min=0)], -1)
+    p_cap = state.pid_free_stack.shape[0]
+    # rows before the first enabled one read pos = top, which is P_cap
+    # when every pid is free: clamp (their result is masked out)
+    pids = torch.where(ok, state.pid_free_stack[torch.clamp(pos, 0, p_cap - 1)], -1)
     return (
         state.replace(pid_free_top=state.pid_free_top - ok.sum().to(torch.int32)),
         pids.to(torch.int32),

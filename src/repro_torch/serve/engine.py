@@ -20,13 +20,18 @@ Two serving modes share the pipeline:
   behind an event, and the pump reads them at scatter time, so the card
   works on the batch while the host forms and dispatches the next one.
   Maintenance slots run in queue-idle gaps, with a backlog-pressure
-  override.  Update dispatches stay in ONE serialized order on the pump
-  thread, so a recorded dispatch stream replays exactly as in sync mode.
+  override, and durable update tickets ack only after the covering WAL
+  fsync.  WAL appends and update dispatches stay in ONE serialized order
+  on the pump thread, so crash replay is exactly as bit-deterministic as
+  in sync mode.
 
 On the card every dispatch runs on the pump thread's current stream.
 The index writes its block pool in place, so a deferred search must be
 ordered before the next update's writes: one stream orders them, with no
-event between a search and the update after it.
+event between a search and the update after it.  No thread sets a stream,
+so that stream is the device's default one, which a checkpoint under
+``exclusive()`` on the caller's thread also queues its copies on (see
+``storage/durability.py``).
 
 Background maintenance (the Local Rebuilder) is scheduled by a
 pluggable :class:`~repro_torch.serve.policy.MaintenancePolicy` — the
@@ -49,7 +54,7 @@ from typing import Callable, Protocol
 import numpy as np
 import torch
 
-from repro_torch.core.index import SPFreshIndex
+from repro_torch.core.index import SPFreshIndex, check_vids
 from repro_torch.serve.ownership import (
     GUARDED, INIT, LIFECYCLE, PUMP, holds_work, install_lock_check,
 )
@@ -69,9 +74,10 @@ log = logging.getLogger("repro_torch.serve")
 
 class IndexBackend(Protocol):
     """What the engine needs from an index: fixed-shape batched ops, plus
-    the dispatch-stream lifecycle (every update dispatch is logged before
-    it runs, and ``replay`` re-applies a logged stream through the same
-    dispatches)."""
+    the durable lifecycle (``repro_torch.api.open`` drives the last five —
+    every update dispatch is WAL-appended before it runs, ``checkpoint``
+    commits an atomic snapshot stamping per-shard WAL seqnos, and
+    ``replay`` re-applies a WAL tail through the same dispatches)."""
 
     def search(self, queries: np.ndarray, k: int, nprobe: int | None,
                valid: np.ndarray | None = None,
@@ -95,6 +101,10 @@ class IndexBackend(Protocol):
     def backlog(self) -> int: ...
 
     def stats(self) -> dict: ...
+
+    def attach_durability(self, wal_set) -> None: ...
+
+    def checkpoint(self, snapshot_dir: str, *, delta: bool = False) -> str: ...
 
     def wal_sync(self) -> None: ...
 
@@ -126,10 +136,12 @@ class LocalBackend(DurableBackend):
     posting-scan data path for every search dispatch (engine knobs; the
     scan flags default to the index config when None).
 
-    Every update DISPATCH (insert/delete/maintain/drain, with its padded
-    arrays and masks) is logged before it runs (``attach_replication``).
-    The dispatches are deterministic functions of (state, batch), so
-    replaying the stream on a copy of the starting state reproduces the
+    With a :class:`~repro_torch.storage.wal.WalSet` attached
+    (``attach_durability`` — ``repro_torch.api.open`` does this) or a
+    replication sink (``attach_replication``), every update DISPATCH
+    (insert/delete/maintain/drain, with its padded arrays and masks) is
+    logged before it runs.  The dispatches are deterministic functions of
+    (state, batch), so replaying the stream on a snapshot reproduces the
     index bit for bit — including the engine's backpressure retries,
     whose interleaved maintenance slots appear at their true positions.
     """
@@ -210,8 +222,12 @@ class LocalBackend(DurableBackend):
         self.index.delete_padded(vids, valid)
 
     def log_update(self, op, payload):
-        """The request-level log hook: the port's index has no
-        request-level WAL, so there is nothing to append."""
+        """Request-level WAL hook for an index built with ``wal_path``
+        (``SPFreshIndex``'s single log): the engine logs each update batch
+        here once, before its first dispatch.  The dispatch-level
+        ``WalSet`` log supersedes it under ``repro_torch.api.open``."""
+        if self.index.wal is not None:
+            self.index._wal_applied = self.index.wal.append(op, payload)
 
     def maintain(self, jobs):
         access = self._take_access()
@@ -261,7 +277,19 @@ class LocalBackend(DurableBackend):
         twin._wal_applied = self._wal_applied
         return twin
 
-    # ------------------ replay arms (DurableBackend) --------------------
+    # --------------- durability hooks (DurableBackend) -----------------
+    def _snapshot_state(self):
+        return self.index.state
+
+    def _set_snapshot_state(self, state):
+        self.index.state = state
+
+    def _snapshot_extra(self):
+        return {"backend": "local"}
+
+    def _lire_config(self):
+        return self.index.state.cfg
+
     def _apply_record(self, rec) -> None:
         p = rec.payload
         if rec.op == "insert":
@@ -277,6 +305,11 @@ class LocalBackend(DurableBackend):
             )
         else:
             raise ValueError(f"unknown dispatch op {rec.op!r}")
+
+    def close(self) -> None:
+        super().close()
+        if self.index.wal is not None:
+            self.index.wal.close()
 
 
 # ---------------------------------------------------------------------------
@@ -314,6 +347,7 @@ class EngineConfig:
     # under load — keeps the steady-state slot rate equal to sync mode's
     # when the queue never goes idle.
     maint_pressure: int = 8
+    ack_batch: int = 32          # unacked update tickets per forced fsync
     lat_reservoir: int = 4096    # bounded latency sample size per op
     # Debug: enforce the engine's FIELD_OWNERSHIP map at runtime (owner-
     # tracking lock + checking __setattr__, serve/ownership.py).
@@ -424,9 +458,10 @@ class ServeEngine:
     * ONLY the pump thread calls into the backend for serving work (and
       so only it touches the card) — logged update dispatches form one
       serialized order, so replay determinism is identical to sync mode.
-    * External backend work (maintain/drain from the caller thread) must
-      run under ``exclusive()``.
-    * Search tickets signal at readback, update tickets once they ran.
+    * External backend work (maintain/checkpoint/drain from the caller
+      thread) must run under ``exclusive()``.
+    * Durable update tickets are signaled only after the covering WAL
+      fsync (group-commit ack); search tickets signal at readback.
 
     The map below is the machine-checked form of those invariants;
     ``EngineConfig.lock_check`` enforces it at runtime
@@ -441,7 +476,7 @@ class ServeEngine:
         "cfg": INIT, "backend": INIT, "policy": INIT, "queue": INIT,
         "metrics": INIT, "_work": INIT, "_stop": INIT,
         # shared mutable pipeline state: only under _work
-        "_inflight": GUARDED, "_maint_due": GUARDED,
+        "_inflight": GUARDED, "_unacked": GUARDED, "_maint_due": GUARDED,
         # pump-thread-only writes; racy reads are benign by design
         "_busy": PUMP, "_pump_error": PUMP,
         # written by start()/shutdown(), which run strictly outside the
@@ -481,6 +516,7 @@ class ServeEngine:
         # --- async pump state (all mutated under _work on the pump) ---
         self._work = threading.RLock()   # serializes log append + dispatch
         self._inflight: deque[tuple[MicroBatch, Callable]] = deque()
+        self._unacked: list[Ticket] = []
         self._maint_due = 0
         self._busy = False               # pump holds a popped batch
         self._stop = threading.Event()
@@ -527,9 +563,9 @@ class ServeEngine:
 
     @contextlib.contextmanager
     def exclusive(self):
-        """Serialize external backend work (maintain / drain from the
-        caller thread) against the pump thread's dispatches.  Uncontended
-        no-op in cooperative mode."""
+        """Serialize external backend work (maintain / checkpoint / drain
+        / wal_sync from the caller thread) against the pump thread's
+        dispatches.  Uncontended no-op in cooperative mode."""
         with self._work:
             yield
 
@@ -552,11 +588,12 @@ class ServeEngine:
                         with self._work:
                             self._process_async(batch)
                     continue
-                # queue idle: land deferred readbacks, then give the
-                # rebuilder ONE slot (re-checking for arrivals between
-                # slots keeps bursts unblocked)
+                # queue idle: land deferred readbacks, cross the ack
+                # point, then give the rebuilder ONE slot (re-checking
+                # for arrivals between slots keeps bursts unblocked)
                 with self._work:
                     self._drain_inflight()
+                    self._ack_updates()
                     if self._idle_maintenance():
                         continue
                 self._busy = False
@@ -569,6 +606,7 @@ class ServeEngine:
                         break
                     self._process_async(batch)
                 self._drain_inflight()
+                self._ack_updates()
                 self._busy = False
         except BaseException as e:  # noqa: BLE001 — surfaced to waiters
             self._pump_error = e
@@ -579,11 +617,19 @@ class ServeEngine:
 
     @holds_work
     def _process_async(self, batch: MicroBatch) -> None:
-        """One pump iteration's processing: dispatch, then land the
-        oldest deferred readbacks past ``max_inflight``."""
+        """One pump iteration's processing: dispatch, land the oldest
+        deferred readbacks past ``max_inflight``, and cross the ack point
+        once ``ack_batch`` update tickets wait for it."""
+        # updates are ordered before any later search: ack them before
+        # the search dispatch so insert latency is bounded by the next
+        # batch boundary, not the next idle gap
+        if batch.op == SEARCH and self._unacked:
+            self._ack_updates()
         self._process(batch)
         while len(self._inflight) > max(0, self.cfg.max_inflight):
             self._finish_one_inflight()
+        if len(self._unacked) >= max(1, self.cfg.ack_batch):
+            self._ack_updates()
 
     # ----------------------------- submit ------------------------------
     def _empty_ticket(self, op: str, key: tuple,
@@ -618,6 +664,7 @@ class ServeEngine:
         vecs = np.asarray(vecs, np.float32)
         vids = np.asarray(vids, np.int32)
         assert len(vecs) == len(vids)
+        self._check_vids(vids)
         if len(vids) == 0:
             return self._empty_ticket(INSERT, (), {
                 "ids": np.zeros((0,), np.int32),
@@ -629,17 +676,24 @@ class ServeEngine:
     def submit_delete(self, vids: np.ndarray) -> Ticket:
         self._check_alive()
         vids = np.asarray(vids, np.int32)
+        self._check_vids(vids)
         if len(vids) == 0:
             return self._empty_ticket(DELETE, (), {})
         t = Ticket(DELETE, len(vids), (), engine=self)
         return self.queue.submit(t, {"vids": vids})
+
+    def _check_vids(self, vids: np.ndarray) -> None:
+        """Refuse out-of-range vids at submit, before a dispatch logs them."""
+        if self.index is not None:
+            check_vids(vids, self.index.state.cfg)
 
     # ------------------------------ pump -------------------------------
     def pump(self, max_batches: int | None = None) -> int:
         """Cooperative mode: process queued micro-batches; returns how
         many were processed.  Async mode: a flush barrier — returns 0
         after every queued batch is processed, every deferred readback
-        has landed, and due background slots have run."""
+        has landed, every update ticket is acked, and due background
+        slots have run."""
         if self.is_async:
             self.barrier()
             return 0
@@ -666,7 +720,7 @@ class ServeEngine:
             with self._work:
                 idle = (
                     len(self.queue) == 0 and not self._busy
-                    and not self._inflight
+                    and not self._inflight and not self._unacked
                     and self._maint_due <= 0
                 )
             if idle:
@@ -728,13 +782,35 @@ class ServeEngine:
 
     @holds_work
     def _note_done(self, batch: MicroBatch) -> None:
-        """Record + release finished tickets (no WAL yet: an update
-        ticket needs no durable ack before it is released)."""
+        """Record + release finished tickets.  Durable update tickets in
+        async mode are held back until the WAL ack covers them."""
+        hold = (
+            self.is_async and batch.op != SEARCH
+            and getattr(self.backend, "wal_set", None) is not None
+        )
         for part in batch.parts:
             t = part.ticket
-            if t.done:
+            if not t.done:
+                continue
+            if hold:
+                self._unacked.append(t)
+            else:
                 self.metrics.note_ticket(t)
                 t._signal()
+
+    @holds_work
+    def _ack_updates(self) -> None:
+        """Group-commit ack point: fsync the WAL, then signal every held
+        update ticket (latency includes the fsync wait)."""
+        if not self._unacked:
+            return
+        self.backend.wal_sync()
+        now = time.perf_counter()
+        for t in self._unacked:
+            t.t_done = now
+            self.metrics.note_ticket(t)
+            t._signal()
+        self._unacked.clear()
 
     @holds_work
     def _finish_one_inflight(self) -> None:

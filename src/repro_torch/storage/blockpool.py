@@ -167,7 +167,10 @@ def append_batch(pool: BlockPool, pids, vecs, vids, vers, enable, *,
     )
     ok = in_cap & (rank < first_fail[safe])
 
-    new_bid = pool.free_stack.long()[torch.clamp(free_top - 1 - lrank, min=0)]
+    # rows that pop nothing read a clamped slot: with every block free
+    # (an empty pool) free_top - 1 - lrank reaches B_cap for them
+    new_bid = pool.free_stack.long()[
+        torch.clamp(free_top - 1 - lrank, 0, pool.num_blocks_cap - 1)]
     posting_blocks = writable(pool.posting_blocks, inplace)
     masked_set_(posting_blocks, (safe, safe_blk), new_bid, lead_ok)
     bid = torch.clamp(posting_blocks.long()[safe, safe_blk], min=0)

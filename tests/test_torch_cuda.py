@@ -643,3 +643,56 @@ def test_async_engine_on_the_card_replays_bit_identically(card):
     twin.replay(sink.records)
     a, b = tensor_leaves(idx.state), tensor_leaves(twin.index.state)
     assert all(torch.equal(a[n], b[n]) for n in a)
+
+
+def test_durable_service_checkpoints_under_a_deferred_search_and_recovers(card, tmp_path):
+    """A durable service on the card: a deferred ``search_begin`` is still
+    in flight (behind a device sleep) when a delta checkpoint copies the
+    state to the host on the same stream; its readback equals the blocking
+    search, and after more updates a crash recovers base + delta + WAL
+    tail to bit-identical leaves."""
+    from repro_torch import api
+    from repro_torch.utils.tree import clone_state, tensor_leaves
+
+    rng = np.random.default_rng(3)
+    centers = rng.normal(size=(8, 16)) * 5
+    base = (centers[rng.integers(0, 8, 1000)] + rng.normal(size=(1000, 16))).astype(np.float32)
+    cfg = LireConfig(dim=16, block_size=8, max_blocks_per_posting=8, num_blocks=2048,
+                     num_postings_cap=256, num_vectors_cap=8192, split_limit=48, merge_limit=6,
+                     reassign_range=8, reassign_budget=128, replica_count=2, nprobe=8,
+                     jobs_per_round=4, use_pallas_nav=True, use_pallas_scan=True)
+    spec = api.ServiceSpec(index=api.IndexSpec(config=cfg),
+                           serve=api.ServeSpec(max_batch=64)).with_durability(
+        str(tmp_path / "svc"), group_commit=8)
+    svc = api.open(spec, vectors=base)
+    assert svc.index.state.device.type == "cuda"
+    ids = np.arange(5000, 5096, dtype=np.int32)
+    vecs = (centers[rng.integers(0, 8, 96)] + rng.normal(size=(96, 16))).astype(np.float32)
+    for s in range(0, 64, 16):
+        svc.insert(vecs[s:s + 16], ids[s:s + 16])
+    svc.delete(ids[:8])
+    q = vecs[:32]
+    valid = np.ones(32, bool)
+    want = svc.index.search_padded(q, 10, nprobe=8)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    fin = svc.backend.search_begin(q, 10, 8, valid)
+    assert not torch.cuda.current_stream().query()
+    svc.checkpoint(delta=True)
+    assert svc.last_checkpoint["unit"].startswith("delta-")
+    d, v = fin()
+    np.testing.assert_array_equal(d, want[0])
+    np.testing.assert_array_equal(v, want[1])
+    for s in range(64, 96, 16):
+        svc.insert(vecs[s:s + 16], ids[s:s + 16])
+    svc.delete(ids[64:70])
+    kept = clone_state(svc.index.state)
+    want = svc.search(q, k=10)
+    svc.engine.shutdown()                      # crash: no checkpoint, no close
+    twin = api.open(spec)
+    assert twin.recovered and twin.recovery["replayed_records"] > 0
+    a, b = tensor_leaves(kept), tensor_leaves(twin.index.state)
+    assert not [n for n in a if not torch.equal(a[n], b[n])]
+    got = twin.search(q, k=10)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0], want[0])

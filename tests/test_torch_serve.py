@@ -632,19 +632,46 @@ def test_search_access_telemetry_folds_into_the_next_maintain():
     assert eng.backend._pending_access.sum() == 0
 
 
-def test_port_lifecycle_parts_not_yet_ported_raise():
+def test_port_lifecycle_parts_not_yet_ported_raise(tmp_path):
+    """Read replicas still raise (the distributed slice); the durable
+    lifecycle is real: attach a one-log WalSet, log dispatches into it,
+    checkpoint (base, then delta), and replay the tail on the snapshot."""
+    from repro_torch.storage.snapshot import SnapshotStore
+    from repro_torch.storage.wal import WalSet, iter_wal
+
     base = make_sift_like(400, DIM, seed=20)
     idx = port_index(base)
     with pytest.raises(NotImplementedError, match="replication"):
         ServeEngine(idx, replicas=object())
     be = LocalBackend(idx)
-    with pytest.raises(NotImplementedError, match="durability"):
-        be.attach_durability(object())
-    with pytest.raises(NotImplementedError, match="durability"):
-        be.checkpoint("unused")
+    with pytest.raises(ValueError, match="2 logs"):
+        be.attach_durability(WalSet(str(tmp_path / "wal2"), 2))
+    ws = WalSet(str(tmp_path / "wal"), 1)
+    be.attach_durability(ws)
+    assert be.wal_seqnos() == [-1]
+    snap = str(tmp_path / "snap")
+    assert be.checkpoint(snap).startswith("base-")
+    fresh = make_sift_like(40, DIM, seed=21)
+    be.insert(fresh[:32], np.arange(3000, 3032, dtype=np.int32), np.ones(32, bool))
+    be.delete(np.arange(3000, 3004, dtype=np.int32), np.ones(4, bool))
+    assert be.wal_seqnos() == [1]
+    assert [r.op for r in iter_wal(ws.shard_path(0))] == ["insert", "delete"]
+    assert bool(idx.state.pool.dirty.any())
+    assert be.checkpoint(snap, delta=True).startswith("delta-")
+    assert list(iter_wal(ws.shard_path(0))) == [] and not bool(be.index.state.pool.dirty.any())
+    be.maintain(2)
+    tail = list(iter_wal(ws.shard_path(0)))
+    assert [r.seqno for r in tail] == [2]
+    store = SnapshotStore(snap)
+    assert store.chain_len() == 1 and store.read_manifest()["extra"]["wal_seqnos"] == [1]
+    from repro_torch.core.types import make_empty_state
+    state, _ = store.load(make_empty_state(idx.state.cfg, device="meta"), device="cpu")
+    twin = LocalBackend(TIndex(state), track_access=False)
+    assert twin.replay(tail, after_seqno=1) == 1
+    a, b = tensor_leaves(be.index.state), tensor_leaves(twin.index.state)
+    assert not [k for k in a if not torch.equal(a[k], b[k])]
     be.wal_sync()
     be.close()
-    assert be.wal_seqnos() == [-1]
 
 
 # ---------------------------------------------------------------------------

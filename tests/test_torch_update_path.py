@@ -88,3 +88,24 @@ def test_serve_and_grouped_paths_rehearse_on_the_cpu():
         torch, np, 0, grouped, carry, live_ids, live_rows, device="cpu", grouped=geometry,
         floor=grouped_floor)
     assert grouped["full_gprobe_overlap"] > 0.9 and recall == grouped["recall_at_10"]
+
+
+def test_durable_path_rehearses_on_the_cpu(tmp_path):
+    """The smoke's ``durable`` path on the CPU, cut to 4 cooperative steps
+    (the delta after 2) and 2 async threads of 20 operations: both crashes
+    recover every leaf bit for bit, no update ticket resolves before its
+    fsync, and the report carries the numbers the card run prints."""
+    cfg = dataclasses.replace(SMOKE, num_blocks=2048, num_postings_cap=512,
+                              use_pallas_nav=True, use_pallas_scan=True,
+                              scan_schedule="batched")
+    report = {}
+    chip_smoke.durable_path(torch, np, 0, report, cfg=cfg, device="cpu", n=1500, steps=4,
+                            delta_at=2, threads=2, ops_each=20, async_rows=8,
+                            root_dir=tmp_path)
+    coop, asy = report["cooperative"], report["async_phase"]
+    assert 0 < coop["delta_bytes"] < 0.5 * coop["base_bytes"]
+    assert coop["recovery"]["replayed_records"] == coop["wal_tail_records"] > 0
+    assert coop["wal_fsyncs_per_dispatch"] < 1.0
+    assert asy["early_acks"] == 0 and asy["tally"]["violations"] == 0
+    assert asy["recovery"]["replayed_records"] == asy["dispatches"] > 0
+    assert list(tmp_path.iterdir()) == []          # the durable root was removed
