@@ -74,6 +74,22 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
    crash, and a bit-identical recovery again.  It prints the units' bytes
    and write seconds, the WAL's records, bytes and fsyncs a dispatch, and
    recovery split into load, upload and replay.
+   A seventh, ``sharded``, frees the earlier state and opens a sharded,
+   replicated, durable service (``api.open(service_spec(n_shards=4,
+   n_replicas=2, durable_root=...))``, each shard at the update cell's
+   geometry, ``UPDATE_N`` rows of its generator): one sharded search per
+   schedule and nprobe must equal the host merge of the four shards' own
+   searches and reach the reference's sharded recall minus 0.05, a dead
+   shard must leak no handle, and one ``search_begin`` over the four
+   shards must issue no host sync; 16 of the serve path's request steps
+   (deletes by handle; the engine's slots work the build's backlog down)
+   must land every insert, replay on a clone bit for bit on every shard
+   and leave the synced replica bit-identical; a crash recovers every
+   shard from the per-shard WALs; an async phase routes searches to the
+   replica (no ticket acked before its fsync), forces a catch-up past the
+   replica's window, and crashes and recovers again.  It prints state
+   bytes, the build, search p50 against the shards' own searches, ms a
+   sharded round, and recovery split into load, upload and replay.
    The launch counts are reset before each path and read after it, and
    every kernel of the path must have launched.
 4. Prints the ``kernels`` JSON line, the card's name and power limit, and
@@ -1019,6 +1035,7 @@ PATH_KERNELS = {
     "serve": ("l2_topk_tiles", "scan_batched_topk", "scan_per_query_topk"),
     "grouped": ("scan_batched_topk",),
     "durable": ("l2_topk_tiles", "scan_batched_topk", "scan_per_query_topk"),
+    "sharded": ("l2_topk_tiles", "scan_batched_topk", "scan_per_query_topk"),
 }
 
 
@@ -2122,6 +2139,480 @@ def durable_path(torch, np, seed, report, *, cfg=None, device="cuda", n=None,
     return report
 
 
+# ---------------------------------------------------------------------------
+# the sharded path: a sharded, replicated, durable service
+# ---------------------------------------------------------------------------
+
+SHARDS = 4
+REPLICAS = 2
+SHARDED_STEPS = 16
+SHARDED_GROUP_COMMIT = 8
+# The build's backlog is not drained first (a sharded round is four rounds
+# of host dispatch): the engine's slots work it down, each a round of
+# SHARDED_BUDGET jobs a shard, and a batch whose rows meet a full posting
+# retries after up to SHARDED_RETRIES of them.  At fewer, rows are dropped
+# (my chip runs, PR 20: 195 of 1,024 rows after 16 retries of 8 jobs, 16
+# after 16 retries of 64).
+SHARDED_BUDGET = 128
+SHARDED_RETRIES = 32
+SHARDED_THREADS = 4
+SHARDED_OPS = 40
+SHARDED_ROWS = 32
+SHARDED_WINDOW = 4
+SEARCH_REPS = 5
+# Recall@10 of the JAX reference's ShardedIndex (4 shards, 4 fake CPU
+# devices) built from the same UPDATE_N rows, by nprobe
+# (scripts/reference_recall.py, cell "sharded"); the port must reach each
+# minus RECALL_MARGIN.
+REFERENCE_RECALL_SHARDED_250K = {1: 0.4994140625, 64: 0.9576171875000001}
+
+
+def merge_of_shards(np, per_shard, n_cap, k):
+    """The tournament merge on the host: each shard's ``(d, v)`` with its
+    vids made handles, laid out shard-major, the ``k`` smallest kept in a
+    stable order."""
+    d = np.concatenate([x[0] for x in per_shard], axis=1)
+    v = np.concatenate([np.where(x[1] >= 0, s * n_cap + x[1], -1)
+                        for s, x in enumerate(per_shard)], axis=1)
+    sel = np.argsort(d, axis=1, kind="stable")[:, :k]
+    return np.take_along_axis(d, sel, 1), np.take_along_axis(v, sel, 1)
+
+
+def sharded_clients(np, engine, vecs_for, n_threads, ops_each, *, max_rows, pool, k=10,
+                    seed=300, on_update=None):
+    """``n_threads`` submitter threads of ``ops_each`` operations on a
+    sharded engine (handles, not vids): 50% searches of the thread's own
+    live rows, its last deleted ones and ``pool`` rows, 30% inserts of 1 to
+    ``max_rows`` rows, 20% deletes of its own handles.  A search ticket's
+    seqno is the seqno of the state that served it (a replica's, when it
+    was routed): an own row absent from its top-``k`` is a stale read when
+    that state predates the row's insert (what a replica within the
+    freshness bound may serve) and an ANN miss otherwise; a deleted handle
+    in a search served at or after its delete is a resurrection."""
+    import threading
+
+    tally = {"stale": 0, "misses": 0, "resurrected": 0, "checks": 0, "ops": 0}
+    lock = threading.Lock()
+    errors, dead_all = [], {}
+
+    def worker(tid):
+        trng = np.random.default_rng(seed + tid)
+        live, dead = {}, {}                       # handle -> (vector, seqno)
+        try:
+            for _ in range(ops_each):
+                op = trng.integers(0, 10)
+                m = int(trng.integers(1, max_rows + 1))
+                if op < 3 or not live:
+                    vecs = vecs_for(trng, m)
+                    tk = engine.submit_insert(vecs, np.full(m, -1, np.int32))
+                    h, landed = tk.result(timeout=JOIN_S)
+                    if on_update is not None:
+                        on_update(tk)
+                    if not landed.all():
+                        raise AssertionError(f"thread {tid}: an insert was dropped")
+                    for j in range(m):
+                        live[int(h[j])] = (vecs[j], tk.seqno)
+                elif op < 8:
+                    picks = [int(p) for p in trng.choice(sorted(live), size=min(len(live), m),
+                                                         replace=False)]
+                    gone = sorted(dead)[-min(4, m - len(picks)):] if m > len(picks) else []
+                    rest = m - len(picks) - len(gone)
+                    q = np.concatenate(
+                        [np.stack([live[p][0] for p in picks] + [dead[g][0] for g in gone]),
+                         pool[trng.integers(0, len(pool), rest)]]).astype(np.float32)
+                    tk = engine.submit_search(q, k=k)
+                    _, hit = tk.result(timeout=JOIN_S)
+                    with lock:
+                        for row, p in enumerate(picks):
+                            tally["checks"] += 1
+                            if p not in hit[row].tolist():
+                                tally["stale" if tk.seqno < live[p][1] else "misses"] += 1
+                        for row, g in enumerate(gone, start=len(picks)):
+                            if tk.seqno >= dead[g][1] and g in hit[row].tolist():
+                                tally["resurrected"] += 1
+                else:
+                    picks = trng.choice(sorted(live), size=min(len(live), m), replace=False)
+                    tk = engine.submit_delete(picks.astype(np.int32))
+                    tk.result(timeout=JOIN_S)
+                    if on_update is not None:
+                        on_update(tk)
+                    for p in picks:
+                        dead[int(p)] = (live.pop(int(p))[0], tk.seqno)
+                with lock:
+                    tally["ops"] += 1
+            with lock:
+                dead_all.update({h: x for h, (x, _) in dead.items()})
+        except BaseException as e:  # noqa: BLE001 — raised in the caller
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(t,), daemon=True) for t in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=JOIN_S)
+    check(not [t for t in threads if t.is_alive()], "sharded submitter threads hung")
+    if errors:
+        raise errors[0]
+    check(tally["ops"] == n_threads * ops_each, f"only {tally['ops']} operations ran")
+    return tally, dead_all
+
+
+def sharded_path(torch, np, seed, report, *, cfg=None, device="cuda", n=None,
+                 shards=SHARDS, steps=SHARDED_STEPS, threads=SHARDED_THREADS,
+                 ops_each=SHARDED_OPS, async_rows=SHARDED_ROWS, floors=None, root_dir=None):
+    """A sharded, replicated, durable service (``repro_torch.api``) at the
+    update cell's per-shard geometry, built from ``n`` rows of the
+    reference's generator: ``api.open(service_spec(n_shards=shards,
+    n_replicas=2, durable_root=...))``, the build's backlog left to the
+    engine's rounds.
+
+    * Tournament merge: one Q=1024 sharded search per schedule and nprobe
+      (64, 1) equals the host merge of the shards' own ``lire.search``
+      results (tie-tolerant), reaches ``floors`` (the reference's sharded
+      recall minus the margin) against brute force, and, with shard 2 set
+      dead, returns no handle of it; search p50 over ``SEARCH_REPS``.
+    * One ``search_begin`` under ``set_sync_debug_mode("error")`` returns
+      while the card still works; its readback equals the blocking search.
+    * ``steps`` of the serve path's request steps (deletes by handle) on
+      the cooperative engine, searches routed to the replica: every insert
+      lands after the retries; the recorded dispatch stream replays on a
+      clone of the starting shards bit for bit; the replica, synced, equals
+      the primary bit for bit (``states_equal``).
+    * Crash and ``api.open(spec)``: every shard's leaves bit for bit after
+      the per-shard WAL replay, the same search ids, no deleted handle.
+    * Async: the recovered service on the pump thread with ``threads``
+      submitter threads (:func:`sharded_clients`): searches routed to the
+      replica (routed and fallback batches, lag), no update ticket acked
+      before its fsync, no resurrection; a forced catch-up (the replica
+      paused past its window, then resumed) and ``states_equal`` at equal
+      seqno; no replica failed; a crash and a bit-identical recovery."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch import api
+    from repro_torch.configs.spfresh import SEARCH_Q, UPDATE_B, service_spec
+    from repro_torch.core import lire
+    from repro_torch.data.vectors import make_queries, make_spacev_like_bytes
+    from repro_torch.distributed import sharded_index as D
+    from repro_torch.distributed.replication import states_equal
+    from repro_torch.storage.durability import RecordingSink
+
+    cfg = cfg or path_config("fp32")
+    n = n or UPDATE_N
+    k, nprobe = 10, cfg.nprobe
+    if floors is None:
+        floors = {p: REFERENCE_RECALL_SHARDED_250K[q] - RECALL_MARGIN
+                  for p, q in ((1, 1), (nprobe, 64))}
+    n_fresh = steps * (SERVE_SEARCH_ROWS // 2)
+    data, gen_s = timed(torch, lambda: make_spacev_like_bytes(n + UPDATE_B, cfg.dim, seed=seed))
+    base = data[:n]
+    queries = make_queries(base, min(SEARCH_Q, n), seed=seed)
+    reqs = serve_requests(np, seed, n, np.arange(n, n + n_fresh), queries, data, steps=steps)
+    parent = root_dir or ROOT / "build"
+    os.makedirs(parent, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="sharded_", dir=parent)
+    spec = service_spec(n_shards=shards, n_replicas=REPLICAS, durable_root=root)
+    spec = dataclasses.replace(
+        spec, index=api.IndexSpec(config=cfg),
+        serve=dataclasses.replace(spec.serve, max_insert_retries=SHARDED_RETRIES),
+        maintenance=dataclasses.replace(spec.maintenance, maintain_budget=SHARDED_BUDGET),
+        durability=dataclasses.replace(spec.durability, group_commit=SHARDED_GROUP_COMMIT))
+    aspec = dataclasses.replace(
+        spec, serve=dataclasses.replace(spec.serve, async_serve=True, max_wait_ms=1.0),
+        scan=dataclasses.replace(spec.scan, scan_schedule="per_query"))
+    log(f"[sharded] data: make_spacev_like in bytes, N={n} over {shards} shards x "
+        f"{REPLICAS} copies, made in {gen_s:.1f} s; durable root on {fs_type(root)}")
+    current, wal_sets = [None], []
+
+    def opened(sp, **kw):
+        svc, s = timed(torch, lambda: api.open(sp, device=device, **kw))
+        current[0] = svc
+        wal_sets.append(svc.backend.wal_set)
+        return svc, s
+
+    def crash(svc):
+        svc.engine.shutdown(timeout=JOIN_S)      # no checkpoint, no close; stops the replica
+        current[0] = None
+
+    def same_shards(a, b, what):
+        for s, (x, y) in enumerate(zip(a, b)):
+            same_leaves(torch, x, y, f"{what}, shard {s}")
+
+    def healthy(svc, what):
+        rep = svc.replicas.report()
+        check(not any(r["failed"] for r in rep["per_replica"]), f"[sharded] {what}: a replica "
+              f"failed: {[r.error for r in svc.replicas.replicas]}")
+        return rep
+
+    # the build inside api.open, timed on its own
+    build_fn, build_s = D.ShardedIndex.__dict__["build"], []
+
+    def timed_build(*a, **kw):
+        out, secs = timed(torch, lambda: build_fn.__get__(None, D.ShardedIndex)(*a, **kw))
+        build_s.append(secs)
+        return out
+
+    try:
+        # ---- set-up: build every shard, clone the replica, the open-time base
+        D.ShardedIndex.build = staticmethod(timed_build)
+        try:
+            svc, open_s = opened(spec, vectors=base)
+        finally:
+            D.ShardedIndex.build = build_fn
+        handles = svc.initial_handles
+        check(bool((handles >= 0).all()), "[sharded] a base row got no handle")
+        be = svc.backend
+        per_shard = be.state_bytes()
+        base0 = dict(svc.last_checkpoint)
+        n_cap = cfg.num_vectors_cap
+        owners = np.bincount(handles // n_cap, minlength=shards)
+        log(f"[sharded] open {open_s:.1f} s (the partition and {shards} shard builds "
+            f"{build_s[0]:.1f} s, the replica's clone, the open-time base unit of "
+            f"{base0['bytes']} bytes in {base0['seconds']:.2f} s); rows per shard "
+            f"{owners.tolist()}; state bytes per "
+            f"shard {per_shard}, {sum(per_shard)} a copy, {REPLICAS * sum(per_shard)} with the "
+            f"replica; backlog {be.backlog()}")
+        report.update(n=n, shards=shards, replicas=REPLICAS, open_s=open_s, build_s=build_s[0],
+                      rows_per_shard=owners.tolist(), state_bytes_per_shard=per_shard,
+                      state_bytes_total=REPLICAS * sum(per_shard), base_bytes=base0["bytes"],
+                      base_write_s=base0["seconds"], backlog_after_build=be.backlog())
+
+        # ---- tournament merge, recall, dead shard, p50
+        q_t = torch.as_tensor(queries, device=device)
+        alive = be.shard_alive
+        base_t = torch.as_tensor(base, device=device)
+        recall, p50, shard_p50 = {}, {}, {}
+        for sched in ("batched", "per_query"):
+            flags = dict(use_pallas_scan=True, scan_schedule=sched)
+            for probes in (nprobe, 1):
+                d, v = (x.cpu().numpy() for x in D.sharded_search(
+                    be.states, q_t, alive, k=k, nprobe=probes, **flags))
+                own = [tuple(x.cpu().numpy() for x in lire.search(st, q_t, k=k, nprobe=probes,
+                                                                   **flags))
+                       for st in be.states]
+                md, mv = merge_of_shards(np, own, n_cap, k)
+                tol = 1e-3 + RTOL * np.abs(md)
+                check(bool(np.all(np.abs(d - md) <= tol)),
+                      f"[sharded] {sched}@{probes}: merged distances differ beyond {TOL_TEXT}")
+                swap = v != mv
+                tie = np.abs(np.diff(md, axis=1)) <= tol[:, 1:]
+                near = np.zeros_like(swap)
+                near[:, 1:] |= tie
+                near[:, :-1] |= tie
+                check(not bool((swap & ~near).any()),
+                      f"[sharded] {sched}@{probes}: the merge differs outside distance ties")
+                recall[f"{sched}@{probes}"] = recall_at_10(torch, base_t, queries, v, handles)
+            times = [timed(torch, lambda: D.sharded_search(be.states, q_t, alive, k=k,
+                                                           **flags))[1] * 1e3
+                     for _ in range(SEARCH_REPS)]
+            p50[sched] = statistics.median(times)
+            for s, st in enumerate(be.states):
+                times = [timed(torch, lambda: lire.search(st, q_t, k=k, **flags))[1] * 1e3
+                         for _ in range(SEARCH_REPS)]
+                shard_p50.setdefault(sched, []).append(statistics.median(times))
+        floor = {key: floors[int(key.split("@")[1])] for key in recall}
+        log(f"[sharded] the merge equals the host merge of the shards' own searches; recall@10 "
+            f"(schedule@nprobe) {recall}, floors {floor}; search p50 ms at Q={len(queries)} "
+            f"{p50}, each shard's own search {shard_p50} (sum "
+            f"{ {key: sum(x) for key, x in shard_p50.items()} })")
+        for key, r in recall.items():
+            check(r >= floor[key], f"[sharded] recall@10 {r} of {key} below {floor[key]}")
+        be.set_alive([s != 2 for s in range(shards)])
+        _, v = be.search(queries, k, nprobe)
+        be.set_alive([True] * shards)
+        check(not bool(((v // n_cap == 2) & (v >= 0)).any()), "[sharded] a dead shard leaked")
+        report.update(recall_at_10=recall, recall_floor=floor, search_p50_ms=p50,
+                      shard_search_p50_ms=shard_p50)
+
+        # ---- one dispatch with no host sync between the shards
+        if device == "cuda":
+            valid = np.ones(len(queries), bool)
+            want = be.search(queries, k, nprobe, valid)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(400_000_000)
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                fin = be.search_begin(queries, k, nprobe, valid)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            host_ms = (time.perf_counter() - t0) * 1e3
+            check(not torch.cuda.current_stream().query(),
+                  "[sharded] the card finished before search_begin returned")
+            got = fin()
+            check(bool(np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])),
+                  "[sharded] the deferred readback differs from the blocking search")
+            report["search_begin_host_ms"] = host_ms
+            log(f"[sharded] search_begin over {shards} shards under set_sync_debug_mode"
+                f"('error') returns after {host_ms:.2f} ms of host work, the card still busy")
+
+        # ---- cooperative steps: handles for the deletes, a recorded stream
+        rs = svc.replicas
+        before = be.fork_state()
+        rec = RecordingSink()
+
+        class Tee:
+            def publish(self, *a):
+                rs.publish(*a)
+                rec.publish(*a)
+
+        be.attach_replication(Tee())
+        dropped = []
+
+        def run(step_list):
+            for step in step_list:
+                for op, arr, vids in step:
+                    if op == "search":
+                        svc.search(arr)
+                    elif op == "insert":
+                        _, landed = svc.insert(arr)
+                        dropped.append(int((~landed).sum()))
+                    else:
+                        svc.delete(handles[vids].astype(np.int32))
+
+        routed0 = rs.routed
+        _, coop_s = timed(torch, lambda: run(reqs["steps"]))
+        be.attach_replication(rs)
+        crep = svc.report()
+        log(f"[sharded] cooperative steps {coop_s:.2f} s: {crep['insert_retries']} insert "
+            f"retries, {crep['maintenance']['rounds']} rounds in "
+            f"{crep['maintenance']['time_s']:.2f} s, backlog {crep['backlog']}")
+        check(sum(dropped) == 0 and crep["insert_dropped"] == 0,
+              f"[sharded] {sum(dropped)} insert rows dropped after {SHARDED_RETRIES} retries")
+        twin = D.ShardedIndex(cfg, before)
+        _, replay_s = timed(torch, lambda: twin.replay(rec.records))
+        same_shards(twin.states, be.states, "[sharded] replay of the cooperative stream")
+        del twin, before
+        _, sync_s = timed(torch, lambda: rs.wait_sync(timeout=JOIN_S))
+        check(states_equal(be.states, rs.replicas[0].backend.states),
+              "[sharded] the synced replica differs from the primary")
+        healthy(svc, "cooperative")
+        m = crep["maintenance"]
+        ms_round = m["time_s"] * 1e3 / m["rounds"] if m["rounds"] else None
+        ops = {op: sum(r.op == op for r in rec.records) for op in ("insert", "delete", "maintain")}
+        log(f"[sharded] cooperative: {steps} steps in {coop_s:.2f} s ({crep['insert_retries']} "
+            f"insert retries, 0 rows dropped); {len(rec.records)} dispatches {ops}; "
+            f"{m['rounds']} sharded rounds at {ms_round} ms; replay on a clone {replay_s:.2f} s, "
+            f"bit-identical on every shard; {rs.routed - routed0} search batches routed to the "
+            f"replica; replica synced in {sync_s:.2f} s, equal to the primary bit for bit")
+        report["cooperative"] = dict(seconds=coop_s, replay_s=replay_s, dispatches=ops,
+                                     ms_per_round=ms_round, report=crep,
+                                     routed=rs.routed - routed0, replica_sync_s=sync_s)
+
+        # ---- crash, recover every shard from the per-shard WALs
+        kept = be.fork_state()
+        want_d, want_v = svc.search(queries)
+        crash(svc)
+        del svc, be, rs
+        svc, reopen_s = opened(spec)
+        rcv = svc.recovery
+        check(svc.recovered, "[sharded] the reopened service did not recover")
+        same_shards(kept, svc.backend.states, "[sharded] recovery")
+        del kept
+        got_d, got_v = svc.search(queries)
+        check(bool(np.array_equal(got_v, want_v)), "[sharded] recovered search ids differ")
+        check(bool(np.all(np.abs(got_d - want_d) <= 1e-3 + RTOL * np.abs(want_d))),
+              f"[sharded] recovered distances differ beyond {TOL_TEXT}")
+        gone = handles[reqs["deleted"]]
+        _, v = svc.search(data[reqs["deleted"]])
+        check(not set(gone.tolist()) & set(v.reshape(-1).tolist()),
+              "[sharded] a deleted handle came back after recovery")
+        log(f"[sharded] crash + open {reopen_s:.2f} s: load {rcv['load_s']:.2f} s "
+            f"({rcv['snapshot_bytes']} bytes), upload {rcv['upload_s']:.2f} s, replay "
+            f"{rcv['replay_s']:.2f} s of {rcv['replayed_records']} records; every shard "
+            "bit-identical, the same ids, no deleted handle returned")
+        report["recovery"] = dict(rcv, reopen_s=reopen_s)
+        crash(svc)
+        del svc
+
+        # ---- async: the pump thread, searches routed to the replica
+        svc, aopen_s = opened(aspec)
+        rs, be = svc.replicas, svc.backend
+        ws = be.wal_set
+        durable = [ws.next_seqno - 1]
+        sync = ws.sync
+
+        def counted_sync():
+            sync()
+            durable[0] = ws.next_seqno - 1
+
+        ws.sync = counted_sync
+        early = []
+
+        def on_update(tk):
+            if tk.seqno > durable[0]:
+                early.append(tk.seqno)
+
+        def vecs_for(trng, m):
+            rows = base[trng.integers(0, n, m)] + trng.integers(-3, 4, (m, base.shape[1]))
+            return np.clip(rows, -127, 127).astype(np.float32)
+
+        routed0, fb0 = rs.routed, rs.fallback
+        (tally, dead), async_s = timed(torch, lambda: sharded_clients(
+            np, svc.engine, vecs_for, threads, ops_each, max_rows=async_rows, pool=queries,
+            k=k, seed=seed + 300, on_update=on_update))
+        svc.flush()
+        arep = svc.report()
+        lag_seen = max(r["lag"] for r in arep["replicas"]["per_replica"])
+        check(not early, f"[sharded] {len(early)} update tickets acked before their fsync")
+        check(tally["resurrected"] == 0, f"[sharded] {tally['resurrected']} deletes came back")
+        check(tally["misses"] <= ASYNC_MISS_LIMIT * tally["checks"],
+              f"[sharded] {tally['misses']} ANN misses in {tally['checks']} checks")
+        check(rs.routed > routed0, "[sharded] no search batch was routed to the replica")
+        # forced catch-up: the replica paused past its window, then resumed
+        rs.pause(0)
+        rs.window_cap = SHARDED_WINDOW
+        extra = [svc.insert(vecs_for(np.random.default_rng(seed + 400 + i), 8))[1].all()
+                 for i in range(SHARDED_WINDOW + 2)]
+        check(all(extra), "[sharded] a catch-up insert was dropped")
+        svc.flush()                      # the pump idle: no slot still due
+        lag_paused = rs.report()["per_replica"][0]["lag"]
+        rs.resume(0)
+        _, catch_s = timed(torch, lambda: rs.wait_sync(timeout=JOIN_S))
+        rrep = healthy(svc, "async")
+        check(rrep["per_replica"][0]["catchups"] >= 1, "[sharded] the replica did not catch up")
+        check(rrep["per_replica"][0]["applied_seqno"] == rrep["primary_seqno"],
+              "[sharded] the replica is not at the primary's seqno")
+        check(states_equal(be.states, rs.replicas[0].backend.states),
+              "[sharded] the caught-up replica differs from the primary")
+        log(f"[sharded] async: {threads} threads x {ops_each} ops in {async_s:.2f} s; "
+            f"{rs.routed - routed0} search batches routed to the replica, "
+            f"{rs.fallback - fb0} fell back to the primary, lag at the end {lag_seen}; "
+            f"{tally['checks']} visibility checks: {tally['stale']} stale reads, "
+            f"{tally['misses']} ANN misses, {tally['resurrected']} resurrections; 0 update "
+            f"tickets acked before their fsync; catch-up from a lag of {lag_paused} past a "
+            f"window of {SHARDED_WINDOW}: {rrep['per_replica'][0]['catchups']} fork(s), synced "
+            f"in {catch_s:.2f} s, equal to the primary bit for bit")
+        kept = be.fork_state()
+        crash(svc)
+        del svc, be, rs
+        svc, areopen_s = opened(aspec)
+        arcv = svc.recovery
+        same_shards(kept, svc.backend.states, "[sharded] async recovery")
+        del kept
+        if dead:
+            gone = np.asarray(sorted(dead), np.int64)
+            _, v = svc.backend.search(np.stack([dead[int(g)] for g in gone]), k, nprobe)
+            check(not set(gone.tolist()) & set(v.reshape(-1).tolist()),
+                  "[sharded] an async delete came back after recovery")
+        crash(svc)
+        log(f"[sharded] async crash + open {areopen_s:.2f} s (replay {arcv['replay_s']:.2f} s of "
+            f"{arcv['replayed_records']} records): every shard bit-identical")
+        report["async_phase"] = dict(
+            seconds=async_s, tally=tally, routed=arep["replicas"]["routed_batches"],
+            fallback=arep["replicas"]["fallback_primary"], lag_at_end=lag_seen,
+            lag_paused=lag_paused, catchup_s=catch_s, replicas=rrep, report=arep,
+            early_acks=len(early), open_s=aopen_s, recovery=dict(arcv, reopen_s=areopen_s))
+    finally:
+        if current[0] is not None:
+            current[0].engine.shutdown(timeout=JOIN_S)
+        for ws in wal_sets:
+            ws.close()
+        shutil.rmtree(root, ignore_errors=True)
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="chip smoke for the PyTorch/CUDA port")
     ap.add_argument("--seed", type=int, default=0)
@@ -2267,6 +2758,22 @@ def main() -> int:
         f"{rec['load_s']:.2f} s, upload {rec['upload_s']:.2f} s, replay {rec['replay_s']:.2f} s "
         f"({coop['replayed_records_per_s']} records/s); root on {dur['fs']} ({card})")
     log(f"[durable] launches on the path: {got}; {dur['seconds']:.1f} s ({card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    reset()
+    report["sharded"] = {}
+    t0 = time.perf_counter()
+    sharded_path(torch, np, args.seed, report["sharded"])
+    report["sharded"]["seconds"] = time.perf_counter() - t0
+    got = launched("sharded")
+    sh = report["sharded"]
+    log(f"[sharded] {sh['shards']} shards x {sh['replicas']} copies, "
+        f"{sh['state_bytes_total']} bytes of state; search p50 {sh['search_p50_ms']} ms; "
+        f"{sh['cooperative']['ms_per_round']} ms a sharded round; recovery load "
+        f"{sh['recovery']['load_s']:.2f} s, upload {sh['recovery']['upload_s']:.2f} s, replay "
+        f"{sh['recovery']['replay_s']:.2f} s; launches on the path: {got}; "
+        f"{sh['seconds']:.1f} s ({card})")
     for name, n in launches.items():
         results[name]["launches"] = n
     for name in ("l2_topk_tiles", "scan_batched", "scan_batched_topk", "scan_batched_topk_q8"):

@@ -21,7 +21,11 @@ unchanged), once per cell of the smoke:
   reference's ``ServeEngine`` under the smoke's ``EngineConfig``, then
   ``engine.drain()``; ground truth over the live rows.  It also builds
   the two-level group index (512 groups of 256) and measures
-  ``search_grouped`` at gprobe 32.
+  ``search_grouped`` at gprobe 32;
+* ``sharded`` on the ``update`` cell's N and data: the reference's
+  ``ShardedIndex`` over 4 shards on 4 fake CPU devices (this script sets
+  ``XLA_FLAGS`` for them before JAX starts), built and searched, handles
+  against brute force over the base (about 30 minutes on 8 CPU cores).
 
 Each searches 1,024 queries from ``make_queries`` with k=10 through the
 gather oracle at nprobe=1 and at the config's nprobe=64 and prints
@@ -36,19 +40,28 @@ import argparse
 import dataclasses
 import gc
 import json
+import os
 import sys
 from pathlib import Path
 
-import jax
-import jax.numpy as jnp
-import numpy as np
+# the sharded cell's mesh: fake CPU devices exist only if asked for before
+# JAX starts (the other cells run on the first device)
+SHARDS = 4
+os.environ["XLA_FLAGS"] = (f"--xla_force_host_platform_device_count={SHARDS} "
+                           + os.environ.get("XLA_FLAGS", ""))
 
-from repro.configs.spfresh import CONFIG
-from repro.core import clustering
-from repro.core.grouping import build_group_index, search_grouped
-from repro.core.index import SPFreshIndex
-from repro.serve.engine import EngineConfig, ServeEngine
-from repro_torch.data.vectors import make_queries, make_spacev_int8, make_spacev_like_bytes
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.configs.spfresh import CONFIG  # noqa: E402
+from repro.core import clustering  # noqa: E402
+from repro.core.grouping import build_group_index, search_grouped  # noqa: E402
+from repro.core.index import SPFreshIndex  # noqa: E402
+from repro.serve.engine import EngineConfig, ServeEngine  # noqa: E402
+from repro_torch.data.vectors import (  # noqa: E402
+    make_queries, make_spacev_int8, make_spacev_like_bytes,
+)
 
 N = 20_000
 UPDATE_N = 250_000
@@ -56,7 +69,7 @@ UPDATE_INSERT = 4096
 QUERIES = 1024
 NPROBES = (1, CONFIG.nprobe)
 CELLS = {"fp32": {}, "int8": {"codec": "int8", "rerank_factor": 4}, "update": {},
-         "serve": {}}
+         "serve": {}, "sharded": {}}
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402  (the serve phase's requests)
 
@@ -127,6 +140,25 @@ def grouped_recall(idx, queries, rows, ids, *, n_groups, capacity, gprobe, chunk
     return recall_of(ground_truth(queries, rows, ids), np.concatenate(got))
 
 
+def sharded_recall(cfg, n: int, seed: int, queries_n: int = QUERIES, chunk: int = 64):
+    """The reference's ``ShardedIndex`` over ``SHARDS`` shards on ``n`` rows
+    of the update cell's data: recall@10 by nprobe (queries in chunks: the
+    gather oracle holds ``(Q, nprobe·cap, d)`` a shard) and the stats."""
+    from repro.distributed.sharded_index import ShardedIndex
+
+    base = make_spacev_like_bytes(n + UPDATE_INSERT, cfg.dim, seed=seed)[:n]
+    queries = make_queries(base, queries_n, seed=seed)
+    mesh = jax.make_mesh((SHARDS,), ("model",))
+    idx, handles = ShardedIndex.build(mesh, cfg, base, SHARDS, seed=seed)
+    gt = ground_truth(queries, base, handles)
+    recall = {}
+    for nprobe in NPROBES:
+        got = [idx.search(queries[s:s + chunk], 10, nprobe)[1]
+               for s in range(0, len(queries), chunk)]
+        recall[nprobe] = recall_of(gt, np.concatenate(got))
+    return recall, idx.stats()
+
+
 def _bounded_compiles(kmeans, every: int = 50):
     """``kmeans`` dropping JAX's compiled executables every ``every``
     calls.  The build compiles ``balanced_kmeans`` once per distinct node
@@ -151,12 +183,18 @@ def main() -> None:
     args = ap.parse_args()
     clustering.balanced_kmeans = _bounded_compiles(clustering.balanced_kmeans)
     for cell in args.cells.split(","):
-        n = UPDATE_N if cell in ("update", "serve") else N
+        n = UPDATE_N if cell in ("update", "serve", "sharded") else N
         cfg = dataclasses.replace(
             CONFIG, num_blocks=max(8192, n // 4),
             num_postings_cap=max(2048, n // 16), num_vectors_cap=2 * n, **CELLS[cell],
         )
         extra = {}
+        if cell == "sharded":
+            recall, stats = sharded_recall(cfg, n, args.seed)
+            print(json.dumps({"cell": cell, "n": n, "shards": SHARDS, "queries": QUERIES,
+                              "seed": args.seed, "recall_at_10_by_nprobe": recall,
+                              "stats": stats}, default=str))
+            continue
         if cell == "update":
             idx, queries, rows, ids = update_sequence(cfg, n, UPDATE_INSERT, args.seed)
         elif cell == "serve":

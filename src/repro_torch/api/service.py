@@ -28,8 +28,14 @@ Lifecycle::
 Replay is bit-deterministic: the WAL records *dispatches* (padded arrays,
 masks, maintenance rounds) rather than requests, and every dispatch is a
 deterministic function of (state, batch) — so a recovered service holds
-the same state, leaf for leaf, as the uncrashed one.  The port runs the
-single-device backend; sharded and replicated specs raise.
+the same state, leaf for leaf, as the uncrashed one.
+
+The same spec (modulo :class:`~repro_torch.api.spec.ShardSpec`) opens a
+single-index service or an N-shard one (``distributed/sharded_index.py``:
+one WAL per shard, one stacked snapshot unit), with ``n_replicas - 1``
+read replicas cloned from the primary after recovery and fed by its
+dispatch stream (``distributed/replication.py``).  Every shard and
+replica lives on ``device``.
 """
 from __future__ import annotations
 
@@ -41,7 +47,10 @@ import torch
 from repro_torch.api.spec import ServiceSpec
 from repro_torch.convert import fill_state
 from repro_torch.core.index import SPFreshIndex
-from repro_torch.core.types import make_empty_state, resolve_device
+from repro_torch.core.types import make_empty_state
+from repro_torch.distributed.replication import ReplicaSet
+from repro_torch.distributed.sharded_index import ShardedIndex
+from repro_torch.distributed.sharding import replica_layout
 from repro_torch.serve.engine import LocalBackend, ServeEngine
 from repro_torch.storage.durability import check_replay_config
 from repro_torch.storage.snapshot import SnapshotStore
@@ -85,12 +94,18 @@ class Service:
 
     # ------------------------------ serving ----------------------------
     @property
-    def backend(self) -> LocalBackend:
+    def backend(self) -> LocalBackend | ShardedIndex:
         return self.engine.backend
 
     @property
-    def index(self) -> SPFreshIndex:
+    def index(self) -> SPFreshIndex | None:
+        """The single index (None on the sharded backend)."""
         return self.engine.index
+
+    @property
+    def replicas(self) -> ReplicaSet | None:
+        """The bound ReplicaSet (None when ``n_replicas == 1``)."""
+        return self.engine.replicas
 
     def search(
         self, queries: np.ndarray, *, k: int | None = None,
@@ -100,10 +115,11 @@ class Service:
 
     def insert(self, vecs: np.ndarray, vids: np.ndarray | None = None,
                ) -> tuple[np.ndarray, np.ndarray]:
-        """Returns ``(ids, landed)``.  The version map is keyed by caller
-        vids, so they are required."""
+        """Returns ``(ids, landed)``.  The sharded backend assigns its own
+        ``(shard, slot)`` handles — pass ``vids=None`` there; the single
+        index keys the version map by caller vids, so they are required."""
         vecs = np.asarray(vecs, np.float32)
-        vids = self._resolve_vids(vids)
+        vids = self._resolve_vids(vecs, vids)
         ids, landed = self.engine.submit_insert(vecs, vids).result()
         self._wal_ack()
         self._note_updates(len(vecs))
@@ -118,7 +134,7 @@ class Service:
         many update dispatches share a single durability point while the
         ack-after-fsync contract holds (nothing is returned pre-sync)."""
         vecs = np.asarray(vecs, np.float32)
-        vids = self._resolve_vids(vids)
+        vids = self._resolve_vids(vecs, vids)
         chunk = chunk or self.spec.serve.max_batch
         tickets = [
             self.engine.submit_insert(vecs[s:s + chunk], vids[s:s + chunk])
@@ -134,10 +150,11 @@ class Service:
         self._note_updates(len(vecs))
         return ids, landed
 
-    @staticmethod
-    def _resolve_vids(vids):
+    def _resolve_vids(self, vecs, vids):
         if vids is None:
-            raise ValueError("the local backend requires caller vids")
+            if not self.spec.sharded:
+                raise ValueError("the local backend requires caller vids")
+            return np.full(len(vecs), -1, np.int32)
         return np.asarray(vids, np.int32)
 
     def delete(self, vids: np.ndarray) -> None:
@@ -315,8 +332,8 @@ def open(
     """Open a SPFresh service described by ``spec`` on ``device``.
 
     * With a durable root whose snapshot exists: **recover** — load the
-      snapshot, replay the WAL tail through the backend, and resume
-      serving (``vectors`` is ignored; the snapshot is truth).
+      snapshot, replay each shard's WAL tail through the backend, and
+      resume serving (``vectors`` is ignored; the snapshot is truth).
     * Otherwise **build** from ``vectors`` (required); durable roots get
       an open-time checkpoint so the offline build itself survives a
       crash before the first explicit ``checkpoint()``.
@@ -324,9 +341,15 @@ def open(
     ``fresh=True`` forces the build path even when a snapshot exists —
     the durable root's previous contents are superseded by the new
     open-time checkpoint (a rebuild, not a recovery).
+
+    The same spec (modulo :class:`ShardSpec`) opens a single-index or an
+    N-shard service; read replicas are cloned after recovery, so they
+    start bit-identical to the recovered primary.
     """
     spec.validate()
-    dev = resolve_device(device)
+    # row 0 of the layout is the primary's, the others the replicas'
+    layout = replica_layout(spec.shards.n_replicas, spec.shards.n_shards, device)
+    dev = layout[0][0]
     cfg = spec.lire_config()
     dur = spec.durability
     store = SnapshotStore(dur.resolved_snapshot_dir()) if dur.enabled else None
@@ -337,7 +360,7 @@ def open(
         # Validate the stamped config BEFORE any state is built: a
         # geometry drift must fail with field names, not a leaf-shape
         # mismatch.
-        check_replay_config(store.read_manifest(), cfg, n_shards=1)
+        check_replay_config(store.read_manifest(), cfg, n_shards=spec.shards.n_shards)
     if not can_recover and vectors is None:
         raise FileNotFoundError(
             "no snapshot to recover and no vectors to build"
@@ -345,7 +368,18 @@ def open(
 
     initial_handles: np.ndarray | None = None
     recovery: dict | None = None
-    if can_recover:
+    if spec.sharded:
+        kwargs = dict(probe_chunk=spec.scan.probe_chunk, use_pallas_scan=spec.scan.use_pallas_scan,
+                      scan_schedule=spec.scan.scan_schedule, jobs_per_round=cfg.jobs_per_round)
+        if can_recover:
+            backend, manifest = ShardedIndex.restore(
+                cfg, dur.resolved_snapshot_dir(), spec.shards.n_shards, device=dev, **kwargs)
+            recovery = dict(backend.restore_seconds)
+        else:
+            backend, initial_handles = ShardedIndex.build(
+                cfg, np.asarray(vectors, np.float32), spec.shards.n_shards,
+                seed=spec.index.seed, device=dev, **kwargs)
+    elif can_recover:
         # the state is filled on the card straight from the snapshot's
         # arrays; the template lives on the meta device
         template = make_empty_state(cfg, device="meta")
@@ -366,15 +400,16 @@ def open(
         backend = _local_backend(spec, index)
 
     if dur.enabled:
-        wal_set = WalSet(dur.resolved_wal_dir(), 1)
+        wal_set = WalSet(dur.resolved_wal_dir(), spec.shards.n_shards)
         if dur.group_commit > 1:
             wal_set.set_group_commit(dur.group_commit, dur.group_commit_ms)
         if recovery is not None:
             t0 = time.perf_counter()
             records = wal_set.recover_records()
-            if dur.compact_wal:
+            if dur.compact_wal and not spec.sharded:
                 # Replay-speed knob: dead insert rows (vid deleted later
-                # in the log) never re-land.
+                # in the log) never re-land.  Single index only — the
+                # sharded stream's handle assignment is positional.
                 records, _dropped = compact_wal_records(records)
             after = min(manifest.get("extra", {}).get("wal_seqnos", [-1]))
             # The checkpoint truncated the log: seqno numbering must
@@ -406,7 +441,24 @@ def open(
                     "or point DurabilitySpec at a clean root)"
                 )
 
-    engine = ServeEngine(backend, spec.engine_config())
+    replicas = None
+    if spec.replicated:
+        # Clone the read replicas AFTER durability attach + replay so a
+        # recovered service's replicas start bit-identical to the
+        # recovered primary at its applied seqno; attach the publish sink
+        # before the engine exists so no logged dispatch can slip past
+        # the stream.  Workers start only after bind() (catch-up needs the
+        # engine's exclusive lock).
+        clones = [backend.clone(row[0]) if spec.sharded else backend.clone()
+                  for row in layout[1:]]
+        replicas = ReplicaSet(backend, clones, max_lag=spec.serve.max_lag,
+                              inflight=spec.serve.replica_inflight)
+        backend.attach_replication(replicas)
+
+    engine = ServeEngine(backend, spec.engine_config(), replicas=replicas)
+    if replicas is not None:
+        replicas.bind(engine)
+        replicas.start()
     svc = Service(
         spec, engine, initial_handles=initial_handles,
         recovered=recovery is not None, recovery=recovery,

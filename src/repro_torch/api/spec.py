@@ -4,11 +4,11 @@ Every knob of ``LireConfig``, ``EngineConfig`` and the durability
 lifecycle lives in exactly one frozen sub-spec here;
 ``repro_torch.api.open(spec)`` compiles the spec into a running
 :class:`~repro_torch.api.service.Service`.  The sub-specs are the JAX
-package's (``repro.api.spec``), field for field, less the read-replica
-routing knobs and the mesh axes of the distributed deployment, which the
-port does not run yet, and ``ScanSpec.pallas_interpret`` (the port's
-kernels have no interpret mode; ``LireConfig`` keeps the field so a
-stamped config still compares).
+package's (``repro.api.spec``), field for field, less the mesh axis names
+of the distributed deployment (the port places shards and replicas on a
+device, not a mesh) and ``ScanSpec.pallas_interpret`` (the port's kernels
+have no interpret mode; ``LireConfig`` keeps the field so a stamped
+config still compares).
 
 Sub-specs (all frozen dataclasses, composable with ``dataclasses.replace``):
 
@@ -19,7 +19,7 @@ Sub-specs (all frozen dataclasses, composable with ``dataclasses.replace``):
                                (compiles to ``EngineConfig``)
   * :class:`MaintenanceSpec` — Local-Rebuilder round shape / budget
   * :class:`DurabilitySpec`  — WAL dir, snapshot dir, checkpoint cadence
-  * :class:`ShardSpec`       — shard and replica counts (1 and 1 here)
+  * :class:`ShardSpec`       — shard and read-replica counts
 """
 from __future__ import annotations
 
@@ -27,10 +27,6 @@ import dataclasses
 import os
 
 from repro_torch.core.types import LireConfig
-
-_DISTRIBUTED = ("sharded and replicated services are not ported yet: they come "
-                "with the distributed slice (sharding.py, sharded_index.py, "
-                "replication.py)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,6 +82,14 @@ class ServeSpec:
     # fsync.  max_wait_ms is the batch-formation window (async only).
     async_serve: bool = False
     max_wait_ms: float = 0.0
+    # --- read replicas (serve/engine.py + distributed/replication.py) ---
+    # With ShardSpec.n_replicas > 1 the pump routes search batches to
+    # replica workers round-robin; max_lag is the freshness bound (a
+    # replica more than max_lag WAL seqnos behind the primary is skipped
+    # and the batch falls back to the primary), replica_inflight caps the
+    # routed-but-unfinished batches a single replica may hold.
+    max_lag: int = 64
+    replica_inflight: int = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,9 +170,17 @@ class DurabilitySpec:
 
 @dataclasses.dataclass(frozen=True)
 class ShardSpec:
-    """Shard and replica counts.  ``n_shards=1, n_replicas=1`` selects the
-    single-device backend, the only one the port runs (``validate`` raises
-    for more)."""
+    """Shard and replica counts.  ``n_shards=1`` selects the single-index
+    backend; ``n_shards > 1`` the sharded one (``distributed/
+    sharded_index.py``), its shards partitioned in centroid space.
+
+    ``n_replicas > 1`` adds read replicas: ``n_replicas`` full copies of
+    the index, the primary (copy 0) alone running the WAL-append +
+    dispatch order, and every logged dispatch streamed to the others
+    through a bounded window replayed in seqno order (``distributed/
+    replication.py``).  Replication composes with sharding.  Every shard
+    of every copy lives on the one device ``open`` is given.
+    """
 
     n_shards: int = 1
     n_replicas: int = 1
@@ -184,6 +196,14 @@ class ServiceSpec:
     maintenance: MaintenanceSpec = MaintenanceSpec()
     durability: DurabilitySpec = DurabilitySpec()
     shards: ShardSpec = ShardSpec()
+
+    @property
+    def sharded(self) -> bool:
+        return self.shards.n_shards > 1
+
+    @property
+    def replicated(self) -> bool:
+        return self.shards.n_replicas > 1
 
     # ------------------------------------------------------------------
     def lire_config(self) -> LireConfig:
@@ -236,17 +256,19 @@ class ServiceSpec:
             max_insert_retries=sv.max_insert_retries,
             async_serve=sv.async_serve,
             max_wait_ms=sv.max_wait_ms,
+            max_lag=sv.max_lag,
+            replica_inflight=sv.replica_inflight,
         )
 
     def validate(self) -> None:
         self.lire_config()  # folds + validates
         if self.shards.n_shards < 1 or self.shards.n_replicas < 1:
             raise ValueError(f"shard and replica counts must be >= 1: {self.shards}")
-        if self.shards.n_shards > 1 or self.shards.n_replicas > 1:
-            raise NotImplementedError(_DISTRIBUTED)
         checks = [
             (self.serve.policy in ("ratio", "backlog"), f"serve.policy {self.serve.policy!r}"),
             (self.serve.max_wait_ms >= 0, "serve.max_wait_ms >= 0"),
+            (self.serve.max_lag >= 0, "serve.max_lag >= 0"),
+            (self.serve.replica_inflight >= 1, "serve.replica_inflight >= 1"),
             (self.durability.checkpoint_every >= 0, "checkpoint_every >= 0"),
             (self.durability.delta_every >= 0 and self.durability.compact_every >= 0,
              "delta_every, compact_every >= 0"),
@@ -276,4 +298,23 @@ class ServiceSpec:
             self, durability=dataclasses.replace(
                 self.durability, root=root, **kw
             )
+        )
+
+    def with_shards(self, n_shards: int, **kw) -> "ServiceSpec":
+        """Convenience: the same service over ``n_shards`` shards."""
+        return dataclasses.replace(
+            self, shards=dataclasses.replace(self.shards, n_shards=n_shards, **kw)
+        )
+
+    def with_replicas(self, n_replicas: int, *, max_lag: int | None = None,
+                      ) -> "ServiceSpec":
+        """Convenience: the same service with ``n_replicas`` copies in all
+        (the primary and ``n_replicas - 1`` read replicas)."""
+        serve = self.serve if max_lag is None else dataclasses.replace(
+            self.serve, max_lag=max_lag
+        )
+        return dataclasses.replace(
+            self,
+            serve=serve,
+            shards=dataclasses.replace(self.shards, n_replicas=n_replicas),
         )

@@ -1,9 +1,10 @@
 """spfresh-1b per-shard geometry — the paper's SPACEV1B regime.
 
-One LIRE shard per device holds ~2M live vectors (≈8M replica slots) with
-int8 payloads.  The shard-mesh cells of the reference are not ported; this
+One LIRE shard holds ~2M live vectors (≈8M replica slots) with int8
+payloads.  The reference's shard-mesh dry-run cells are not ported; this
 module carries the per-shard configs, the serving step shapes and the
-service spec.
+service spec (whose ``n_shards`` / ``n_replicas`` open a sharded and
+replicated service).
 """
 from __future__ import annotations
 
@@ -64,21 +65,23 @@ CONFIG_PAGED = dataclasses.replace(
 
 def service_spec(*, paged: bool = True, smoke: bool = False,
                  n_shards: int = 1, durable_root: str | None = None,
-                 n_replicas: int = 1):
+                 n_replicas: int = 1, max_lag: int = 64):
     """The production ServiceSpec for spfresh-1b (or its smoke twin).
 
     ``repro_torch.api.open(service_spec(smoke=True), vectors=...)`` stands
     up a runnable miniature of the deployment; ``durable_root`` roots its
-    WAL and snapshots.  ``n_shards`` and ``n_replicas`` above 1 name the
-    distributed deployment, which the port does not run yet (``open``
-    raises).
+    WAL and snapshots.  ``n_shards > 1`` partitions the index over that
+    many shards; ``n_replicas > 1`` adds read replicas fed by the WAL
+    dispatch stream, ``max_lag`` their freshness bound in WAL seqnos
+    before a search falls back to the primary.
     """
     from repro_torch import api
 
     base = SMOKE if smoke else (CONFIG_PAGED if paged else CONFIG)
     return api.ServiceSpec(
         index=api.IndexSpec(config=base),
-        serve=api.ServeSpec(search_k=10, nprobe=base.nprobe, max_batch=SEARCH_Q),
+        serve=api.ServeSpec(search_k=10, nprobe=base.nprobe, max_batch=SEARCH_Q,
+                            max_lag=max_lag),
         scan=api.ScanSpec(probe_chunk=PROBE_CHUNK),
         maintenance=api.MaintenanceSpec(
             jobs_per_round=base.jobs_per_round,

@@ -5,6 +5,11 @@ format is a flat ``{"pool.blocks": ndarray, "centroids": ndarray, ...}``
 map of numpy arrays, named by attribute path; ``rng`` is the reference's
 raw ``(2,)`` uint32 PRNG key.  bfloat16 leaves travel as their uint16 bit
 patterns (numpy has no bfloat16 of its own).
+
+A sharded index is the reference's ONE stacked state (every leaf with a
+leading ``(n_shards,)`` axis) and the port's list of per-shard states:
+:func:`sharded_state_from_numpy` and :func:`sharded_state_to_numpy` carry
+it across in both directions.
 """
 from __future__ import annotations
 
@@ -54,6 +59,28 @@ def state_from_numpy(cfg: LireConfig, leaves: dict, *, device="cuda") -> IndexSt
     shape; dtypes are the port's own (which are the reference's)."""
     dev = resolve_device(device)
     return fill_state(make_empty_state(cfg, device="meta"), leaves, device=dev)
+
+
+def sharded_state_from_numpy(cfg: LireConfig, leaves: dict, n_shards: int, *,
+                             device="cuda") -> list[IndexState]:
+    """The port's per-shard states from the reference's stacked leaves
+    (each ``(n_shards, ...)``, the layout of ``stack_states``): shard ``s``
+    holds every leaf's ``[s]`` slice on ``device``."""
+    dev = resolve_device(device)
+    template = make_empty_state(cfg, device="meta")
+    for name, arr in leaves.items():
+        if np.shape(arr)[:1] != (n_shards,):
+            raise ValueError(f"{name}: leading axis {np.shape(arr)[:1]} != ({n_shards},)")
+    return [fill_state(template, {name: np.asarray(arr)[s] for name, arr in leaves.items()},
+                       device=dev)
+            for s in range(n_shards)]
+
+
+def sharded_state_to_numpy(states: list[IndexState]) -> dict[str, np.ndarray]:
+    """Inverse of :func:`sharded_state_from_numpy`: each leaf stacked over
+    the shards on the host (the reference's ``stack_states`` layout)."""
+    per = [state_to_numpy(st) for st in states]
+    return {name: np.stack([p[name] for p in per]) for name in per[0]}
 
 
 def _rebuild(template, got: dict, prefix: str = ""):

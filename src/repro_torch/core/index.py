@@ -296,6 +296,16 @@ def check_vids(vids: np.ndarray, cfg: LireConfig) -> None:
                          f"{np.unique(vids[bad])[:8].tolist()}")
 
 
+def upload(x, device: torch.device, dtype=None) -> torch.Tensor:
+    """Host array ``x`` on ``device``.  It goes to the card through pinned
+    memory without blocking the host, ordered on the current stream (a
+    pageable copy would wait for the stream)."""
+    t = torch.as_tensor(np.asarray(x)).to(dtype=dtype)
+    if device.type != "cuda":
+        return t
+    return t.contiguous().pin_memory().to(device, non_blocking=True)
+
+
 def _pad_to(x: np.ndarray, size: int, fill=0) -> np.ndarray:
     pad = size - x.shape[0]
     if pad <= 0:
@@ -324,14 +334,7 @@ class SPFreshIndex:
         return cls(build_state(cfg, vectors, seed=seed, device=device), wal_path=wal_path)
 
     def _t(self, x, dtype=None) -> torch.Tensor:
-        """``x`` on the state's device.  A host array goes to the card
-        through pinned memory without blocking the host, ordered on the
-        current stream (a pageable copy would wait for the stream)."""
-        dev = self.state.device
-        t = torch.as_tensor(np.asarray(x)).to(dtype=dtype)
-        if dev.type != "cuda":
-            return t
-        return t.contiguous().pin_memory().to(dev, non_blocking=True)
+        return upload(x, self.state.device, dtype)
 
     # ---------------------------- Updater -----------------------------
     def insert(self, vecs, vids, *, log: bool = True, max_retries: int = 4) -> None:

@@ -726,13 +726,14 @@ def _split_jobs(state: IndexState, pids, enable, *, draw=None, inplace: bool = F
     return state, ok | gc_wb, cand
 
 
-def split_posting(state: IndexState, pid, enable, *, inplace: bool = False):
+def split_posting(state: IndexState, pid, enable, *, draw=None, inplace: bool = False):
     """Split job: GC the posting; if still oversized, balanced-2-means split
     it, then reassign over the split and ``reassign_range`` neighbours.
-    K=1 form of :func:`_split_jobs`; returns ``(state, acted)``."""
+    K=1 form of :func:`_split_jobs` (``draw`` as there); returns
+    ``(state, acted)``."""
     pid = torch.as_tensor(pid, device=state.device).reshape(1)
     enable = torch.as_tensor(enable, device=state.device).reshape(1)
-    state, acted, cand = _split_jobs(state, pid, enable, inplace=inplace)
+    state, acted, cand = _split_jobs(state, pid, enable, draw=draw, inplace=inplace)
     if state.cfg.enable_reassign:
         state = _execute_reassigns(state, *cand, inplace=inplace)
     return state, acted[0]
@@ -836,11 +837,12 @@ def merge_posting(state: IndexState, pid, enable, *, inplace: bool = False):
 # Maintenance driver (the Local Rebuilder queue, discovered by length scan)
 # ---------------------------------------------------------------------------
 
-def maintenance_step(state: IndexState, *, inplace: bool = False):
+def maintenance_step(state: IndexState, *, draw=None, inplace: bool = False):
     """One sequential rebuild step: split the longest posting (if over
     ``split_limit``), merge the shortest (if under ``merge_limit``).
     Returns ``(state, did_work)``; :func:`maintenance_round` is the
-    batched K-job form."""
+    batched K-job form.  ``draw`` injects the split's random draw (see
+    :func:`_split_jobs`)."""
     cfg = state.cfg
     lens = state.pool.posting_len
     valid = state.centroid_valid
@@ -853,7 +855,7 @@ def maintenance_step(state: IndexState, *, inplace: bool = False):
     merge_pid = torch.argmin(merge_scores)
     want_merge = merge_scores.amin() < cfg.merge_limit
     state, split_acted = split_posting(
-        state, split_pid, split_scores.amax() > cfg.split_limit, inplace=inplace
+        state, split_pid, split_scores.amax() > cfg.split_limit, draw=draw, inplace=inplace
     )
     if not cfg.enable_merge:
         want_merge = torch.zeros_like(want_merge)

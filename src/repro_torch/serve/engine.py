@@ -31,7 +31,9 @@ ordered before the next update's writes: one stream orders them, with no
 event between a search and the update after it.  No thread sets a stream,
 so that stream is the device's default one, which a checkpoint under
 ``exclusive()`` on the caller's thread also queues its copies on (see
-``storage/durability.py``).
+``storage/durability.py``), and so do the read replicas' worker threads
+(``distributed/replication.py``): the pump offers each search batch to
+them first.
 
 Background maintenance (the Local Rebuilder) is scheduled by a
 pluggable :class:`~repro_torch.serve.policy.MaintenancePolicy` — the
@@ -343,6 +345,9 @@ class EngineConfig:
     async_serve: bool = False
     max_wait_ms: float = 0.0     # batch-formation window (async queue)
     max_inflight: int = 2        # deferred search readbacks in flight
+    # --- read replicas (distributed/replication.py) ---
+    max_lag: int = 64            # replica freshness bound (WAL seqnos)
+    replica_inflight: int = 2    # routed batches per replica in flight
     # Deferred background slots tolerated before one runs inline even
     # under load — keeps the steady-state slot rate equal to sync mode's
     # when the queue never goes idle.
@@ -462,6 +467,9 @@ class ServeEngine:
       thread) must run under ``exclusive()``.
     * Durable update tickets are signaled only after the covering WAL
       fsync (group-commit ack); search tickets signal at readback.
+    * With read replicas (a bound ``ReplicaSet``) the pump offers every
+      search batch to ``replicas.route`` first; a routed batch is served,
+      scattered and signaled on a replica worker thread.
 
     The map below is the machine-checked form of those invariants;
     ``EngineConfig.lock_check`` enforces it at runtime
@@ -474,7 +482,7 @@ class ServeEngine:
     FIELD_OWNERSHIP = {
         # bound once in __init__, immutable after
         "cfg": INIT, "backend": INIT, "policy": INIT, "queue": INIT,
-        "metrics": INIT, "_work": INIT, "_stop": INIT,
+        "metrics": INIT, "_work": INIT, "_stop": INIT, "replicas": INIT,
         # shared mutable pipeline state: only under _work
         "_inflight": GUARDED, "_unacked": GUARDED, "_maint_due": GUARDED,
         # pump-thread-only writes; racy reads are benign by design
@@ -491,11 +499,6 @@ class ServeEngine:
         policy: MaintenancePolicy | None = None,
         replicas=None,
     ):
-        if replicas is not None:
-            raise NotImplementedError(
-                "read replicas are not ported yet: they come with the "
-                "replication slice (distributed/replication.py)"
-            )
         self.cfg = cfg or EngineConfig()
         if isinstance(backend, SPFreshIndex):
             backend = LocalBackend(
@@ -505,6 +508,9 @@ class ServeEngine:
                 scan_schedule=self.cfg.scan_schedule,
             )
         self.backend = backend
+        # read replicas (a bound ReplicaSet, distributed/replication.py):
+        # the pump offers every SEARCH batch to replicas.route() first
+        self.replicas = replicas
         self.policy = policy or self.cfg.make_policy()
         # the batch-formation window only makes sense with a dedicated
         # consumer: in cooperative mode it would stall the caller itself
@@ -550,8 +556,9 @@ class ServeEngine:
         t.start()
 
     def shutdown(self, timeout: float = 60.0) -> None:
-        """Stop the pump thread.  Queued batches, in-flight readbacks and
-        unacked tickets are drained first, so no waiter is stranded."""
+        """Stop the pump thread (and any replica workers).  Queued
+        batches, in-flight readbacks and unacked tickets are drained
+        first, so no waiter is stranded."""
         t = self._pump_thread
         if t is not None:
             self._stop.set()
@@ -560,6 +567,10 @@ class ServeEngine:
             if t.is_alive():
                 raise RuntimeError("serve pump thread failed to stop")
             self._pump_thread = None
+        if self.replicas is not None:
+            # after the pump: replica workers first finish any batch the
+            # pump's shutdown drain routed to them
+            self.replicas.stop(timeout)
 
     @contextlib.contextmanager
     def exclusive(self):
@@ -722,6 +733,7 @@ class ServeEngine:
                     len(self.queue) == 0 and not self._busy
                     and not self._inflight and not self._unacked
                     and self._maint_due <= 0
+                    and (self.replicas is None or self.replicas.idle())
                 )
             if idle:
                 return
@@ -732,6 +744,11 @@ class ServeEngine:
     def _pump_until(self, ticket: Ticket) -> None:
         while not ticket.done:
             if self.pump(max_batches=1) == 0:
+                if self.replicas is not None:
+                    # the batch was routed: wait for the replica worker's
+                    # signal instead of spinning on an empty queue
+                    if ticket._event.wait(timeout=60.0) or ticket.done:
+                        continue
                 raise RuntimeError("ticket still pending on an empty queue")
 
     def _applied(self):
@@ -740,6 +757,10 @@ class ServeEngine:
     @holds_work
     def _process(self, batch: MicroBatch) -> None:
         if batch.op == SEARCH:
+            if self.replicas is not None and self.replicas.route(batch):
+                # served on a replica worker thread (which stamps, scatters,
+                # notes metrics and signals) — nothing more to do here
+                return
             k, nprobe = batch.key
             applied = self._applied()
             for part in batch.parts:
@@ -977,7 +998,9 @@ class ServeEngine:
             "insert_stall_s": m.insert_stall_s,
             "insert_dropped": m.insert_dropped,
             "backlog": self.backend.backlog(),
-            "replicas": None,
+            "replicas": (
+                self.replicas.report() if self.replicas is not None else None
+            ),
         }
 
     def stats(self) -> dict:

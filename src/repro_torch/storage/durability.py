@@ -51,7 +51,9 @@ class DurableBackend:
     """Mixin for backends with dispatch-level WAL + snapshot recovery.
 
     Subclass hooks:
-      * ``_snapshot_state()``  — the state the checkpoint serializes
+      * ``_snapshot_state()``  — the state the checkpoint serializes (a
+                                 list of per-shard states for a sharded
+                                 backend)
       * ``_set_snapshot_state(state)`` — install the dirty-cleared state
       * ``_snapshot_extra()``  — backend-specific manifest fields
       * ``_apply_record(rec)`` — re-run one logged dispatch (replay arms)
@@ -143,7 +145,10 @@ class DurableBackend:
             self.wal_set.sync()    # buffered records precede the stamp
         store = SnapshotStore(snapshot_dir)
         state = self._snapshot_state()
-        cleared = state.replace(pool=clear_dirty(state.pool))
+        if isinstance(state, list):         # one state per shard
+            cleared = [st.replace(pool=clear_dirty(st.pool)) for st in state]
+        else:
+            cleared = state.replace(pool=clear_dirty(state.pool))
         extra = {
             "wal_seqnos": self.wal_seqnos(),
             "lire_config": dataclasses.asdict(self._lire_config()),

@@ -30,6 +30,13 @@ A state is read into numpy arrays and then filled straight onto the
 device (``convert.fill_state``): the template passed to a load gives only
 names, shapes and dtypes and may live on the meta device.
 
+A sharded state (the port's list of per-shard states) is stored in the
+JAX package's stacked layout: every leaf of a base unit carries a leading
+``(n_shards,)`` axis, each shard's leaf copied to the host into its slice
+of the stacked host array (nothing is stacked on the card), and a delta
+holds one ``shard_{s:03d}.npz`` per shard.  It loads through
+:func:`stacked_template`.
+
 Manifest format 2 adds ``kind``/``unit``/``parent``/``chain_len``/
 ``n_shards``; format-1 snapshots (and states saved before the pool grew
 its ``dirty`` leaf) load through an explicit migration path: the missing
@@ -48,7 +55,7 @@ import numpy as np
 import torch
 
 from repro_torch.convert import fill_state
-from repro_torch.utils.tree import tensor_leaves
+from repro_torch.utils.tree import map_tensors, tensor_leaves
 
 _MANIFEST = "manifest.json"
 _LEAVES = "leaves.npz"
@@ -102,6 +109,31 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.dtype("V2"))
     return t.numpy()
+
+
+def _host_leaves(state: Any) -> list[np.ndarray]:
+    """The leaves a base unit stores, in leaf order.  A list of per-shard
+    states is stored stacked: each shard's leaf is copied to the host into
+    its slice of one host array."""
+    if not isinstance(state, (list, tuple)):
+        return [to_numpy(x) for x in tensor_leaves(state).values()]
+    per = [list(tensor_leaves(st).values()) for st in state]
+    out = []
+    for j, first in enumerate(per[0]):
+        host = torch.empty((len(per),) + tuple(first.shape), dtype=first.dtype)
+        for s, leaves in enumerate(per):
+            host[s].copy_(leaves[j])
+        out.append(to_numpy(host))
+    return out
+
+
+def stacked_template(template: Any, n_shards: int) -> Any:
+    """``template`` with a leading ``(n_shards,)`` axis on every leaf, on
+    the meta device: the shapes a sharded unit stores."""
+    return map_tensors(
+        lambda t: torch.empty((n_shards,) + tuple(t.shape), dtype=t.dtype, device="meta"),
+        template,
+    )
 
 
 def _zeros_like(t: torch.Tensor) -> np.ndarray:
@@ -460,15 +492,16 @@ class SnapshotStore:
         """Full snapshot as a new base unit; prunes the entire previous
         chain (and any legacy-layout files) after the commit — this IS
         the chain compaction: the in-memory state already equals
-        base + deltas + dirty tail, so folding is a fresh full write."""
+        base + deltas + dirty tail, so folding is a fresh full write.
+        ``state`` is one state or a list of per-shard states."""
         os.makedirs(self.path, exist_ok=True)
         unit = self._next_unit("base")
-        leaves = list(tensor_leaves(state).values())
+        leaves = _host_leaves(state)
         tmp = tempfile.mkdtemp(dir=self.path, prefix=".unit_tmp_")
         try:
             np.savez(
                 os.path.join(tmp, _LEAVES),
-                **{f"leaf_{i}": to_numpy(x) for i, x in enumerate(leaves)},
+                **{f"leaf_{i}": x for i, x in enumerate(leaves)},
             )
             manifest = {
                 "format": _FORMAT,
@@ -491,11 +524,12 @@ class SnapshotStore:
 
     def save_delta(self, state: Any, *, n_shards: int = 1, step: int = 0,
                    extra: dict | None = None) -> str:
-        """Delta unit: per shard, only the blocks marked dirty in
-        ``state.pool.dirty`` (payload + slot metadata) plus every
-        non-block leaf in full.  Chained onto the current head; restore
-        applies the chain oldest-first.  Requires an existing head (the
-        first checkpoint of a durable root is always a base).
+        """Delta unit: per shard, only the blocks marked dirty in its
+        ``pool.dirty`` (payload + slot metadata) plus every non-block leaf
+        in full.  Chained onto the current head; restore applies the chain
+        oldest-first.  Requires an existing head (the first checkpoint of a
+        durable root is always a base).  ``state`` is one state
+        (``n_shards=1``) or a list of ``n_shards`` per-shard states.
 
         The dirty blocks are gathered where the state lives (on the card:
         ``blocks[dirty_idx]``) before the copy to the host, so only they
@@ -505,36 +539,34 @@ class SnapshotStore:
             raise SnapshotChainError(
                 f"{self.path}: save_delta with no base snapshot to chain to"
             )
-        blk = _block_leaf_indices(state)
+        shards = list(state) if isinstance(state, (list, tuple)) else [state]
+        if len(shards) != n_shards:
+            raise ValueError(f"save_delta of {len(shards)} states for {n_shards} shards")
+        blk = _block_leaf_indices(shards[0])
         if blk is None:
             raise ValueError("save_delta needs a state with a block pool")
         head_m = self._unit_manifest(head)
         unit = self._next_unit("delta")
-        leaves = list(tensor_leaves(state).values())
-        if head_m["n_leaves"] != len(leaves):
+        n_leaves = len(tensor_leaves(shards[0]))
+        if head_m["n_leaves"] != n_leaves:
             raise ValueError(
                 f"delta over a {head_m['n_leaves']}-leaf chain, state has "
-                f"{len(leaves)} (mixed-format chain?)"
+                f"{n_leaves} (mixed-format chain?)"
             )
-        dirty = leaves[blk["dirty"]]
-        # the non-block leaves cross to the host once, outside the shard loop
-        dense_np = {
-            j: to_numpy(leaf) for j, leaf in enumerate(leaves)
-            if j not in blk.values()
-        }
         tmp = tempfile.mkdtemp(dir=self.path, prefix=".unit_tmp_")
         try:
-            for s in range(n_shards):
-                sl = (lambda x: x[s]) if n_shards > 1 else (lambda x: x)
-                idx = torch.nonzero(sl(dirty)).flatten()
+            for s, st in enumerate(shards):
+                leaves = list(tensor_leaves(st).values())
+                idx = torch.nonzero(leaves[blk["dirty"]]).flatten()
                 arrays: dict[str, np.ndarray] = {
                     "dirty_idx": idx.cpu().numpy().astype(np.int32),
                 }
                 for name, j in blk.items():
                     if name != "dirty":
-                        arrays[f"blk_{name}"] = to_numpy(sl(leaves[j])[idx])
-                for j, whole in dense_np.items():
-                    arrays[f"leaf_{j}"] = sl(whole)
+                        arrays[f"blk_{name}"] = to_numpy(leaves[j][idx])
+                for j, leaf in enumerate(leaves):
+                    if j not in blk.values():
+                        arrays[f"leaf_{j}"] = to_numpy(leaf)
                 np.savez(os.path.join(tmp, f"shard_{s:03d}.npz"), **arrays)
             manifest = {
                 "format": _FORMAT,
@@ -542,7 +574,7 @@ class SnapshotStore:
                 "unit": unit,
                 "parent": head,
                 "chain_len": int(head_m.get("chain_len", 0)) + 1,
-                "n_leaves": len(leaves),
+                "n_leaves": n_leaves,
                 "n_shards": n_shards,
                 "block_leaves": blk,
                 "step": step,

@@ -696,3 +696,94 @@ def test_durable_service_checkpoints_under_a_deferred_search_and_recovers(card, 
     got = twin.search(q, k=10)
     np.testing.assert_array_equal(got[1], want[1])
     np.testing.assert_array_equal(got[0], want[0])
+
+
+# ---------------------------------------------------------------------------
+# the sharded index and its replicas on the card
+# ---------------------------------------------------------------------------
+
+def _sharded_pair(card):
+    """The same 4-shard index on the CPU and on the card (built on the CPU,
+    copied over)."""
+    from repro_torch.distributed.sharded_index import ShardedIndex
+
+    rng = np.random.default_rng(4)
+    centers = rng.normal(size=(12, 16)) * 5
+    base = (centers[rng.integers(0, 12, 2000)] + rng.normal(size=(2000, 16))).astype(np.float32)
+    cfg = LireConfig(dim=16, block_size=8, max_blocks_per_posting=8, num_blocks=1024,
+                     num_postings_cap=128, num_vectors_cap=4096, split_limit=48, merge_limit=6,
+                     reassign_range=8, reassign_budget=128, replica_count=2, nprobe=8,
+                     jobs_per_round=4, use_pallas_nav=True, use_pallas_scan=True)
+    cpu, _ = ShardedIndex.build(cfg, base, 4, device="cpu")
+    gpu = ShardedIndex(cfg, [map_tensors(lambda x: x.to(card), st) for st in cpu.states])
+    return cpu, gpu, base
+
+
+@pytest.mark.parametrize("schedule", ["batched", "per_query"])
+def test_sharded_search_on_the_card_matches_the_cpu_path(card, schedule):
+    """A 4-shard search through the kernels (#1, #4 / #6 per shard, then the
+    tournament merge) against the plain path on the CPU: tie-tolerant."""
+    cpu, gpu, base = _sharded_pair(card)
+    for be in (cpu, gpu):
+        be.scan_schedule = schedule
+        be.set_alive([True, False, True, True])
+    q = base[:64] + 0.01
+    d0, v0 = cpu.search(q, 10, 8)
+    d1, v1 = gpu.search(q, 10, 8)
+    np.testing.assert_allclose(d1, d0, atol=1e-4, rtol=1e-5)
+    assert (np.abs(d0 - d1)[v0 != v1] <= 1e-4 + 1e-5 * np.abs(d0[v0 != v1])).all()
+    assert not ((v1 // 4096 == 1) & (v1 >= 0)).any()
+
+
+def test_sharded_search_begin_runs_without_a_host_sync(card):
+    """Every shard's search and the merge queued under
+    ``set_sync_debug_mode("error")`` behind a device sleep: no host sync
+    between the shards, and the call returns while the card still works."""
+    _, gpu, base = _sharded_pair(card)
+    q = base[:32]
+    valid = np.ones(32, bool)
+    want = gpu.search(q, 10, 8, valid)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fin = gpu.search_begin(q, 10, 8, valid)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert not torch.cuda.current_stream().query()
+    d, v = fin()
+    np.testing.assert_array_equal(d, want[0])
+    np.testing.assert_array_equal(v, want[1])
+
+
+def test_replica_catch_up_fork_on_the_card_equals_the_primary(card):
+    """A replica paused past its window catches up by forking the primary's
+    shards under the engine's exclusive lock, on the default stream behind
+    the pump's dispatches: its leaves equal the primary's."""
+    from repro_torch.distributed.replication import ReplicaSet, states_equal
+    from repro_torch.serve import EngineConfig, ServeEngine
+
+    _, gpu, base = _sharded_pair(card)
+    rs = ReplicaSet(gpu, [gpu.clone()], max_lag=4, window=4)
+    gpu.attach_replication(rs)
+    eng = ServeEngine(gpu, EngineConfig(max_batch=64, async_serve=True, maintain_budget=4),
+                      replicas=rs)
+    rs.bind(eng)
+    rs.start()
+    rng = np.random.default_rng(9)
+    try:
+        rs.pause(0)
+        for _ in range(8):
+            rows = base[rng.integers(0, 2000, 16)] + 0.01
+            _, landed = eng.submit_insert(rows, np.full(16, -1, np.int32)).result(timeout=120)
+            assert landed.all()
+        eng.barrier()
+        assert rs.report()["per_replica"][0]["lag"] > 4
+        rs.resume(0)
+        rs.wait_sync(timeout=120)
+        rep = rs.report()["per_replica"][0]
+        assert rep["catchups"] >= 1 and not rep["failed"]
+        assert states_equal(gpu.states, rs.replicas[0].backend.states)
+        assert rs.replicas[0].backend.states[0].device.type == "cuda"
+    finally:
+        eng.shutdown(timeout=120)

@@ -17,6 +17,8 @@ the async pump and the recorded dispatch stream.
   before an insert its submitter had already awaited: must be 0) apart
   from ANN misses (the vid is not in the top-k of a search dispatched
   after its insert: counted, bounded), so an ANN miss cannot fail it.
+* The engine over a 2-shard index runs the reference's
+  ``tests/serve_sharded_script.py`` checks on the port.
 
 Everything runs on the CPU, where the port's kernels run their plain
 versions; every ``join`` and ``result()`` has a timeout.
@@ -633,16 +635,22 @@ def test_search_access_telemetry_folds_into_the_next_maintain():
 
 
 def test_port_lifecycle_parts_not_yet_ported_raise(tmp_path):
-    """Read replicas still raise (the distributed slice); the durable
-    lifecycle is real: attach a one-log WalSet, log dispatches into it,
-    checkpoint (base, then delta), and replay the tail on the snapshot."""
+    """Nothing of the lifecycle raises any more: an engine takes read
+    replicas (``replicas=``, reported under ``report()["replicas"]``), and
+    the durable lifecycle is real: attach a one-log WalSet, log dispatches
+    into it, checkpoint (base, then delta), and replay the tail on the
+    snapshot."""
+    from repro_torch.distributed.replication import ReplicaSet
     from repro_torch.storage.snapshot import SnapshotStore
     from repro_torch.storage.wal import WalSet, iter_wal
 
     base = make_sift_like(400, DIM, seed=20)
     idx = port_index(base)
-    with pytest.raises(NotImplementedError, match="replication"):
-        ServeEngine(idx, replicas=object())
+    rbe = LocalBackend(port_index(base))
+    rs = ReplicaSet(rbe, [rbe.clone()])
+    eng = ServeEngine(rbe, replicas=rs)
+    assert eng.report()["replicas"]["n_replicas"] == 2 and eng.replicas is rs
+    eng.shutdown()
     be = LocalBackend(idx)
     with pytest.raises(ValueError, match="2 logs"):
         be.attach_durability(WalSet(str(tmp_path / "wal2"), 2))
@@ -778,3 +786,57 @@ def test_async_multithreaded_stress_counts_ordering_apart_from_misses(rng):
     a, b = tensor_leaves(eng.index.state), tensor_leaves(twin.index.state)
     bad = [k for k in a if not torch.equal(a[k], b[k])]
     assert not bad, bad
+
+
+# ---------------------------------------------------------------------------
+# The engine over a sharded index (the reference's serve_sharded_script.py)
+# ---------------------------------------------------------------------------
+
+def test_engine_over_a_two_shard_index():
+    """The same ServeEngine drives the sharded backend through the same
+    micro-batched padded pipeline: batched search against brute force,
+    inserts that come back with ``(shard, slot)`` handles and are found,
+    deletes by handle, maintenance slots, the report and stats, and the
+    backlog policy."""
+    from repro_torch.distributed.sharded_index import ShardedIndex
+
+    cfg = TConfig(dim=16, block_size=8, max_blocks_per_posting=8, num_blocks=1024,
+                  num_postings_cap=128, num_vectors_cap=4096, split_limit=48, merge_limit=6,
+                  reassign_range=8, reassign_budget=128, replica_count=2, nprobe=8)
+    rng = np.random.default_rng(0)
+    base = make_clustered(rng, 1200, DIM, n_clusters=10)
+    sidx, handles = ShardedIndex.build(cfg, base, 2, device="cpu")
+    engine = ServeEngine(sidx, EngineConfig(search_k=10, max_batch=64, min_bucket=16))
+    assert engine.index is None                     # no single index
+    queries = base[rng.integers(0, len(base), 48)] + 0.01 * rng.normal(
+        size=(48, DIM)).astype(np.float32)
+    d, v = engine.submit_search(queries).result(timeout=TIMEOUT)
+    assert d.shape == (48, 10) and v.shape == (48, 10)
+    bf = ((queries[:, None, :] - base[None]) ** 2).sum(-1)
+    gt = handles[np.argsort(bf, axis=1)[:, :10]]
+    recall = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(gt.tolist(), v.tolist())])
+    assert recall > 0.85, recall
+
+    new = make_clustered(rng, 40, DIM, n_clusters=3)
+    new_h, landed = engine.submit_insert(new, np.full(40, -1, np.int32)).result(timeout=TIMEOUT)
+    assert landed.all() and (new_h >= 0).all()
+    _, v2 = engine.search(new)
+    assert sum(int(new_h[i]) in v2[i].tolist() for i in range(40)) >= 36
+    engine.delete(new_h[:20])
+    _, v3 = engine.search(new[:20])
+    assert not set(new_h[:20].tolist()) & set(v3.reshape(-1).tolist())
+
+    engine.drain()
+    rep = engine.report()
+    assert rep["queue"]["depth_rows_now"] == 0 and rep["backlog"] == 0
+    assert rep["queue"]["rows"] >= 48 + 40 + 20 + 40
+    st = engine.stats()
+    assert st["n_shards"] == 2 and st["n_inserts"] >= 40
+
+    eng2 = ServeEngine(sidx, EngineConfig(search_k=10, max_batch=64),
+                       policy=BacklogPolicy(threshold=1, budget=8))
+    more = make_clustered(rng, 120, DIM, n_clusters=2)
+    for s in range(0, 120, 40):
+        eng2.insert(more[s:s + 40], np.full(40, -1, np.int32))
+    eng2.drain()
+    assert eng2.backend.backlog() == 0

@@ -12,28 +12,47 @@ delta crash cycle, group-commit acks, the WAL-compaction live set,
 telemetry bit-exact, pending access not being state, async crash replay
 bit-exact, async equal to sync.
 
-One cross-package case: the port opens a durable root the reference's
+The sharded service's gates (the reference's
+``tests/service_sharded_script.py``) run on the port over 2 shards: one
+spec opens both backends, each shard's WAL takes the stream, a crash
+recovers every shard leaf for leaf, a checkpoint then the tail, and the
+delta chain with one file per shard.
+
+Cross-package cases: the port opens a durable root the reference's
 ``spfresh.open`` wrote and recovers to the reference's state (integer
 leaves equal, the telemetry's ``drift_vec`` within 1e-5, as in
-``test_torch_serve.py``).  Every join has a timeout.
+``test_torch_serve.py``); and a sharded root in both directions.  The
+reference's sharded service needs 2 devices, fixed when JAX starts, so
+its half runs once in a subprocess: this file's ``__main__`` runner, with
+``XLA_FLAGS`` set before anything imports JAX.  Every join has a timeout.
 """
-import dataclasses
-import threading
+import os
+import sys
 
-import numpy as np
-import pytest
+if __name__ == "__main__":
+    # the reference half of the sharded cross-package cases
+    # (``run_reference``): 2 fake CPU devices before JAX starts
+    os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=2 "
+                               + os.environ.get("XLA_FLAGS", ""))
 
-import spfresh
-from repro.configs.spfresh import service_spec as r_service_spec
-from repro.core.types import LireConfig as RConfig
-from repro_torch import api
-from repro_torch.configs.spfresh import service_spec
-from repro_torch.core.types import LireConfig
-from repro_torch.storage.snapshot import SnapshotStore
-from repro_torch.storage.wal import iter_wal
-from tests.conftest import make_clustered
-from tests.test_torch_snapshot import assert_port_states_equal
-from tests.test_torch_storage import assert_leaves_equal
+import dataclasses  # noqa: E402
+import subprocess  # noqa: E402
+import threading  # noqa: E402
+
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+
+import spfresh  # noqa: E402
+from repro.configs.spfresh import service_spec as r_service_spec  # noqa: E402
+from repro.core.types import LireConfig as RConfig  # noqa: E402
+from repro_torch import api, convert  # noqa: E402
+from repro_torch.configs.spfresh import service_spec  # noqa: E402
+from repro_torch.core.types import LireConfig  # noqa: E402
+from repro_torch.storage.snapshot import SnapshotStore  # noqa: E402
+from repro_torch.storage.wal import iter_wal  # noqa: E402
+from tests.conftest import make_clustered  # noqa: E402
+from tests.test_torch_snapshot import assert_port_states_equal  # noqa: E402
+from tests.test_torch_storage import assert_leaves_equal  # noqa: E402
 
 DEV = "cpu"
 TIMEOUT = 120
@@ -114,17 +133,36 @@ def test_spec_compiles_like_the_references():
     assert port == dataclasses.asdict(r_service_spec(smoke=True).lire_config())
 
 
-def test_spec_validate_rejects_bad_values_and_the_distributed_deployment():
+def test_spec_validate_rejects_bad_values_and_the_distributed_deployment(rng):
+    """Bad values are refused; the distributed deployment validates and
+    opens on the CPU: sharded, replicated, and both."""
     for bad in (dict(serve=api.ServeSpec(policy="nope")),
+                dict(serve=api.ServeSpec(replica_inflight=0)),
                 dict(scan=api.ScanSpec(scan_schedule="zigzag")),
                 dict(durability=api.DurabilitySpec(wal_dir="/data/wal"))):
         with pytest.raises(ValueError):
             dataclasses.replace(tiny_spec(), **bad).validate()
-    for shards in (api.ShardSpec(n_shards=2), api.ShardSpec(n_replicas=2)):
-        with pytest.raises(NotImplementedError, match="distributed slice"):
-            open_(dataclasses.replace(tiny_spec(), shards=shards))
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        service_spec(smoke=True, n_shards=4).validate()
+    with pytest.raises(ValueError, match="counts"):
+        dataclasses.replace(tiny_spec(), shards=api.ShardSpec(n_shards=0)).validate()
+    api.ServiceSpec(shards=api.ShardSpec(n_shards=4, n_replicas=2)).validate()
+    service_spec(smoke=True, n_shards=4, n_replicas=2).validate()
+    base = make_clustered(rng, 600, 16)
+    for shards in (api.ShardSpec(n_shards=2), api.ShardSpec(n_replicas=2),
+                   api.ShardSpec(n_shards=4, n_replicas=2)):
+        spec = dataclasses.replace(tiny_spec(), shards=shards)
+        assert (spec.sharded, spec.replicated) == (shards.n_shards > 1, shards.n_replicas > 1)
+        svc = open_(spec, vectors=base)
+        try:
+            assert (svc.index is None) == spec.sharded
+            assert (svc.replicas is None) == (not spec.replicated)
+            _, v = svc.search(base[:4], k=5)
+            want = svc.initial_handles[:4]
+            assert (v[:, 0] == want).all()
+            ids = None if spec.sharded else np.arange(2000, 2004, dtype=np.int32)
+            got, landed = svc.insert(make_clustered(rng, 4, 16), ids)
+            assert landed.all() and (got >= 0).all()
+        finally:
+            svc.close()
 
 
 def test_open_without_a_snapshot_or_vectors_and_the_ephemeral_service(tmp_path, rng):
@@ -516,3 +554,231 @@ def test_port_recovers_a_root_the_reference_wrote(tmp_path, rng):
     got = twin.search(vecs[:12], k=10)
     np.testing.assert_array_equal(want[1], got[1])
     np.testing.assert_allclose(want[0], got[0], rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the sharded service (the reference's service_sharded_script.py)
+# ---------------------------------------------------------------------------
+
+def sharded_spec(root=None, **dur_kw) -> api.ServiceSpec:
+    spec = dataclasses.replace(tiny_spec(), serve=api.ServeSpec(search_k=10, max_batch=64,
+                                                                min_bucket=16))
+    if root is not None:
+        spec = spec.with_durability(str(root), **dur_kw)
+    return spec.with_shards(2)
+
+
+def assert_shards_equal(a, b):
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert_port_states_equal(x, y)
+
+
+def test_sharded_service_crash_recovery_exact_parity(tmp_path):
+    rng = np.random.default_rng(0)
+    base = make_clustered(rng, 1000, 16, n_clusters=10)
+    spec = sharded_spec(tmp_path / "svc")
+    local = open_(dataclasses.replace(spec, shards=api.ShardSpec(),
+                                      durability=api.DurabilitySpec()), vectors=base)
+    svc = open_(spec, vectors=base)
+    assert svc.index is None and svc.initial_handles is not None and local.index is not None
+    d_l, _ = local.search(base[:8], k=5)
+    d_s, _ = svc.search(base[:8], k=5)
+    np.testing.assert_allclose(d_l[:, 0], d_s[:, 0], rtol=1e-4)    # one corpus
+    local.close()
+
+    new = make_clustered(rng, 90, 16, n_clusters=3)
+    handles = []
+    for s in range(0, 90, 30):
+        h, landed = svc.insert(new[s:s + 30])
+        assert landed.all()
+        handles.extend(h.tolist())
+    handles = np.asarray(handles, np.int64)
+    svc.delete(handles[:10].astype(np.int32))
+    queries = np.concatenate([new[:12], base[:12]])
+    want = svc.search(queries, k=10)
+    for shard in range(2):
+        assert len(list(iter_wal(svc.backend.wal_set.shard_path(shard)))) > 0
+
+    twin = open_(spec)                          # crash: per-shard WAL replay
+    assert twin.recovered and twin.recovery["replayed_records"] > 0
+    assert_shards_equal(twin.backend.states, svc.backend.states)
+    got = twin.search(queries, k=10)
+    assert_same_answers(want, got)
+    assert not set(got[1].reshape(-1).tolist()) & set(handles[:10].tolist())
+    _, hit = twin.search(new[20:30], k=3)
+    assert (hit[:, 0] == handles[20:30]).all(), "replayed handles diverged"
+    assert twin.stats() == svc.stats()
+    live_vecs = np.concatenate([base, new[10:]])
+    live_h = np.concatenate([svc.initial_handles, handles[10:]])
+    bf = ((queries[:, None, :] - live_vecs[None]) ** 2).sum(-1)
+    gt = live_h[np.argsort(bf, axis=1)[:, :10]]
+    recall = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(gt.tolist(), got[1].tolist())])
+    assert recall > 0.85, recall
+
+
+def test_sharded_checkpoint_tail_replay_and_delta_chain(tmp_path):
+    rng = np.random.default_rng(1)
+    spec = sharded_spec(tmp_path / "svc")
+    svc = open_(spec, vectors=make_clustered(rng, 1000, 16, n_clusters=10))
+    svc.insert(make_clustered(rng, 60, 16, n_clusters=3))
+    svc.checkpoint()
+    more = make_clustered(rng, 30, 16, n_clusters=2)
+    svc.insert(more)
+    want = svc.search(more[:8], k=5)
+    svc3 = open_(spec)                          # the snapshot + the tail only
+    assert_same_answers(want, svc3.search(more[:8], k=5))
+    svc3.drain()
+    assert svc3.backlog() == 0
+    svc3.close()
+
+    store = SnapshotStore(spec.durability.resolved_snapshot_dir())
+    svc4 = open_(spec)                          # the clean close: a base
+    assert store.has_base() and store.chain_len() == 0
+    more2 = make_clustered(rng, 24, 16, n_clusters=2)
+    h3, landed3 = svc4.insert(more2)
+    assert landed3.all()
+    svc4.checkpoint(delta=True)
+    assert store.chain_len() == 1
+    unit_dir = os.path.join(spec.durability.resolved_snapshot_dir(), store._head())
+    assert sorted(f for f in os.listdir(unit_dir) if f.endswith(".npz")) == [
+        "shard_000.npz", "shard_001.npz"]
+    svc4.insert(make_clustered(rng, 12, 16, n_clusters=2))     # a tail on the delta
+    want = svc4.search(more2[:8], k=5)
+    svc5 = open_(spec)                          # base + delta + tail
+    assert_shards_equal(svc5.backend.states, svc4.backend.states)
+    assert_same_answers(want, svc5.search(more2[:8], k=5))
+    assert svc5.stats() == svc4.stats()
+    _, hit = svc5.search(more2[:8], k=1)
+    assert (hit[:, 0] == h3[:8]).all()
+    svc5.checkpoint(delta=False)                # compaction folds the chain
+    assert store.chain_len() == 0
+    svc5.close()
+
+
+# ---------------------------------------------------------------------------
+# sharded roots across the packages
+# ---------------------------------------------------------------------------
+
+CROSS_KNOBS = dict(search_k=10, max_batch=64, fg_bg_ratio=0, max_insert_retries=0)
+
+
+def cross_inputs():
+    """The sharded cross-package stream (both halves call this): a build,
+    three insert batches, a delete, queries; no maintenance, since the two
+    packages draw their split randomness differently."""
+    rng = np.random.default_rng(5)
+    base = make_clustered(rng, 800, 16, n_clusters=6)
+    vecs = make_clustered(rng, 60, 16, n_clusters=3)
+    return dict(base=base, vecs=vecs, queries=np.concatenate([vecs[:12], base[:12]]))
+
+
+def cross_stream(svc, x):
+    """Two insert batches, a delta checkpoint (one file per shard), then
+    the WAL tail: an insert batch and a delete.  Returns the insert handles
+    (the sharded backend's own)."""
+    hs = [svc.insert(x["vecs"][s:s + 20])[0] for s in range(0, 40, 20)]
+    svc.checkpoint(delta=True)
+    hs.append(svc.insert(x["vecs"][40:60])[0])
+    h = np.concatenate(hs)
+    svc.delete(h[:7][h[:7] >= 0].astype(np.int32))
+    return h
+
+
+def run_reference(root_a: str, root_b: str, out_path: str) -> None:
+    """The reference's half: write sharded root A (crash: no close), and
+    recover sharded root B, which the port wrote."""
+    import jax
+
+    assert len(jax.devices()) == 2, jax.devices()
+    x = cross_inputs()
+    out = {}
+
+    def leaves(prefix, tree):
+        flat, _ = jax.tree_util.tree_flatten_with_path(tree)
+        for path, v in flat:
+            out[prefix + "." + ".".join(k.name for k in path)] = np.array(v)
+
+    def rspec(root):
+        return spfresh.ServiceSpec(
+            index=spfresh.IndexSpec(config=RConfig(**tiny_kw())),
+            serve=spfresh.ServeSpec(**CROSS_KNOBS),
+        ).with_durability(root).with_shards(2)
+
+    svc = spfresh.open(rspec(root_a), vectors=x["base"])
+    out["a.handles"] = cross_stream(svc, x)
+    out["a.d"], out["a.v"] = svc.search(x["queries"], k=10)
+    leaves("astate", svc.backend.stacked)
+    twin = spfresh.open(rspec(root_b))
+    out["b.recovered"] = np.asarray(twin.recovered)
+    out["b.d"], out["b.v"] = twin.search(x["queries"], k=10)
+    leaves("bstate", twin.backend.stacked)
+    np.savez(out_path, **out)
+
+
+@pytest.fixture(scope="module")
+def sharded_roots(tmp_path_factory):
+    """Root B written by the port (a crash: no close), then the reference's
+    half in a subprocess: it writes root A and recovers root B."""
+    d = tmp_path_factory.mktemp("roots")
+    root_a, root_b, out = str(d / "a"), str(d / "b"), str(d / "ref.npz")
+    x = cross_inputs()
+    spec = dataclasses.replace(sharded_spec(root_b), serve=api.ServeSpec(**CROSS_KNOBS))
+    svc = open_(spec, vectors=x["base"])
+    cross_stream(svc, x)
+    want = svc.search(x["queries"], k=10)
+    kept = convert.sharded_state_to_numpy(svc.backend.states)
+    svc.engine.shutdown(timeout=TIMEOUT)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env.pop("XLA_FLAGS", None)
+    env["PYTHONPATH"] = os.pathsep.join([os.path.join(os.path.dirname(here), "src"),
+                                         os.path.dirname(here), env.get("PYTHONPATH", "")])
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), root_a, root_b, out],
+                          capture_output=True, text=True, timeout=900, env=env)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    with np.load(out) as data:
+        ref = {k: data[k] for k in data.files}
+    return dict(ref=ref, root_a=root_a, port_want=want, port_kept=kept, spec=spec)
+
+
+def _stacked(ref, prefix):
+    pre = prefix + "."
+    return {k[len(pre):]: v for k, v in ref.items() if k.startswith(pre)}
+
+
+def _assert_stacked_equal(got, want):
+    assert set(got) == set(want), set(got) ^ set(want)
+    for name, w in want.items():
+        if name == "telemetry.drift_vec":
+            np.testing.assert_allclose(got[name], w, rtol=1e-5, atol=1e-5, err_msg=name)
+        else:
+            np.testing.assert_array_equal(got[name], w, err_msg=name)
+
+
+def test_port_recovers_a_sharded_root_the_reference_wrote(sharded_roots):
+    ref = sharded_roots["ref"]
+    spec = dataclasses.replace(sharded_roots["spec"], durability=api.DurabilitySpec(
+        root=sharded_roots["root_a"]))
+    assert SnapshotStore(spec.durability.resolved_snapshot_dir()).chain_len() == 1
+    twin = open_(spec)
+    assert twin.recovered and twin.recovery["replayed_records"] == 2
+    _assert_stacked_equal(convert.sharded_state_to_numpy(twin.backend.states),
+                          _stacked(ref, "astate"))
+    d, v = twin.search(cross_inputs()["queries"], k=10)
+    np.testing.assert_array_equal(v, ref["a.v"])
+    np.testing.assert_allclose(d, ref["a.d"], rtol=1e-5, atol=1e-5)
+    twin.engine.shutdown(timeout=TIMEOUT)
+
+
+def test_reference_recovers_a_sharded_root_the_port_wrote(sharded_roots):
+    ref = sharded_roots["ref"]
+    assert bool(ref["b.recovered"])
+    _assert_stacked_equal(sharded_roots["port_kept"], _stacked(ref, "bstate"))
+    want = sharded_roots["port_want"]
+    np.testing.assert_array_equal(ref["b.v"], want[1])
+    np.testing.assert_allclose(ref["b.d"], want[0], rtol=1e-5, atol=1e-5)
+
+
+if __name__ == "__main__":
+    run_reference(*sys.argv[1:4])
