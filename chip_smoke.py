@@ -13,7 +13,9 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
    function.  #1 is also held on a tie-heavy and a negative-distance
    input; #4 and #5 are also held and timed on the main path's page mix
    (two real and two absent pages a probe, 10,393 distinct pages; every
-   dead pair exactly (BIG, slots 0..k-1)); #6 and #7 are also timed on
+   dead pair exactly (BIG, slots 0..k-1)); #1, #4, #6 and #3 are held
+   and timed again at the retrieval path's d=256 geometry (bf16 pages),
+   and #6, #7 and #3 held at d=256 for every payload; #6 and #7 are also timed on
    the main path's page mix (10,393 live rows of the 32,768-row budget,
    the rest padding), and #7 is held on a tie-heavy input at k = BS
    (exact slot order).  #3 takes -1 padding ids and is held with them at
@@ -90,6 +92,21 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
    replica's window, and crashes and recovers again.  It prints state
    bytes, the build, search p50 against the shards' own searches, ms a
    sharded round, and recovery split into load, upload and replay.
+   An eighth, ``retrieval``, frees the earlier state and serves two-tower
+   retrieval (``repro_torch.serve.retrieval.IndexedRetriever``) at the
+   reference's serving config (``SERVE_CONFIG``: bf16, 10M items, 8 user
+   fields of 100,000 ids, embed dim 256, towers 1024-512-256), its params
+   made on the card from the seed.  It first builds the recall floor's
+   corpus (``RETRIEVAL_FLOOR_N`` items, the size of the reference's recall
+   run): recall of ``retrieve`` against ``retrieve_bruteforce`` under both
+   schedules, at least the reference's at that size minus 0.05, and the
+   kernel path's ids against the gather oracle's on the same state.  Then
+   ``RETRIEVAL_N`` items: ANN and brute-force p50 at Q=1 and Q=1,024,
+   where a lookup's time goes, recall (no floor at this size) and the
+   oracle check again, 16,384 items added (every one must find itself)
+   and 4,096 removed (none may come back), then the engine through a
+   ``ServiceSpec``: 8 bursts of 1,024 users with churn, ``drain()``,
+   ``report()``.
    The launch counts are reset before each path and read after it, and
    every kernel of the path must have launched.
 4. Prints the ``kernels`` JSON line, the card's name and power limit, and
@@ -908,6 +925,162 @@ def phase_scan_q8(torch, gen, results, blocks):
                                                                     q8=True)
 
 
+# The retrieval path's scan geometry (configs/two_tower_retrieval.py
+# ann_index_cfg at its capacities x RETRIEVAL_SCALE = 16): d=256, bf16
+# pages of BS=32 in a 65,536-block pool, nprobe 16 (64 pages a query, #4),
+# navigation over 32,768 centroid slots; a batch of Q=1,024 users; #6 and
+# #3 over a 32,768-page budget, as the d=100 rows.
+D256 = dict(q_n=1024, d=256, bs=32, n_blocks=65_536, nb_per_query=64, nprobe=16,
+            p_n=32_768, k=10)
+
+
+def phase_d256(torch, gen, results):
+    """#1, #4, #6 and #3 at ``D256`` (unit-scale data, as the tower's unit
+    vectors): each held against its plain version, timed beside it and
+    beside its library call, its bound reckoned at d=256; ``results[name]
+    ["d256"]``.  Then #6, #7 and #3 at d=256 for every payload (f32, bf16,
+    int8 values, int8 codes) at ragged small shapes: the wide shape of the
+    f32 and bf16 layouts, the default one of int8 pages."""
+    from repro_torch.kernels.l2_topk import kernel as LK
+    from repro_torch.kernels.posting_scan import kernel as K
+
+    g = D256
+    q_n, d, bs, k = g["q_n"], g["d"], g["bs"], g["k"]
+    q = torch.nn.functional.normalize(torch.randn(q_n, d, device="cuda", generator=gen), dim=1)
+    # #1: navigation, k = nprobe
+    c = torch.nn.functional.normalize(torch.randn(g["p_n"], d, device="cuda", generator=gen), dim=1)
+    csq = torch.sum(c * c, dim=1)
+    csq[torch.rand(g["p_n"], device="cuda", generator=gen) < 0.2] = 3.0e38
+    csq = csq[None].contiguous()
+    kk = g["nprobe"]
+    err, _ = compare_kmin(*LK.l2_topk_tiles(q, c, csq, k=kk, block_p=512),
+                          *LK.l2_topk_tiles_plain(q, c, csq, k=kk, block_p=512), atol=1e-4)
+    ms = cuda_ms(lambda: LK.l2_topk_tiles(q, c, csq, k=kk, block_p=512))
+    plain_ms = cuda_ms(lambda: LK.l2_topk_tiles_plain(q, c, csq, k=kk, block_p=512), reps=3)
+    lib_ms = cuda_ms(lambda: torch.topk(torch.cdist(q, c), kk, largest=False), reps=3)
+    t = g["p_n"] // 512
+    by = 4 * (q_n * d + g["p_n"] * d + g["p_n"]) + 8 * q_n * t * kk
+    b = bound(by, 2.0 * q_n * g["p_n"] * d)
+    tc = bound(by, 3 * 2.0 * q_n * g["p_n"] * d, TF32_FLOP_PER_S)   # three TF32 passes
+    out = {"l2_topk_tiles": dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
+                                 bound_ms=b[0], bound_by=b[1], tensor_core_bound_ms=tc[0],
+                                 tc_passes=3, shape=f"Q={q_n} P={g['p_n']} d={d} k={kk}")}
+    del c, csq
+    # #4: per_query, bf16 pages
+    blocks = (torch.randn(g["n_blocks"], bs, d, device="cuda", generator=gen) * 0.0625
+              ).to(torch.bfloat16)
+    nb = g["nb_per_query"]
+    table = torch.randint(0, g["n_blocks"], (q_n, nb), device="cuda", generator=gen,
+                          dtype=torch.int32)
+    bias = torch.where(torch.rand(q_n, nb, bs, device="cuda", generator=gen) < 0.2,
+                       3.0e38, 0.0).contiguous()
+    err, _ = compare_kmin(*K.scan_per_query_topk(table, q, blocks, bias, k=k),
+                          *K.scan_per_query_topk_plain(table, q, blocks, bias, k=k), atol=1e-4)
+    ms = cuda_ms(lambda: K.scan_per_query_topk(table, q, blocks, bias, k=k))
+    plain_ms = cuda_ms(lambda: K.scan_per_query_topk_plain(table, q, blocks, bias, k=k), reps=3)
+    lib_ms = cuda_ms(lambda: lib_per_query(torch, table, q, blocks, bias, k=k), reps=3)
+    uniq = int(torch.unique(table).numel())
+    b = bound(2 * uniq * bs * d + 4 * (table.numel() + q.numel() + bias.numel())
+              + 8 * q_n * nb * k, 2.0 * q_n * nb * bs * d)
+    out["scan_per_query_topk"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                      max_abs_err=err, bound_ms=b[0], bound_by=b[1],
+                                      shape=f"Q={q_n} NB={nb} BS={bs} d={d} bf16 k={k}")
+    del table, bias
+    # #6 and #3 over the batched budget, bf16 pages
+    nbb = BATCHED_NB
+    ids = torch.sort(torch.randperm(g["n_blocks"], device="cuda", generator=gen)[:nbb]).values
+    ids = ids.to(torch.int32).contiguous()
+    bias = torch.where(torch.rand(nbb, bs, device="cuda", generator=gen) < 0.2, 3.0e38, 0.0)
+    bias = bias.contiguous()
+    kd, ki = K.scan_batched_topk(ids, q, blocks, bias, k=k)
+    torch.cuda.synchronize()
+    err = 0.0
+    for s in range(0, nbb, PLAIN_STEP):
+        e, _ = compare_kmin(kd[s:s + PLAIN_STEP], ki[s:s + PLAIN_STEP],
+                            *K.scan_batched_topk_plain(ids[s:s + PLAIN_STEP], q, blocks,
+                                                       bias[s:s + PLAIN_STEP], k=k), atol=1e-4)
+        err = max(err, e)
+    del kd, ki
+
+    def plain_topk():
+        for s in range(0, nbb, PLAIN_STEP):
+            K.scan_batched_topk_plain(ids[s:s + PLAIN_STEP], q, blocks, bias[s:s + PLAIN_STEP], k=k)
+
+    ms = cuda_ms(lambda: K.scan_batched_topk(ids, q, blocks, bias, k=k), reps=5)
+    plain_ms = cuda_ms(plain_topk, reps=1, warm=1)
+    lib_ms = cuda_ms(lambda: lib_batched(torch, ids, q, blocks, bias, k=k), reps=1, warm=1)
+    by = 2 * nbb * bs * d + 4 * (nbb + q.numel() + bias.numel()) + 8 * nbb * q_n * k
+    flops = 2.0 * nbb * q_n * bs * d
+    b = bound(by, flops)
+    passes = tf32_passes(blocks.dtype)
+    tc = bound(by, passes * flops, TF32_FLOP_PER_S)
+    out["scan_batched_topk"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
+                                    bound_ms=b[0], bound_by=b[1], tensor_core_bound_ms=tc[0],
+                                    tc_passes=passes,
+                                    shape=f"NB={nbb} Q={q_n} BS={bs} d={d} bf16 k={k}")
+    out_d = K.scan_batched(ids, q, blocks)
+    torch.cuda.synchronize()
+    err = max(compare_dense(out_d[s:s + PLAIN_STEP],
+                            K.scan_batched_plain(ids[s:s + PLAIN_STEP], q, blocks), atol=1e-4)
+              for s in range(0, nbb, PLAIN_STEP))
+    del out_d
+
+    def plain_all():
+        for s in range(0, nbb, PLAIN_STEP):
+            K.scan_batched_plain(ids[s:s + PLAIN_STEP], q, blocks)
+
+    ms = cuda_ms(lambda: K.scan_batched(ids, q, blocks), reps=5)
+    plain_ms = cuda_ms(plain_all, reps=1, warm=1)
+    lib_ms = cuda_ms(lambda: lib_batched(torch, ids, q, blocks), reps=1, warm=1)
+    by = 2 * nbb * bs * d + 4 * (nbb + q.numel()) + 4 * nbb * q_n * bs
+    b = bound(by, flops)
+    tc = bound(by, passes * flops, TF32_FLOP_PER_S)
+    # as at d=100, #3's bound is the tensor-core one, the f32 one beside
+    out["scan_batched"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
+                               bound_ms=tc[0], bound_by=tc[1], tensor_core_bound_ms=tc[0],
+                               f32_bound_ms=b[0], tc_passes=passes,
+                               shape=f"NB={nbb} Q={q_n} BS={bs} d={d} bf16")
+    del blocks, ids, bias
+    # every payload at d=256, ragged small: Q past one query tile, dead and
+    # padding pages
+    for form in (torch.float32, torch.bfloat16, torch.int8, "q8"):
+        codes = form == "q8"
+        blk = _pool(torch, gen, 96, bs, d, torch.int8 if codes else form)
+        q2 = torch.randn(70, d, device="cuda", generator=gen) * (32 if blk.dtype == torch.int8
+                                                                  else 1)
+        u2 = torch.randint(0, 96, (37,), device="cuda", generator=gen, dtype=torch.int32)
+        b2 = torch.where(torch.rand(37, bs, device="cuda", generator=gen) < 0.3, 3.0e38, 0.0)
+        b2[[0, 9]] = 3.0e38
+        for kk in (10, 32):
+            if codes:
+                s2 = _page_sz(torch, gen, (37,))
+                got = K.scan_batched_topk_q8(u2, q2, blk, b2, s2, k=kk)
+                want = K.scan_batched_topk_q8_plain(u2, q2, blk, b2, s2, k=kk)
+            else:
+                got = K.scan_batched_topk(u2, q2, blk, b2, k=kk)
+                want = K.scan_batched_topk_plain(u2, q2, blk, b2, k=kk)
+            torch.cuda.synchronize()
+            compare_kmin(*got, *want, atol=1e-2)
+        if not codes:
+            u3 = u2.clone()
+            u3[[1, 4, 5, 6, 7]] = -1
+            a = K.scan_batched(u3, q2, blk)
+            torch.cuda.synchronize()
+            compare_dense(a, K.scan_batched_plain(u3, q2, blk))
+            check(bool((a[u3 < 0] == 3.0e38).all()),
+                  "scan_batched at d=256: a padding row is not BIG")
+    for name, r in out.items():
+        log(f"{name} at d=256 ({r['shape']}): ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"library_ms={r['library_ms']:.4f} max_abs_err={r['max_abs_err']:.3g} "
+            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})"
+            + (f" tensor_core_bound_ms={r['tensor_core_bound_ms']:.4f} ({r['tc_passes']} TF32 "
+               "passes)" if "tensor_core_bound_ms" in r else "")
+            + (f" f32_bound_ms={r['f32_bound_ms']:.4f}" if "f32_bound_ms" in r else ""))
+        results[name]["d256"] = r
+    log("scan_batched_topk, scan_batched_topk_q8, scan_batched at d=256: f32, bf16, int8 "
+        "values and int8 codes held against their plain versions (k 10 and 32; padding rows BIG)")
+
+
 # ---------------------------------------------------------------------------
 # main path
 # ---------------------------------------------------------------------------
@@ -1036,6 +1209,7 @@ PATH_KERNELS = {
     "grouped": ("scan_batched_topk",),
     "durable": ("l2_topk_tiles", "scan_batched_topk", "scan_per_query_topk"),
     "sharded": ("l2_topk_tiles", "scan_batched_topk", "scan_per_query_topk"),
+    "retrieval": ("l2_topk_tiles", "scan_per_query_topk", "scan_batched_topk"),
 }
 
 
@@ -2613,6 +2787,268 @@ def sharded_path(torch, np, seed, report, *, cfg=None, device="cuda", n=None,
     return report
 
 
+# ---------------------------------------------------------------------------
+# the retrieval path: two-tower retrieval served by the index
+# ---------------------------------------------------------------------------
+
+# The corpus: item ids 0..RETRIEVAL_N-1, embedded at SERVE_CONFIG's full
+# width, in an index of the reference's ann_index_cfg with its three
+# capacities times RETRIEVAL_SCALE.  retrieval_cand has 1,000,000
+# candidates (the reference's configs/common.py:346); the path takes
+# 524,288 (capacities x 16), the cut that keeps the whole smoke near its
+# budget (PERF.md section 4).
+RETRIEVAL_N = 524_288
+RETRIEVAL_SCALE = 16
+# The recall floor's corpus: the largest the reference's CPU run builds
+# (scripts/reference_recall.py, cell "retrieval", about 50 minutes on 8
+# CPU cores), capacities x 8.  Recall falls as N grows, so the floor holds
+# at this size only.
+RETRIEVAL_FLOOR_N = 262_144
+RETRIEVAL_FLOOR_SCALE = 8
+# Recall@10 of the reference's IndexedRetriever (gather oracle, nprobe 16)
+# against its brute force on the same params, the floor's corpus and the
+# users; the port must reach it minus RECALL_MARGIN under both schedules.
+# Random towers spread the users' neighbours over many postings, so recall
+# at nprobe 16 is low; the kernel path's ids are also held against the
+# gather oracle's on the same state (ORACLE_OVERLAP, as the main paths).
+REFERENCE_RECALL_RETRIEVAL = 0.10126953125
+ORACLE_OVERLAP = 0.95
+RETRIEVAL_USERS = 1024          # the Q=1,024 batch
+RETRIEVAL_LOOKUPS = 64          # single-user lookups (the retrieval_cand batch)
+RETRIEVAL_ADD = 16_384
+RETRIEVAL_REMOVE = 4_096
+RETRIEVAL_BURSTS = 8            # engine bursts of RETRIEVAL_USERS users
+RETRIEVAL_ENGINE_ADD = 1024     # churn after the middle burst
+RETRIEVAL_ENGINE_REMOVE = 256
+
+
+def retrieval_index_cfg(scale):
+    """``ann_index_cfg()`` with kernel navigation and scans and its three
+    capacities times ``scale``."""
+    from repro_torch.configs.two_tower_retrieval import ann_index_cfg
+
+    c = ann_index_cfg()
+    return dataclasses.replace(c, num_blocks=c.num_blocks * scale,
+                               num_postings_cap=c.num_postings_cap * scale,
+                               num_vectors_cap=c.num_vectors_cap * scale,
+                               use_pallas_nav=True, use_pallas_scan=True)
+
+
+def retrieval_users(np, seed, n, cfg):
+    """``n`` users' field ids, uniform over each field's vocabulary."""
+    rng = np.random.default_rng(seed + 11)
+    return rng.integers(0, cfg.user_vocab_per_field, size=(n, cfg.n_user_fields)).astype(np.int32)
+
+
+def with_schedule(retr, schedule):
+    """The retriever's index set to scan with ``schedule`` (the state's
+    config decides it; nothing is copied)."""
+    st = retr.index.state
+    retr.index.state = st.replace(cfg=dataclasses.replace(st.cfg, scan_schedule=schedule))
+
+
+def retrieval_path(torch, np, seed, report, *, device="cuda", model_cfg=None, n=None, cfg=None,
+                   floor_n=None, floor_cfg=None, floor=None, users_n=RETRIEVAL_USERS,
+                   lookups=RETRIEVAL_LOOKUPS, n_add=RETRIEVAL_ADD, n_remove=RETRIEVAL_REMOVE,
+                   bursts=RETRIEVAL_BURSTS, engine_add=RETRIEVAL_ENGINE_ADD,
+                   engine_remove=RETRIEVAL_ENGINE_REMOVE):
+    """Two-tower retrieval through ``IndexedRetriever`` at ``model_cfg``
+    (``SERVE_CONFIG``: bf16, the published widths), its params made on the
+    device from ``seed`` (``twotower_init_counter``).
+
+    The recall floor's corpus first: ``floor_n`` items in an index of
+    config ``floor_cfg``, built; recall@10 of ``retrieve`` against
+    ``retrieve_bruteforce`` under both schedules, each at least ``floor``
+    (by default, at ``RETRIEVAL_FLOOR_N`` items, the reference's minus
+    ``RECALL_MARGIN``), and each schedule's ids overlapping the gather
+    oracle's on the same state by ``ORACLE_OVERLAP``; then it is dropped.
+    Then ``n`` items in an index of config ``cfg``: build; ANN p50 at Q=1
+    (``lookups`` users) and Q=``users_n`` under both schedules, where a
+    Q=``users_n`` lookup's time goes (towers, #1, the scan, the rest),
+    brute-force p50; recall@10 (no floor: the reference has none at this
+    size) and the oracle overlap again.  Churn: ``add_items`` of ``n_add``
+    items (inserts, drains, ``maintain(32)``), every fresh item in its own
+    top-10 under both schedules, ``remove_items`` of ``n_remove``, none
+    returned to the users or to its own embedding.  Then the engine,
+    attached through a ``ServiceSpec`` as the reference example does:
+    ``bursts`` bursts of ``users_n`` users, churn after the middle one
+    (``engine_add`` items in, ``engine_remove`` out), ``drain()``,
+    ``report()``.  The defaults are the card's sizes; a small
+    ``model_cfg`` and configs rehearse the path on the CPU."""
+    from repro_torch import api
+    from repro_torch.configs.two_tower_retrieval import SERVE_CONFIG
+    from repro_torch.models.recsys import twotower_init_counter
+    from repro_torch.serve.policy import BacklogPolicy
+    from repro_torch.serve.retrieval import IndexedRetriever
+
+    model_cfg = model_cfg or SERVE_CONFIG
+    n = n or RETRIEVAL_N
+    cfg = cfg or retrieval_index_cfg(RETRIEVAL_SCALE)
+    floor_n = floor_n or RETRIEVAL_FLOOR_N
+    floor_cfg = floor_cfg or retrieval_index_cfg(RETRIEVAL_FLOOR_SCALE)
+    if floor is None and floor_n == RETRIEVAL_FLOOR_N:
+        floor = REFERENCE_RECALL_RETRIEVAL - RECALL_MARGIN
+    k = 10
+    params, init_s = timed(torch, lambda: twotower_init_counter(seed, model_cfg, device=device))
+    param_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    users = retrieval_users(np, seed, users_n, model_cfg)
+    log(f"[retrieval] params {model_cfg.name} {model_cfg.dtype}: {param_bytes} bytes made on "
+        f"{device} in {init_s:.2f} s (item table {tuple(params.item_embed.shape)})")
+    report.update(param_bytes=param_bytes, init_s=init_s, n=n)
+
+    def recall_of(got, want):
+        return float(sum(len(set(a) & set(b)) for a, b in zip(got.tolist(), want.tolist()))
+                     / want.size)
+
+    def schedules(retr, fn):
+        out = {}
+        for sched in ("per_query", "batched"):
+            with_schedule(retr, sched)
+            out[sched] = fn()
+        with_schedule(retr, "per_query")
+        return out
+
+    def quality(retr, n_items, fl):
+        """Recall@10 against brute force and id overlap with the gather
+        oracle on the same state, both schedules; recall held to ``fl``
+        where given."""
+        _, bf = retr.retrieve_bruteforce(users, k=k)
+        rec = schedules(retr, lambda: recall_of(retr.retrieve(users, k=k)[1], bf))
+        u = retr._users(users).cpu().numpy()
+        oracle = retr.index.search(u, k, use_pallas_scan=False)[1]
+        ov = schedules(retr, lambda: overlap(oracle, retr.index.search(u, k)[1]))
+        log(f"[retrieval] N={n_items}: recall@10 at nprobe {retr.index_cfg.nprobe} {rec}, floor "
+            f"{fl}; kernel path vs gather oracle, id overlap {ov}")
+        for sched in rec:
+            check(ov[sched] >= ORACLE_OVERLAP, f"[retrieval] {sched} overlaps the oracle by "
+                  f"{ov[sched]} < {ORACLE_OVERLAP} (N={n_items})")
+            if fl is not None:
+                check(rec[sched] >= fl, f"[retrieval] recall@10 {rec[sched]} ({sched}, "
+                      f"N={n_items}) below {fl}")
+        return rec, ov
+
+    # ---- the recall floor's corpus
+    retr = IndexedRetriever(params, model_cfg, floor_cfg, device=device)
+    _, fbuild_s = timed(torch, lambda: retr.build_corpus(np.arange(floor_n)))
+    frec, fov = quality(retr, floor_n, floor)
+    report["floor_corpus"] = dict(n=floor_n, build_s=fbuild_s, recall_at_10=frec,
+                                  recall_floor=floor, oracle_overlap=fov)
+    log(f"[retrieval] N={floor_n}: build {fbuild_s:.1f} s (the reference's size, floor "
+        f"{floor}: its recall minus {RECALL_MARGIN})")
+    del retr
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # ---- the path's corpus
+    retr = IndexedRetriever(params, model_cfg, cfg, device=device)
+    _, build_s = timed(torch, lambda: retr.build_corpus(np.arange(n)))
+    st = retr.index.stats()
+    mem = retr.index.memory_bytes()
+    backlog = retr.index.backlog()
+    log(f"[retrieval] N={n}: build {build_s:.1f} s n_postings={st['n_postings']} "
+        f"used_blocks={st['used_blocks']} state_bytes={mem['memory'] + mem['disk']} "
+        f"backlog={backlog} (postings over split_limit {cfg.split_limit})")
+    report.update(build_s=build_s, n_postings=st["n_postings"], used_blocks=st["used_blocks"],
+                  state_bytes=mem["memory"] + mem["disk"], backlog_after_build=backlog)
+    one = [users[i:i + 1] for i in range(lookups)]
+
+    def p50(fn, reps):
+        return statistics.median(timed(torch, fn)[1] * 1e3 for _ in range(reps))
+
+    def lookup_p50():
+        retr.retrieve(users, k=k)                         # warm
+        return {"1": statistics.median(timed(torch, lambda: retr.retrieve(u, k=k))[1] * 1e3
+                                       for u in one),
+                str(users_n): p50(lambda: retr.retrieve(users, k=k), 5)}
+
+    ann_p50 = schedules(retr, lookup_p50)
+    retr.retrieve_bruteforce(users[:1], k=k)
+    bf_p50 = {"1": p50(lambda: retr.retrieve_bruteforce(users[:1], k=k), 5),
+              str(users_n): p50(lambda: retr.retrieve_bruteforce(users, k=k), 3)}
+    rec, ov = quality(retr, n, None)
+    split = {}
+    if device == "cuda":
+        _, tower_s = timed(torch, lambda: retr._users(users))
+
+        def traced():
+            _, kms, host_ms = kernel_ms_in(torch, lambda: retr.retrieve(users, k=k))
+            return dict(kernel_ms=kms, host_ms=host_ms, tower_ms=tower_s * 1e3)
+
+        split = schedules(retr, traced)
+    log(f"[retrieval] ANN p50 ms {ann_p50} (per_query, batched); brute force p50 ms {bf_p50} "
+        f"(towers + GEMM + top-k)")
+    for sched, sp in split.items():
+        log(f"[retrieval] inside one Q={users_n} {sched} lookup ({sp['host_ms']:.3f} ms on the "
+            f"host clock): towers {sp['tower_ms']:.3f} ms, "
+            + " ".join(f"{name}={v:.4f} ms" for name, v in sp["kernel_ms"].items() if v))
+    report.update(ann_p50_ms=ann_p50, bruteforce_p50_ms=bf_p50, recall_at_10=rec,
+                  oracle_overlap=ov, inside_one_lookup=split)
+
+    # ---- catalog churn (an item's vid is its position in the id map: here its id)
+    fresh = np.arange(n, n + n_add)
+    stats0 = retr.index.stats()
+    _, add_s = timed(torch, lambda: retr.add_items(fresh))
+    embs = retr.embed_items(fresh)
+    found = schedules(retr, lambda: float(np.mean(
+        [(retr.index.search(embs[s:s + users_n], k)[1] == fresh[s:s + users_n, None]).any(1).mean()
+         for s in range(0, n_add, users_n)])))
+    after = retr.index.stats()
+    work = {key: after[key] - stats0[key] for key in ("n_splits", "n_merges", "n_reassigned")}
+    log(f"[retrieval] +{n_add} items in {add_s:.1f} s ({n_add / add_s:.0f} items/s; the "
+        f"drains {work}, {retr.index.retried_rows} rows retried); fresh items in their own "
+        f"top-10: {found}")
+    for sched, f in found.items():
+        check(f == 1.0, f"[retrieval] {sched}: only {f} of the fresh items find themselves")
+    gone = np.random.default_rng(seed + 13).choice(n, size=n_remove, replace=False)
+    _, rm_s = timed(torch, lambda: retr.remove_items(gone))
+    gone_embs = retr.embed_items(gone)
+    gone_set = set(gone.tolist())
+
+    def none_back():
+        ids = retr.retrieve(users, k=k)[1]
+        own = retr.index.search(gone_embs, k)[1]
+        return not (gone_set & set(ids.ravel().tolist())) and not (
+            gone_set & set(own.ravel().tolist()))
+
+    back = schedules(retr, none_back)
+    check(all(back.values()), f"[retrieval] a removed item was returned: {back}")
+    log(f"[retrieval] -{n_remove} items in {rm_s:.2f} s; none returned to the users or to its "
+        "own embedding, both schedules")
+    report.update(add_s=add_s, add_items_per_s=n_add / add_s, add_drain_work=work,
+                  fresh_self_top10=found, remove_s=rm_s, stats=retr.index.stats())
+
+    # ---- the engine, attached through a ServiceSpec (the reference example's)
+    spec = api.ServiceSpec(index=api.IndexSpec(config=retr.index_cfg),
+                           serve=api.ServeSpec(search_k=k, max_batch=128, policy="backlog"),
+                           maintenance=api.MaintenanceSpec(maintain_budget=16))
+    engine = retr.attach_engine(spec, policy=BacklogPolicy(threshold=1, budget=16))
+    rng = np.random.default_rng(seed + 17)
+    more = np.arange(n + n_add, n + n_add + engine_add)
+    gone2 = rng.choice(np.setdiff1d(np.arange(n), gone), size=engine_remove, replace=False)
+    t0 = time.perf_counter()
+    for b in range(bursts):
+        retr.retrieve(rng.integers(0, model_cfg.user_vocab_per_field,
+                                   size=(users_n, model_cfg.n_user_fields)).astype(np.int32), k=k)
+        if b == bursts // 2 - 1:
+            retr.add_items(more)
+            retr.remove_items(gone2)
+    engine.drain()
+    eng_s = time.perf_counter() - t0
+    rep = engine.report()
+    ids = retr.retrieve(users, k=k)[1]
+    check(not set(gone2.tolist()) & set(ids.ravel().tolist()),
+          "[retrieval] the engine returned a removed item")
+    log(f"[retrieval] engine: {bursts} bursts of {users_n} users + churn in {eng_s:.2f} s; "
+        f"search p50/p99 {rep['search'].get('p50_ms')}/{rep['search'].get('p99_ms')} ms, "
+        f"padding waste {rep['queue']['padding_waste_frac']:.4f}, maintenance "
+        f"{rep['maintenance']['steps']} steps in {rep['maintenance']['slots']} slots "
+        f"({rep['maintenance']['policy']})")
+    report.update(engine_s=eng_s, engine_report=rep)
+    engine.shutdown(timeout=JOIN_S)
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="chip smoke for the PyTorch/CUDA port")
     ap.add_argument("--seed", type=int, default=0)
@@ -2667,6 +3103,8 @@ def main() -> int:
     phase_scan_unreduced(torch, gen, results, blocks)
     phase_scan_q8(torch, gen, results, blocks)
     del blocks
+    torch.cuda.empty_cache()
+    phase_d256(torch, gen, results)
     torch.cuda.empty_cache()
 
     counters = (LK.LAUNCHES, SK.LAUNCHES)
@@ -2774,6 +3212,21 @@ def main() -> int:
         f"{sh['recovery']['load_s']:.2f} s, upload {sh['recovery']['upload_s']:.2f} s, replay "
         f"{sh['recovery']['replay_s']:.2f} s; launches on the path: {got}; "
         f"{sh['seconds']:.1f} s ({card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    reset()
+    report["retrieval"] = {}
+    t0 = time.perf_counter()
+    retrieval_path(torch, np, args.seed, report["retrieval"])
+    report["retrieval"]["seconds"] = time.perf_counter() - t0
+    got = launched("retrieval")
+    rt = report["retrieval"]
+    fc = rt["floor_corpus"]
+    log(f"[retrieval] ANN p50 {rt['ann_p50_ms']} ms, brute force p50 {rt['bruteforce_p50_ms']} "
+        f"ms, recall@10 {rt['recall_at_10']} (N={rt['n']}), {fc['recall_at_10']} (N={fc['n']}, "
+        f"floor {fc['recall_floor']}); launches on the path: {got}; {rt['seconds']:.1f} s "
+        f"({card})")
     for name, n in launches.items():
         results[name]["launches"] = n
     for name in ("l2_topk_tiles", "scan_batched", "scan_batched_topk", "scan_batched_topk_q8"):
@@ -2785,7 +3238,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("tensor_core_bound_ms", "f32_bound_ms", "store_floor_ms", "per_probe_bound_ms",
-             "main_mix")                                      # where a kernel has them
+             "main_mix", "d256")                              # where a kernel has them
     kernels = [{**{k: results[n][k] for k in keys},
                 **{k: results[n][k] for k in extra if k in results[n]}} for n in KERNEL_ORDER]
     print("report: " + json.dumps(report, default=str))

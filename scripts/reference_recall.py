@@ -25,7 +25,16 @@ unchanged), once per cell of the smoke:
 * ``sharded`` on the ``update`` cell's N and data: the reference's
   ``ShardedIndex`` over 4 shards on 4 fake CPU devices (this script sets
   ``XLA_FLAGS`` for them before JAX starts), built and searched, handles
-  against brute force over the base (about 30 minutes on 8 CPU cores).
+  against brute force over the base (about 30 minutes on 8 CPU cores);
+* ``retrieval``: the reference's two-tower ``IndexedRetriever`` on the
+  chip smoke's retrieval params (the port's ``twotower_init_counter`` at
+  ``SERVE_CONFIG``, made here on the CPU for the item rows the corpus
+  uses: every value is a function of its seed and position, so these are
+  the card's bits), corpus ids ``0..chip_smoke.RETRIEVAL_FLOOR_N - 1``
+  in ``ann_index_cfg`` with its capacities times
+  ``chip_smoke.RETRIEVAL_FLOOR_SCALE`` (gather oracle), and the smoke's
+  1,024 users: recall@10 of ``retrieve`` against ``retrieve_bruteforce``
+  at nprobe 16.
 
 Each searches 1,024 queries from ``make_queries`` with k=10 through the
 gather oracle at nprobe=1 and at the config's nprobe=64 and prints
@@ -69,7 +78,7 @@ UPDATE_INSERT = 4096
 QUERIES = 1024
 NPROBES = (1, CONFIG.nprobe)
 CELLS = {"fp32": {}, "int8": {"codec": "int8", "rerank_factor": 4}, "update": {},
-         "serve": {}, "sharded": {}}
+         "serve": {}, "sharded": {}, "retrieval": {}}
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402  (the serve phase's requests)
 
@@ -159,6 +168,31 @@ def sharded_recall(cfg, n: int, seed: int, queries_n: int = QUERIES, chunk: int 
     return recall, idx.stats()
 
 
+def retrieval_recall(seed: int, n: int, scale: int, users_n: int = QUERIES):
+    """The reference's ``IndexedRetriever`` on the chip smoke's retrieval
+    params, corpus and users (see the module docstring): recall@10 of
+    ``retrieve`` against ``retrieve_bruteforce`` and the index's stats."""
+    from repro.core.types import LireConfig
+    from repro.models import recsys as R
+    from repro.serve.retrieval import IndexedRetriever
+    from repro_torch import convert
+    from repro_torch.configs.two_tower_retrieval import SERVE_CONFIG
+    from repro_torch.models.recsys import twotower_init_counter
+
+    cfg = dataclasses.replace(SERVE_CONFIG, n_items=n)     # the table's first n rows
+    tree = convert.twotower_params_to_numpy(twotower_init_counter(seed, cfg, device="cpu"))
+    params = jax.tree_util.tree_map(lambda a: jnp.asarray(a.view(jnp.bfloat16)), tree)
+    port_icfg = chip_smoke.retrieval_index_cfg(scale)
+    icfg = LireConfig(**dict(dataclasses.asdict(port_icfg), use_pallas_nav=False,
+                             use_pallas_scan=False))
+    retr = IndexedRetriever(params, R.TwoTowerConfig(**dataclasses.asdict(cfg)), icfg)
+    retr.build_corpus(np.arange(n))
+    users = chip_smoke.retrieval_users(np, seed, users_n, cfg)
+    _, ann = retr.retrieve(users, k=10)
+    _, bf = retr.retrieve_bruteforce(users, k=10)
+    return recall_of(bf, ann), retr.index.stats()
+
+
 def _bounded_compiles(kmeans, every: int = 50):
     """``kmeans`` dropping JAX's compiled executables every ``every``
     calls.  The build compiles ``balanced_kmeans`` once per distinct node
@@ -189,6 +223,13 @@ def main() -> None:
             num_postings_cap=max(2048, n // 16), num_vectors_cap=2 * n, **CELLS[cell],
         )
         extra = {}
+        if cell == "retrieval":
+            n, scale = chip_smoke.RETRIEVAL_FLOOR_N, chip_smoke.RETRIEVAL_FLOOR_SCALE
+            recall, stats = retrieval_recall(args.seed, n, scale)
+            print(json.dumps({"cell": cell, "n": n, "capacity_scale": scale, "users": QUERIES,
+                              "seed": args.seed, "nprobe": 16, "recall_at_10": recall,
+                              "stats": stats}, default=str))
+            continue
         if cell == "sharded":
             recall, stats = sharded_recall(cfg, n, args.seed)
             print(json.dumps({"cell": cell, "n": n, "shards": SHARDS, "queries": QUERIES,

@@ -10,6 +10,9 @@ A sharded index is the reference's ONE stacked state (every leaf with a
 leading ``(n_shards,)`` axis) and the port's list of per-shard states:
 :func:`sharded_state_from_numpy` and :func:`sharded_state_to_numpy` carry
 it across in both directions.
+
+The two-tower model's params travel as the reference's nested tree
+(:func:`twotower_params_from_numpy`, :func:`twotower_params_to_numpy`).
 """
 from __future__ import annotations
 
@@ -123,3 +126,46 @@ def group_index_from_numpy(leaves: dict, *, device="cuda"):
 def group_index_to_numpy(gidx) -> dict[str, np.ndarray]:
     """Inverse of :func:`group_index_from_numpy`."""
     return {name: getattr(gidx, name).detach().cpu().numpy() for name in _GROUP_LEAVES}
+
+
+def twotower_params_from_numpy(tree: dict, cfg, *, device="cuda"):
+    """The port's ``TwoTower`` holding the reference's two-tower params
+    ``tree`` (``{"user_embed", "item_embed", "user_mlp": [{"w", "b"}, ...],
+    "item_mlp": [...]}`` as numpy arrays, bfloat16 as uint16 bits or numpy's
+    bfloat16) on ``device``, each ``w (in, out)`` held as ``nn.Linear``'s
+    ``(out, in)``.  Leaves must be in ``cfg.dtype``."""
+    from repro_torch.models.recsys import TwoTower, _linear, torch_dtype
+
+    dev = resolve_device(device)
+    like = torch.empty((), dtype=torch_dtype(cfg.dtype))
+
+    def leaf(arr):
+        arr = np.asarray(arr)
+        if like.dtype == torch.float32 and arr.dtype != np.float32:
+            raise TypeError(f"a {arr.dtype} leaf for a float32 config")
+        if like.dtype == torch.bfloat16 and arr.dtype.itemsize != 2:
+            raise TypeError(f"a {arr.dtype} leaf for a bfloat16 config")
+        return _to_tensor(arr, like, dev)
+
+    def mlp(layers):
+        return torch.nn.ModuleList(_linear(leaf(lp["w"]).T.contiguous(), leaf(lp["b"]))
+                                   for lp in layers)
+
+    return TwoTower(cfg, leaf(tree["user_embed"]), leaf(tree["item_embed"]),
+                    mlp(tree["user_mlp"]), mlp(tree["item_mlp"]))
+
+
+def twotower_params_to_numpy(model) -> dict:
+    """Inverse of :func:`twotower_params_from_numpy`: the reference's tree
+    on the host (each ``w`` back to ``(in, out)``; bfloat16 → uint16 bits)."""
+    def leaf(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16)
+        return t.numpy()
+
+    def mlp(layers):
+        return [{"w": leaf(lin.weight.T.contiguous()), "b": leaf(lin.bias)} for lin in layers]
+
+    return {"user_embed": leaf(model.user_embed), "item_embed": leaf(model.item_embed),
+            "user_mlp": mlp(model.user_mlp), "item_mlp": mlp(model.item_mlp)}

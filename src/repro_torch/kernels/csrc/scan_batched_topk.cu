@@ -47,6 +47,17 @@
 //     the step against query half w % 2.  At d = 100 an int8 block holds
 //     88 KB, so two blocks share an SM (16 warps); bf16 114 KB (two), f32
 //     165 KB (one);
+//   * where that layout passes the 227 KB a block may take (at BS = 32:
+//     d above 148 for f32, 248 for bf16; #3, which keeps its query tile
+//     twice, above 144 and 208), the launcher takes a wide shape for f32
+//     and bf16 pages: a one-step ring (a step's pages are loaded after the
+//     step before is consumed, so the copy no longer overlaps the
+//     product within a block), and for f32 four warps, two pages a step.
+//     At d = 256 #6 then holds 152 KB (f32) or 169 KB (bf16), #3 206 KB:
+//     one block an SM.  int8 pages (#6, #7, #3) keep the default layout,
+//     which at d = 256 holds 170 KB (#3 206 KB).  The largest d at BS = 32
+//     is 408 (f32), 372 (bf16), 372 (int8) for #6 and #7, and 296, 292,
+//     292 for #3; a larger d is refused;
 //   * pages are staged asynchronously and stay in their payload type: each
 //     live page's BS * d bytes are contiguous, so a warp copies them with
 //     cp.async (16 bytes a lane where the page size allows, else 4) into a
@@ -123,10 +134,14 @@
 // without a product 1.9 ms, and the two overlap only in part (about
 // 3.1 ms over the full budget, int8).
 // Registers and spills (`-Xptxas -v`, printed by every chip_smoke.py run):
-// nineteen instantiations (payload x KMAX in {0 (#3), 4, 10, 16, 32}, and
-// int8 q8 x KMAX) under the 128 of __launch_bounds__(256, 2).
-// Contract: 1 <= BS <= 32, 1 <= k <= BS, d % 4 == 0, a 16-byte aligned
-// pool, ids in [0, B) (#3: or -1, padding).  Plain C interface, loaded
+// twenty-nine instantiations (payload x KMAX in {0 (#3), 4, 10, 16, 32},
+// and int8 q8 x KMAX, in the default shape; f32 and bf16 x KMAX in the
+// wide one), the default shape's under the 128 of
+// __launch_bounds__(256, 2), the f32 wide shape's (128 threads) at most
+// 167, no spills.
+// Contract: 1 <= BS <= 32, 1 <= k <= BS, d % 4 == 0 and within the
+// largest d above, a 16-byte aligned pool, ids in [0, B) (#3: or -1,
+// padding).  Plain C interface, loaded
 // with ctypes; returns cudaGetLastError().
 
 #include <cuda_bf16.h>
@@ -142,12 +157,24 @@ namespace {
 using namespace scancommon;
 using namespace tf32mma;
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
 constexpr int kQTile = 64;          // queries resident per block
-constexpr int kStep = kWarps / 2;   // pages per step, two warps each
 constexpr int kRun = 64;            // pages per block
 constexpr int kRunAll = 256;        // ... for #3, whose block set-up is the larger share
+constexpr int kSmemMax = 232448;    // dynamic shared memory a block may take (227 KB)
+
+// The block's shape: two warps a page (one per 32-query half), so warps / 2
+// pages a step, and a ring of `ring` steps of pages.  The default shape
+// keeps the next step's pages in flight while one step computes.  The
+// wide shape serves f32 and bf16 pages whose default ring and query tile
+// pass kSmemMax (d = 256): one step of pages at a time, and for f32
+// payloads four warps, two pages a step.
+template <typename T, bool kWide>
+struct Shape {
+  static constexpr int warps = kWide && sizeof(T) == 4 ? 4 : 8;
+  static constexpr int threads = warps * 32;
+  static constexpr int step = warps / 2;
+  static constexpr int ring = kWide ? 1 : 2;
+};
 
 // code * scale + zero, rounded after the multiply and after the add.
 __device__ __forceinline__ float dequant(float c, float scale, float zero) {
@@ -211,20 +238,20 @@ __device__ __forceinline__ int swz(int r) {
 // only the query tiles' offsets take registers.  kAll (#3) has no staging
 // tile and keeps the query tile split, q_hi in qs and q_lo in qlo, each
 // in fragment order (frag_offset).
-template <bool kAll>
+template <bool kAll, int kWarps, int kRing>
 struct Layout {
+  static constexpr int kStep = kWarps / 2;
   static constexpr int stage = 0;                          // [kWarps][32][32] f32
   static constexpr int qsq = stage + (kAll ? 0 : 4 * kWarps * 32 * 32);  // [kQTile]
   static constexpr int qsum = qsq + 4 * kQTile;             // [kQTile]
-  static constexpr int bias = qsum + 4 * kQTile;            // [2][kStep][32]
-  static constexpr int sz = bias + 4 * 2 * kStep * 32;      // [2][kStep][2]
-  static constexpr int live = sz + 4 * 2 * kStep * 2;       // [2][kStep]
-  static constexpr int pages = live + 4 * 2 * kStep;        // [2][kStep][page_stride]
-  static_assert(pages % 16 == 0, "the page ring takes 16-byte copies");
+  static constexpr int bias = qsum + 4 * kQTile;            // [kRing][kStep][32]
+  static constexpr int sz = bias + 4 * kRing * kStep * 32;  // [kRing][kStep][2]
+  static constexpr int live = sz + 4 * kRing * kStep * 2;   // [kRing][kStep]
+  static constexpr int pages = (live + 4 * kRing * kStep + 15) & ~15;  // [kRing][kStep][page_stride]
   int page_stride, qs, qlo, total;                          // qs, qlo: [kQTile][stride]
   __host__ __device__ Layout(int bs, int d, int elem, int stride) {
     page_stride = (bs * d * elem + 15) & ~15;
-    qs = pages + 2 * kStep * page_stride;
+    qs = pages + kRing * kStep * page_stride;
     qlo = qs + 4 * kQTile * stride;
     total = qlo + (kAll ? 4 * kQTile * stride : 0);
   }
@@ -234,8 +261,8 @@ struct Layout {
 // zero) (#7); else f32, bf16 or int8 values as they are (#6).  KMAX = 0
 // is #3: no bias, no k-min, every slot's distance stored (k = BS), and a
 // page whose id is -1 is padding, written as BIG.
-template <typename T, int KMAX, bool kQ8>
-__global__ void __launch_bounds__(kThreads, 2)
+template <typename T, int KMAX, bool kQ8, bool kWide>
+__global__ void __launch_bounds__(Shape<T, kWide>::threads, 2)
 scan_batched_topk_tc(const int* __restrict__ ids, const float* __restrict__ q,
                      const T* __restrict__ blocks, const float* __restrict__ bias,
                      const float* __restrict__ sz,
@@ -245,9 +272,11 @@ scan_batched_topk_tc(const int* __restrict__ ids, const float* __restrict__ q,
   static_assert(!kQ8 || sizeof(T) == 1, "the q8 form reads int8 codes");
   constexpr bool kSplitB = sizeof(T) == 4;  // f32 payloads need a lo part
   constexpr bool kAll = KMAX == 0;          // #3: store every slot
+  using S = Shape<T, kWide>;
+  constexpr int kWarps = S::warps, kThreads = S::threads, kStep = S::step, kRing = S::ring;
   extern __shared__ float4 smem4[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(smem4);
-  using Lay = Layout<kAll>;
+  using Lay = Layout<kAll, kWarps, kRing>;
   const Lay L(bs, d, (int)sizeof(T), stride);
   unsigned char* pages = sm + Lay::pages;
   float* qs = reinterpret_cast<float*>(sm + L.qs);
@@ -371,10 +400,14 @@ scan_batched_topk_tc(const int* __restrict__ ids, const float* __restrict__ q,
   const bool pair_out = (k & 1) == 0 && reinterpret_cast<uintptr_t>(out_d) % 8 == 0;
 
   for (int s = 0; s < n_steps; ++s) {
-    const int buf = s & 1;
+    const int buf = kRing == 2 ? s & 1 : 0;
+    if (kRing == 1 && s > 0) {
+      __syncthreads();  // step s-1 is consumed: its slot of the ring takes step s
+      load_step(s, 0);
+    }
     cp_async_wait<0>();
     __syncthreads();  // step s's pages landed; step s-1 is consumed
-    if (s + 1 < n_steps) load_step(s + 1, buf ^ 1);
+    if (kRing == 2 && s + 1 < n_steps) load_step(s + 1, buf ^ 1);
 
     const int page = run0 + s * kStep + wp;
     if (page >= nb || n_valid <= 0) continue;  // warp-uniform
@@ -721,20 +754,22 @@ scan_batched_topk_tc(const int* __restrict__ ids, const float* __restrict__ q,
   }
 }
 
-template <typename T, int KMAX, bool kQ8>
-int launch(const int* ids, const float* q, const void* blocks, const float* bias,
-           const float* sz, float* out_d, int* out_i, int nb, int n_q, int bs, int d,
-           int k, cudaStream_t stream) {
-  const int kpad = (d + 15) / 16 * 16;  // K padded to two mma depths
-  // a query row's stride is 16 mod 32 floats: the 16-byte loads of a
-  // quarter warp (rows g, g + 1; columns 4t) then hit 32 distinct banks
-  const int stride = kpad % 32 == 16 ? kpad : kpad + 16;
-  const Layout<KMAX == 0> L(bs, d, (int)sizeof(T), stride);
-  if (L.total > 232448) return (int)cudaErrorInvalidValue;  // d too large
+template <typename T, int KMAX, bool kWide>
+Layout<KMAX == 0, Shape<T, kWide>::warps, Shape<T, kWide>::ring> layout_of(int bs, int d,
+                                                                           int stride) {
+  return {bs, d, (int)sizeof(T), stride};
+}
+
+template <typename T, int KMAX, bool kQ8, bool kWide>
+int launch_as(const int* ids, const float* q, const void* blocks, const float* bias,
+              const float* sz, float* out_d, int* out_i, int nb, int n_q, int bs, int d,
+              int k, int kpad, int stride, cudaStream_t stream) {
+  const auto L = layout_of<T, KMAX, kWide>(bs, d, stride);
+  if (L.total > kSmemMax) return (int)cudaErrorInvalidValue;  // d too large
   const int vec16 = (bs * d * (int)sizeof(T)) % 16 == 0;
   const int vec_out = k % 4 == 0 && reinterpret_cast<uintptr_t>(out_d) % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(out_i) % 16 == 0;
-  auto* kernel = scan_batched_topk_tc<T, KMAX, kQ8>;
+  auto* kernel = scan_batched_topk_tc<T, KMAX, kQ8, kWide>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
   if (err == cudaSuccess)  // all of L1 as shared memory: two blocks an SM
@@ -744,10 +779,31 @@ int launch(const int* ids, const float* q, const void* blocks, const float* bias
   const int runs = (nb + run - 1) / run, qtiles = (n_q + kQTile - 1) / kQTile;
   const dim3 grid = KMAX == 0 ? dim3(qtiles, runs) : dim3(runs, qtiles);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  kernel<<<grid, kThreads, L.total, stream>>>(ids, q, static_cast<const T*>(blocks), bias, sz,
-                                              out_d, out_i, nb, n_q, bs, d, k, kpad, stride,
-                                              vec16, vec_out);
+  kernel<<<grid, Shape<T, kWide>::threads, L.total, stream>>>(
+      ids, q, static_cast<const T*>(blocks), bias, sz, out_d, out_i, nb, n_q, bs, d, k, kpad,
+      stride, vec16, vec_out);
   return (int)cudaGetLastError();
+}
+
+// The default shape where its layout fits, else, for f32 and bf16 pages,
+// the wide one (which refuses a d that passes kSmemMax even there); int8
+// pages past the default layout are refused.
+template <typename T, int KMAX, bool kQ8>
+int launch(const int* ids, const float* q, const void* blocks, const float* bias,
+           const float* sz, float* out_d, int* out_i, int nb, int n_q, int bs, int d,
+           int k, cudaStream_t stream) {
+  const int kpad = (d + 15) / 16 * 16;  // K padded to two mma depths
+  // a query row's stride is 16 mod 32 floats: the 16-byte loads of a
+  // quarter warp (rows g, g + 1; columns 4t) then hit 32 distinct banks
+  const int stride = kpad % 32 == 16 ? kpad : kpad + 16;
+  if (layout_of<T, KMAX, false>(bs, d, stride).total <= kSmemMax)
+    return launch_as<T, KMAX, kQ8, false>(ids, q, blocks, bias, sz, out_d, out_i, nb, n_q, bs,
+                                          d, k, kpad, stride, stream);
+  if constexpr (sizeof(T) == 1)
+    return (int)cudaErrorInvalidValue;  // d too large
+  else
+    return launch_as<T, KMAX, kQ8, true>(ids, q, blocks, bias, sz, out_d, out_i, nb, n_q, bs,
+                                         d, k, kpad, stride, stream);
 }
 
 template <typename T, bool kQ8>

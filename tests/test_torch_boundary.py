@@ -1,6 +1,7 @@
 """The port's boundary: it imports no JAX and nothing of the reference, and
 its entry points run on the card unless the caller asks for the CPU."""
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -64,12 +65,16 @@ def _tiny_cfg():
 def test_the_boundary_covers_the_serving_layer_and_grouping():
     names = {str(p.relative_to(PORT)) for p in PORT_FILES if PORT in p.parents}
     for mod in ("serve/__init__.py", "serve/engine.py", "serve/queue.py", "serve/policy.py",
-                "serve/ownership.py", "storage/durability.py", "core/grouping.py"):
+                "serve/ownership.py", "storage/durability.py", "core/grouping.py",
+                "serve/retrieval.py", "models/recsys.py", "models/layers.py",
+                "configs/two_tower_retrieval.py"):
         assert mod in names, mod
 
 
 @pytest.mark.parametrize("entry", ["SPFreshIndex.build", "build_state", "make_empty_state",
-                                   "group_index_from_numpy"])
+                                   "group_index_from_numpy", "twotower_init",
+                                   "twotower_init_counter", "twotower_params_from_numpy",
+                                   "IndexedRetriever"])
 def test_entry_points_default_to_the_card(entry):
     """Without ``device=`` an entry point runs on CUDA; on a machine with
     no card it raises rather than falling back to the CPU."""
@@ -83,8 +88,20 @@ def test_entry_points_default_to_the_card(entry):
     leaves = {"group_centroids": np.zeros((2, 8), np.float32),
               "group_sqn": np.zeros(2, np.float32), "members": np.zeros((2, 4), np.int32),
               "member_valid": np.ones((2, 4), bool)}
+    from repro_torch import convert
+    from repro_torch.configs.two_tower_retrieval import SMOKE
+    from repro_torch.models import recsys
+    from repro_torch.serve.retrieval import IndexedRetriever
+
+    tower = recsys.twotower_init(torch.Generator().manual_seed(0), SMOKE, device="cpu")
+    icfg = dataclasses.replace(cfg, dim=SMOKE.tower_dims[-1])
     call = {
         "SPFreshIndex.build": lambda: SPFreshIndex.build(cfg, x).state,
+        "twotower_init": lambda: recsys.twotower_init(torch.Generator(), SMOKE).item_embed,
+        "twotower_init_counter": lambda: recsys.twotower_init_counter(0, SMOKE).item_embed,
+        "twotower_params_from_numpy": lambda: convert.twotower_params_from_numpy(
+            convert.twotower_params_to_numpy(tower), SMOKE).item_embed,
+        "IndexedRetriever": lambda: IndexedRetriever(tower, SMOKE, icfg).params.item_embed,
         "build_state": lambda: build_state(cfg, x),
         "make_empty_state": lambda: make_empty_state(cfg),
         "group_index_from_numpy": lambda: group_index_from_numpy(leaves).members,

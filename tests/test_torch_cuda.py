@@ -254,6 +254,70 @@ def test_scan_unique_blocks_op_on_the_card_matches_the_cpu(card, dtype):
     assert bool((got.cpu()[pad] == torch.tensor(BIG, dtype=torch.float32)).all())
 
 
+@pytest.mark.parametrize("form", [torch.float32, torch.bfloat16, torch.int8, "q8"])
+@pytest.mark.parametrize("k", [10, 32])
+def test_scans_at_the_two_tower_geometry_match_plain(card, form, k):
+    """The two-tower index's geometry, d = 256 at BS = 32, where #6 and #3
+    take the wide shape for f32 and bf16 pages (the default layout passes
+    the block's shared memory; int8 pages keep it): #6 (#7 for ``q8``) with dead pages
+    and Q past one query tile, #3 with -1 padding, and #4 (#5) beside them,
+    each against its plain version in one launch."""
+    gen = torch.Generator().manual_seed(6)
+    d, bs, q_n, nb = 256, 32, 70, 37
+    codes = form == "q8"
+    dtype = torch.int8 if codes else form
+    blocks = _blocks(gen, 96, bs, d, dtype, card)
+    scale = 64 if dtype == torch.int8 else 1
+    q = (torch.randn(q_n, d, generator=gen) * scale).to(card)
+    atol = 1e-2 if dtype == torch.int8 else 1e-4
+    ids = torch.randint(0, 96, (nb,), generator=gen, dtype=torch.int32).to(card)
+    bias = torch.where(torch.rand(nb, bs, generator=gen) < 0.3, BIG, 0.0)
+    bias[[0, 9, 36]] = BIG
+    bias = bias.to(card).contiguous()
+    sz = _page_sz(gen, nb).to(card)
+    (kd, ki), plain, launched = _batched_topk(form, ids, q, blocks, bias, sz, k)
+    assert launched == 1
+    assert_kmin_close(kd, ki, *plain, atol=atol, rtol=1e-5)
+    assert bool((kd[[0, 9, 36]].cpu() == torch.tensor(BIG, dtype=torch.float32)).all())
+    table = torch.randint(0, 96, (q_n, 12), generator=gen, dtype=torch.int32).to(card)
+    pbias = torch.where(torch.rand(q_n, 12, bs, generator=gen) < 0.3, BIG, 0.0).to(card)
+    name = "scan_per_query_topk_q8" if codes else "scan_per_query_topk"
+    args = (table, q, blocks, pbias) + ((_page_sz(gen, q_n * 12).reshape(q_n, 12, 2).to(card),)
+                                        if codes else ())
+    before = SK.LAUNCHES[name]
+    kd, ki = getattr(SK, name)(*args, k=k)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES[name] == before + 1
+    assert_kmin_close(kd, ki, *getattr(SK, name + "_plain")(*args, k=k), atol=atol)
+    if codes:
+        return
+    pad_ids = ids.clone()
+    pad_ids[[1, 4, 5, 6, 7, nb - 1]] = -1
+    before = SK.LAUNCHES["scan_batched"]
+    got = SK.scan_batched(pad_ids, q, blocks)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES["scan_batched"] == before + 1
+    want = SK.scan_batched_plain(pad_ids, q, blocks)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=atol)
+    pad = (pad_ids < 0).cpu()
+    assert bool((got.cpu()[pad] == torch.tensor(BIG, dtype=torch.float32)).all())
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 300), (torch.bfloat16, 296),
+                                     (torch.int8, 296)])
+def test_batched_scans_refuse_a_d_past_the_block_shared_memory(card, dtype, d):
+    """Past #3's largest d at BS = 32 (296 f32 and 292 bf16 in the wide
+    shape, 292 int8 in the default layout, which int8 pages never leave)
+    the launch fails and the wrapper raises: no plain fallback."""
+    gen = torch.Generator().manual_seed(7)
+    blocks = _blocks(gen, 8, 32, d, dtype, card)
+    ids = torch.arange(4, dtype=torch.int32, device=card)
+    q = torch.randn(5, d, generator=gen).to(card)
+    with pytest.raises(RuntimeError):
+        SK.scan_batched(ids, q, blocks)
+        torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("bs,k", [(32, 32), (32, 10), (8, 8), (16, 1)])
 def test_q8_scan_kernels_match_plain(card, bs, k):
     gen = torch.Generator().manual_seed(3)
@@ -787,3 +851,64 @@ def test_replica_catch_up_fork_on_the_card_equals_the_primary(card):
         assert rs.replicas[0].backend.states[0].device.type == "cuda"
     finally:
         eng.shutdown(timeout=120)
+
+
+def test_counter_init_on_the_card_equals_the_cpu(card):
+    """``twotower_init_counter`` gives the card the CPU's bits: the
+    retrieval path's recall floor is the reference's run on params made on
+    the CPU."""
+    from repro_torch.configs.two_tower_retrieval import SERVE_CONFIG
+    from repro_torch.models import recsys
+
+    cfg = dataclasses.replace(SERVE_CONFIG, n_items=70_000, user_vocab_per_field=1000)
+    a = recsys.twotower_init_counter(3, cfg, device=card)
+    b = recsys.twotower_init_counter(3, cfg, device="cpu")
+    for (name, x), (_, y) in zip(a.state_dict().items(), b.state_dict().items()):
+        assert torch.equal(x.cpu(), y), name
+
+
+def test_retriever_on_the_card_matches_the_cpu(card):
+    """``IndexedRetriever`` at the reference test's sizes: the same params
+    and built state on the card (#1, #4, #6) and on the CPU (their plain
+    versions) give the same embeddings, brute force and ANN results under
+    both schedules, ties aside; fresh items added on the card find
+    themselves."""
+    import copy
+
+    from repro_torch.models import recsys
+    from repro_torch.serve.retrieval import IndexedRetriever
+
+    mcfg = recsys.TwoTowerConfig(n_items=2000, n_user_fields=4, user_vocab_per_field=100,
+                                 embed_dim=16, tower_dims=(32, 8))
+    icfg = LireConfig(dim=8, block_size=8, max_blocks_per_posting=8, num_blocks=4096,
+                      num_postings_cap=512, num_vectors_cap=16384, split_limit=48,
+                      merge_limit=6, reassign_range=8, replica_count=2, nprobe=16,
+                      use_pallas_nav=True, use_pallas_scan=True)
+    params = recsys.twotower_init(torch.Generator().manual_seed(0), mcfg, device="cpu")
+    cpu = IndexedRetriever(params, mcfg, icfg, device="cpu")
+    cpu.build_corpus(np.arange(1500))
+    gpu = IndexedRetriever(copy.deepcopy(params), mcfg, icfg, device=card)
+    gpu.index = SPFreshIndex(map_tensors(lambda x: x.to(card), cpu.index.state))
+    gpu._id_map = cpu._id_map.copy()
+    users = np.random.default_rng(0).integers(0, 100, size=(48, 4)).astype(np.int32)
+    np.testing.assert_allclose(gpu.embed_items(np.arange(1500)), cpu.embed_items(np.arange(1500)),
+                               rtol=1e-5, atol=1e-5)
+
+    def agree(a, b):
+        (s0, i0), (s1, i1) = a, b
+        np.testing.assert_allclose(s1, s0, atol=1e-4)
+        assert (np.abs(s0 - s1)[i0 != i1] <= 1e-4).all()
+
+    agree(cpu.retrieve_bruteforce(users), gpu.retrieve_bruteforce(users))
+    before = dict(SK.LAUNCHES)
+    for sched in ("per_query", "batched"):
+        for r in (cpu, gpu):
+            st = r.index.state
+            r.index.state = st.replace(cfg=dataclasses.replace(st.cfg, scan_schedule=sched))
+        agree(cpu.retrieve(users), gpu.retrieve(users))
+    assert SK.LAUNCHES["scan_per_query_topk"] > before["scan_per_query_topk"]
+    assert SK.LAUNCHES["scan_batched_topk"] > before["scan_batched_topk"]
+    fresh = np.arange(1500, 1564)
+    gpu.add_items(fresh)
+    _, v = gpu.index.search(gpu.embed_items(fresh), 10)
+    assert all(1500 + i in v[i] for i in range(len(fresh)))
