@@ -7,6 +7,15 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 1. Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc
    for sm_90a (one nvcc per source, in parallel) and prints the card.
+   ``phase_resources`` then runs spflint for the port over ``src`` (0
+   findings), holds each launch entry's ``<entry>_smem_bytes`` query (its
+   launcher's shared memory and shape) equal to the passes' stdlib mirror
+   for every payload at every geometry of ``SMEM_BINDINGS`` and at the
+   entry's largest d, launches each where the mirror says it fits
+   (against its plain version) and expects cudaErrorInvalidValue, with
+   no fallback, where it says it refuses; the card's opt-in shared memory
+   a block must be the 232,448 bytes the launchers hard-code.  It prints
+   the table on a ``resources:`` line.
 2. Holds each of the seven kernels against its plain PyTorch version on
    the card, at the spfresh-1b shapes and at ragged small shapes, and times
    both and the shortest composition of library calls for the same
@@ -43,7 +52,9 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
    A third, ``update``, drives the maintenance round on the reference's
    generator (``make_spacev_like`` in bytes, ``UPDATE_N`` vectors, fp32
    codec): build (most postings over ``split_limit``), one round replayed
-   bit for bit on a clone, an insert batch whose rows land on full
+   bit for bit on a clone, both under ``torch.use_deterministic_algorithms``
+   (PyTorch raises on an op it does not promise to be deterministic: the
+   runtime half of spflint's SPF107), an insert batch whose rows land on full
    postings and wait for backpressure drains (every row must land, #1
    must launch in the drains), delete, ``maintain()`` (no backlog, no
    posting over ``split_limit``), and searches under both schedules with
@@ -119,9 +130,11 @@ one ``report:`` JSON line before the kernels line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -1082,6 +1095,160 @@ def phase_d256(torch, gen, results):
 
 
 # ---------------------------------------------------------------------------
+# the resource phase: spflint over the tree, the launchers' shared memory
+# ---------------------------------------------------------------------------
+
+# Past the spec's geometries, each entry and payload is also launched at
+# its edge at BS = 32: the largest d (a multiple of 4, up to EDGE_MAX_D) at
+# which the mirror says it fits, and d + 4, which it must refuse.
+EDGE_MAX_D = 8192
+CUDA_ERROR_INVALID_VALUE = 1
+
+
+def _edge_geometries(SM, spec, form, payload):
+    """The last fitting and the first refused geometry of one launcher."""
+    def geo(d):
+        return {"name": f"edge-d{d}", "dim": d, "bs": 32, "k": 10, "nav_k": 64,
+                "block_p": 512, "payloads": (payload,)}
+
+    for d in range(4, EDGE_MAX_D + 1, 4):
+        if SM.shape_of(form, payload, geo(d), spec).variant < 0:
+            return [geo(d - 4), geo(d)]
+    raise Fail(f"[resources] {form} {payload} fits every d up to {EDGE_MAX_D}")
+
+
+def _resource_launch(torch, gen, entry, form, payload, g):
+    """Inputs at geometry ``g`` on a tiny Q and NB for ``entry``; returns
+    ``(run, plain)``, callables of its wrapper and of its plain version on
+    them."""
+    from repro_torch.kernels.l2_topk import kernel as LK
+    from repro_torch.kernels.posting_scan import kernel as K
+
+    d, dev = g["dim"], "cuda"
+    if form == "l2":
+        k, bp = g["nav_k"], g["block_p"]
+        q = torch.randn(37, d, device=dev, generator=gen)
+        c = torch.randn(2 * bp, d, device=dev, generator=gen)
+        csq = torch.sum(c * c, dim=1)
+        csq[torch.rand(2 * bp, device=dev, generator=gen) < 0.2] = 3.0e38
+        csq = csq[None].contiguous()
+        return (lambda: LK.l2_topk_tiles(q, c, csq, k=k, block_p=bp),
+                lambda: LK.l2_topk_tiles_plain(q, c, csq, k=k, block_p=bp))
+    bs, n_blocks, nb = g["bs"], 8, 5
+    q8 = entry.endswith("_q8")
+    dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}[payload]
+    blk = _pool(torch, gen, n_blocks, bs, d, dtype)
+    per_query = form.startswith("per_query")
+    q_n = 3 if per_query else 70          # the batched forms: past one query tile
+    q = torch.randn(q_n, d, device=dev, generator=gen) * (32 if dtype == torch.int8 else 1)
+    lead = (q_n, nb) if per_query else (nb,)
+    ids = torch.randint(0, n_blocks, lead, device=dev, generator=gen, dtype=torch.int32)
+    bias = torch.where(torch.rand(*lead, bs, device=dev, generator=gen) < 0.3, 3.0e38, 0.0)
+    sz = _page_sz(torch, gen, lead)
+    k = min(g["k"], bs)
+    if form == "per_query":
+        return lambda: K.scan_per_query(ids, q, blk), lambda: K.scan_per_query_plain(ids, q, blk)
+    if form == "batched":
+        ids[1] = -1                                     # a padding page
+        return lambda: K.scan_batched(ids, q, blk), lambda: K.scan_batched_plain(ids, q, blk)
+    fn = {("per_query_topk", False): "scan_per_query_topk",
+          ("per_query_topk", True): "scan_per_query_topk_q8",
+          ("batched_topk", False): "scan_batched_topk",
+          ("batched_topk", True): "scan_batched_topk_q8"}[form, q8]
+    args = (ids, q, blk, bias, sz) if q8 else (ids, q, blk, bias)
+    return (lambda: getattr(K, fn)(*args, k=k),
+            lambda: getattr(K, f"{fn}_plain")(*args, k=k))
+
+
+def phase_resources(torch, gen, report):
+    """spflint's passes over ``src`` (0 findings), then every launch entry
+    x payload x the spec's geometries, and each entry's edge at BS = 32:
+    the C query's bytes and shape must equal the mirror's
+    (``repro_torch.analysis.smem``), its occupancy at most the mirror's
+    blocks an SM; the launcher runs at a tiny Q and NB where the mirror says
+    it fits (against its plain version) and must refuse with
+    cudaErrorInvalidValue, raising and counting no launch, where it says it
+    refuses.  The card's opt-in shared memory a block must be the limit the
+    launchers hard-code.  Prints the table on a ``resources:`` line."""
+    from repro_torch.analysis import run_all
+    from repro_torch.analysis import smem as SM
+    from repro_torch.analysis.config import DEFAULT_SPEC
+    from repro_torch.kernels import build
+    from repro_torch.kernels.l2_topk import kernel as LK
+    from repro_torch.kernels.posting_scan import kernel as K
+
+    t0 = time.perf_counter()
+    spec = DEFAULT_SPEC.smem
+    res = run_all(ROOT / "src")
+    check(not res["findings"], "[resources] spflint findings: "
+          + "; ".join(f.render() for f in res["findings"]))
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    check(optin == spec.limit_bytes, f"[resources] the card lets a block opt in to {optin} "
+          f"bytes of shared memory; the launchers hard-code {spec.limit_bytes}")
+    rows = list(res["smem_table"])
+    for entry, (form, payloads) in spec.entries.items():
+        for payload in payloads:
+            for g in _edge_geometries(SM, spec, form, payload):
+                shape = SM.shape_of(form, payload, g, spec)
+                rows.append(dict(entry=entry, form=form, payload=payload, geometry=g["name"],
+                                 bytes=shape.bytes, variant=shape.variant, warps=shape.warps,
+                                 stages=shape.stages, blocks_per_sm=SM.blocks_per_sm(shape, spec),
+                                 g=g))
+    geos = {g["name"]: g for g in spec.bindings}
+
+    def counts():
+        return sum(LK.LAUNCHES.values()) + sum(K.LAUNCHES.values())
+
+    table, n_launched, n_refused = [], 0, 0
+    for r in rows:
+        g = r.pop("g", None) or geos[r["geometry"]]
+        what = f"[resources] {r['entry']} {r['payload']} at {r['geometry']} (d={g['dim']})"
+        got, shape = build.smem_query(r["entry"], *SM.query_args(r["entry"], r["form"],
+                                                                   r["payload"], g))
+        check((got, shape[:3]) == (r["bytes"], (r["variant"], r["warps"], r["stages"])),
+              f"{what}: the launcher asks for {got} bytes as {shape[:3]}, the mirror says "
+              f"{r['bytes']} as {(r['variant'], r['warps'], r['stages'])}")
+        run, plain = _resource_launch(torch, gen, r["entry"], r["form"], r["payload"], g)
+        err = None
+        if r["variant"] >= 0:
+            check(1 <= shape[3] <= r["blocks_per_sm"], f"{what}: {shape[3]} blocks an SM by the "
+                  f"occupancy calculator, the shared memory allows {r['blocks_per_sm']}")
+            got_out, want = run(), plain()
+            torch.cuda.synchronize()
+            if isinstance(got_out, tuple):
+                err, _ = compare_kmin(*got_out, *want, atol=1e-2)
+            else:
+                err = compare_dense(got_out, want)
+            n_launched += 1
+        else:
+            before = counts()
+            try:
+                run()
+                raised = None
+            except RuntimeError as e:
+                raised = str(e)
+            check(raised is not None and raised.endswith(f"CUDA error {CUDA_ERROR_INVALID_VALUE}"),
+                  f"{what}: the mirror says it refuses, the launcher "
+                  f"{'raised ' + raised if raised else 'returned a result'}")
+            check(counts() == before, f"{what}: a refused launch was counted")
+            n_refused += 1
+        table.append([r["entry"], r["payload"], r["geometry"], got,
+                      SM.VARIANTS[r["variant"]], r["warps"], r["stages"], r["blocks_per_sm"],
+                      shape[3], err])
+    secs = time.perf_counter() - t0
+    report["resources"] = dict(seconds=secs, findings=0, optin_bytes=optin, rows=len(table),
+                               launched=n_launched, refused=n_refused)
+    print("resources: " + json.dumps({
+        "columns": ["entry", "payload", "geometry", "bytes", "shape", "warps", "stages",
+                    "blocks_per_sm_by_smem", "blocks_per_sm_on_card", "max_abs_err"],
+        "rows": table}))
+    log(f"[resources] spflint clean over src; {len(table)} rows (entry x payload x geometry, "
+        f"and each entry's edge at BS=32): C query = mirror on every row, {n_launched} "
+        f"launched against their plain versions, {n_refused} refused with "
+        f"cudaErrorInvalidValue; opt-in shared memory {optin} bytes a block; {secs:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # main path
 # ---------------------------------------------------------------------------
 
@@ -1456,12 +1623,24 @@ def live_vids(torch, state):
     return torch.unique(vids[ok])
 
 
+@contextlib.contextmanager
+def deterministic_algorithms(torch):
+    """``torch.use_deterministic_algorithms(True)`` for the block: PyTorch
+    raises on any op it does not promise to be deterministic (on the card
+    cuBLAS needs ``CUBLAS_WORKSPACE_CONFIG``, which ``main`` sets before
+    CUDA starts)."""
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev)
+
+
 def round_launches(torch, fn, card: bool):
     """Run ``fn`` once and count its launches: ``(aten ops dispatched, CUDA
     kernels in the profiler's trace, their summed device ms)``, the last
     two None where ``fn`` does not run on the card."""
-    import contextlib
-
     from torch.profiler import ProfilerActivity, profile
     from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -1527,19 +1706,23 @@ def update_path(torch, np, seed, report, *, cfg=None, device="cuda", n=None,
     report.update(build_s=build_s, n=n, n_insert=n_ins, n_postings=st["n_postings"],
                   backlog_after_build=idx.backlog())
 
-    # one round replayed on a clone of its input is bit-identical
+    # one round replayed on a clone of its input is bit-identical, both
+    # under torch.use_deterministic_algorithms: an op PyTorch does not
+    # promise to be deterministic raises (the runtime half of spflint's
+    # SPF107)
     before = clone_state(idx.state)
-    did, round_s = timed(torch, idx.maintain_round)
-    check(did > 0, "[update] the first round after the build did no work")
-    after = tensor_leaves(idx.state)
-    replay = SPFreshIndex(before)
-    ops, kernels, busy_ms = round_launches(torch, lambda: replay.maintain_round(),
-                                           card=device != "cpu")
+    with deterministic_algorithms(torch):
+        did, round_s = timed(torch, idx.maintain_round)
+        check(did > 0, "[update] the first round after the build did no work")
+        after = tensor_leaves(idx.state)
+        replay = SPFreshIndex(before)
+        ops, kernels, busy_ms = round_launches(torch, lambda: replay.maintain_round(),
+                                               card=device != "cpu")
     for name, t in tensor_leaves(replay.state).items():
         check(bool(torch.equal(t, after[name])), f"[update] round replay differs in {name}")
     del replay, before, after
-    log(f"[update] one round ({did} jobs, {round_s * 1e3:.1f} ms): replay on a clone is "
-        f"bit-identical; {ops} aten ops dispatched, {kernels} CUDA kernels launched, "
+    log(f"[update] one round ({did} jobs, {round_s * 1e3:.1f} ms, deterministic algorithms "
+        f"on): replay on a clone is bit-identical; {ops} aten ops dispatched, {kernels} CUDA kernels launched, "
         f"busy on the card {busy_ms} ms (profiler)")
     report.update(first_round_jobs=did, first_round_ms=round_s * 1e3,
                   round_aten_ops=ops, round_cuda_kernels=kernels, round_device_ms=busy_ms)
@@ -1769,8 +1952,6 @@ def device_busy(torch, np, fn, card: bool):
     the card's activity intervals (kernels, copies) in the profiler's trace
     over ``fn``, read from the raw trace (building the profiler's event
     tables for ~10^5 kernels would take minutes).  None without a card."""
-    import contextlib
-
     from torch.profiler import ProfilerActivity, profile
 
     prof = profile(activities=[ProfilerActivity.CUDA]) if card else contextlib.nullcontext()
@@ -3054,6 +3235,10 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
+    # cuBLAS is deterministic under torch.use_deterministic_algorithms only
+    # with a fixed workspace, read when CUDA starts (the update path's
+    # replayed round runs in that mode)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -3096,6 +3281,7 @@ def main() -> int:
               "ptxas": ptxas}
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
+    phase_resources(torch, gen, report)
     results: dict = {}
     phase_l2_topk(torch, gen, results)
     blocks = phase_scan_per_query(torch, gen, results)

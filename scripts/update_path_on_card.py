@@ -12,6 +12,7 @@ Needs one NVIDIA GPU; run from the root of a checkout:
 from __future__ import annotations
 
 import json
+import os
 import sys
 import time
 from pathlib import Path
@@ -21,6 +22,9 @@ sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 
 def main() -> int:
+    # the path's replayed round runs under torch.use_deterministic_algorithms,
+    # where cuBLAS needs this workspace setting before CUDA starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import numpy as np
     import torch
 

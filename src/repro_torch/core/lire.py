@@ -76,14 +76,34 @@ def route(state: IndexState, vecs, r: int):
 # Per-posting telemetry
 # ---------------------------------------------------------------------------
 
+def _segment_sums(vals, first, last):
+    """Float sums of segments of consecutive rows of ``vals (n, d)``,
+    ``first`` / ``last`` marking each segment's first and last row.
+    Returns ``(seg (n,), sums (n, d))``: row i lies in segment ``seg[i]``,
+    whose total is ``sums[seg[i]]`` (rows of ``sums`` past the last
+    segment are 0).
+
+    ``torch.segment_reduce`` adds each segment's rows in row order, so
+    every run gives the same bits (PyTorch makes no such promise for a
+    floating-point ``cumsum`` on the card).  The segment lengths are
+    written by a scatter to distinct targets, so nothing is read back."""
+    n = vals.shape[0]
+    pos = torch.arange(n, device=vals.device)
+    start = torch.cummax(torch.where(first, pos, 0), dim=0).values
+    seg = torch.cumsum(first.long(), 0) - 1
+    lengths = masked_set_(torch.zeros(n, dtype=torch.long, device=vals.device), seg,
+                          pos - start + 1, last)
+    return seg, torch.segment_reduce(vals, "sum", lengths=lengths, unsafe=True)
+
+
 def _bump_append_telemetry(state: IndexState, pids, vecs, landed):
     """Every landed row bumps its posting's ``update_count`` and adds its
     displacement from the current centroid into ``drift_vec``.
 
     The float sum runs in a fixed order: rows are grouped by posting in
-    row order, each posting's displacements summed by a float64 running
-    sum, and the segment total added to the f32 leaf once, so no two
-    additions race on the card."""
+    row order, each posting's displacements summed in float64 by
+    :func:`_segment_sums`, and the segment total added to the f32 leaf
+    once, so no two additions race on the card."""
     tel = state.telemetry
     cap = state.cfg.num_postings_cap
     safe = torch.clamp(pids.long(), min=0)
@@ -93,17 +113,16 @@ def _bump_append_telemetry(state: IndexState, pids, vecs, landed):
     order = torch.sort(key, stable=True).indices
     sk = key[order]
     disp = (vecs.float() - state.centroids[safe]).double()
-    run = torch.cumsum(torch.where(landed[:, None], disp, 0.0)[order], dim=0)
     n = sk.shape[0]
-    pos = torch.arange(n, device=sk.device)
+    if n == 0:
+        return tel.replace(update_count=update)
     first = torch.ones(n, dtype=torch.bool, device=sk.device)
     first[1:] = sk[1:] != sk[:-1]
     last = torch.ones(n, dtype=torch.bool, device=sk.device)
     last[:-1] = first[1:]
-    start = torch.cummax(torch.where(first, pos, 0), dim=0).values
-    before = torch.where((start > 0)[:, None], run[torch.clamp(start - 1, min=0)], 0.0)
+    seg, sums = _segment_sums(torch.where(landed[:, None], disp, 0.0)[order], first, last)
     tgt = torch.clamp(sk, max=cap - 1)
-    total = (tel.drift_vec[tgt].double() + (run - before)).float()
+    total = (tel.drift_vec[tgt].double() + sums[seg]).float()
     drift = masked_set_(tel.drift_vec.clone(), tgt, total, last & (sk < cap))
     return tel.replace(update_count=update, drift_vec=drift)
 
@@ -809,7 +828,7 @@ def _merge_jobs(state: IndexState, pids, enable, exclude_pids, *, inplace: bool 
     # freed (which zeroes it)
     tel = _bump_append_telemetry(state, tgt_rows, flat_vecs, oks)
     acc = tel.access_count.clone()
-    acc.index_add_(0, safe_t, torch.where(do, tel.access_count[safe], 0))
+    acc.index_add_(0, safe_t, torch.where(do, tel.access_count[safe], 0).to(torch.int32))
     state = state.replace(telemetry=tel.replace(access_count=acc))
     state = state.replace(pool=bp.free_postings(state.pool, safe, gone, inplace=inplace))
     state = free_pids(state, pids, gone)

@@ -27,11 +27,17 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 
 _C = ctypes.c_int
 _P = ctypes.c_void_p
-# argtypes of every C entry point, by library
+_S = ctypes.POINTER(ctypes.c_int)    # the four ints of a shape query
+# argtypes of every C entry point, by library.  Each launch entry has an
+# ``<entry>_smem_bytes`` query: its shape arguments (the dtype code where
+# it takes one), then the shape out-array; it returns the bytes of
+# dynamic shared memory the launcher asks for (a CUDA error negated).
 SIGNATURES = {
     "l2_topk": {
         # q, c, csq, out_d, out_i, Q, P, d, k, block_p, stream
         "l2_topk_tiles_f32": [_P, _P, _P, _P, _P, _C, _C, _C, _C, _C, _P],
+        # d, k, shape
+        "l2_topk_tiles_f32_smem_bytes": [_C, _C, _S],
     },
     "posting_scan": {
         # table, q, blocks, dtype, bias, out_d, out_i, Q, NB, BS, d, k, stream
@@ -40,6 +46,10 @@ SIGNATURES = {
         "scan_per_query": [_P, _P, _P, _C, _P, _C, _C, _C, _C, _P],
         # table, q, codes, bias, sz, out_d, out_i, Q, NB, BS, d, k, stream
         "scan_per_query_topk_q8": [_P, _P, _P, _P, _P, _P, _P, _C, _C, _C, _C, _C, _P],
+        # dtype, BS, d, k, shape / dtype, BS, d, shape / BS, d, k, shape
+        "scan_per_query_topk_smem_bytes": [_C, _C, _C, _C, _S],
+        "scan_per_query_smem_bytes": [_C, _C, _C, _S],
+        "scan_per_query_topk_q8_smem_bytes": [_C, _C, _C, _S],
     },
     "scan_batched_topk": {
         # ids, q, blocks, dtype, out_d, NB, Q, BS, d, stream
@@ -48,8 +58,24 @@ SIGNATURES = {
         "scan_batched_topk": [_P, _P, _P, _C, _P, _P, _P, _C, _C, _C, _C, _C, _P],
         # ids, q, codes, bias, sz, out_d, out_i, NB, Q, BS, d, k, stream
         "scan_batched_topk_q8": [_P, _P, _P, _P, _P, _P, _P, _C, _C, _C, _C, _C, _P],
+        # dtype, BS, d, shape / dtype, BS, d, k, shape / BS, d, k, shape
+        "scan_batched_smem_bytes": [_C, _C, _C, _S],
+        "scan_batched_topk_smem_bytes": [_C, _C, _C, _C, _S],
+        "scan_batched_topk_q8_smem_bytes": [_C, _C, _C, _S],
     },
 }
+
+
+def smem_query(entry: str, *args: int) -> tuple[int, tuple[int, int, int, int]]:
+    """``(bytes, (variant, warps, stages, blocks an SM))`` that launch
+    entry ``entry`` asks for at the shape ``args`` (its
+    ``<entry>_smem_bytes`` query; raises on a CUDA error)."""
+    lib = next(name for name, fns in SIGNATURES.items() if entry in fns)
+    shape = (ctypes.c_int * 4)()
+    got = getattr(library(lib), f"{entry}_smem_bytes")(*args, shape)
+    if got < 0:
+        raise RuntimeError(f"{entry}_smem_bytes{args}: CUDA error {-got}")
+    return got, tuple(shape)
 
 
 def nvcc() -> str:

@@ -53,6 +53,8 @@
 // 128 registers, the cap that __launch_bounds__(256, 2) sets for two
 // blocks an SM, and no spills.
 // Plain C interface, loaded with ctypes; returns cudaGetLastError().
+// `l2_topk_tiles_f32_smem_bytes` answers, without a launch, what the
+// launcher asks for (repro_torch.analysis.smem mirrors its arithmetic).
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -71,6 +73,7 @@ constexpr int kChunk = 64;                    // centroids staged per pass
 constexpr int kMaxTile = 512;                 // widest centroid tile
 constexpr int kMaxPerLane = kMaxTile / 32;    // 16 columns per lane per row
 constexpr int kDistStride = kMaxTile + 8;     // distance tile row, floats
+constexpr int kSmemMax = 232448;              // dynamic shared memory a block may take
 constexpr unsigned kFull = 0xffffffffu;
 
 // Order-preserving map of an f32 onto uint32 (and back); -0 is made +0
@@ -317,6 +320,38 @@ l2_topk_tiles_kernel(const float* __restrict__ q, const float* __restrict__ c,
   }
 }
 
+// Shared memory of the kernel at (d, k), in bytes, and the strides it
+// implies: the distance tile, the query tile and its norms, then the
+// centroid buffer or (after the product) the sort lists, the larger.
+struct L2Layout {
+  int kpad, stride, sort_n;
+  size_t smem;
+};
+
+L2Layout l2_layout(int d, int k) {
+  L2Layout L;
+  L.kpad = (d + 7) / 8 * 8;  // K padded to the mma depth
+  L.stride = L.kpad + 4;     // 4 mod 8: conflict-free fragment loads
+  L.sort_n = 1;
+  while (L.sort_n < k) L.sort_n <<= 1;
+  const size_t cbytes = sizeof(float) * kChunk * L.stride;
+  const size_t sbytes = sizeof(uint64_t) * kRows * L.sort_n;
+  L.smem = sizeof(float) * ((size_t)kRows * kDistStride + kRows * L.stride + kRows) +
+           (cbytes > sbytes ? cbytes : sbytes);
+  return L;
+}
+
+// The kernel's attributes for `smem` bytes: the opt-in size, and all of
+// L1 as shared memory (two blocks an SM).
+cudaError_t prepare(size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      l2_topk_tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(l2_topk_tiles_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  return err;
+}
+
 }  // namespace
 
 extern "C" int l2_topk_tiles_f32(const float* q, const float* c,
@@ -327,24 +362,34 @@ extern "C" int l2_topk_tiles_f32(const float* q, const float* c,
       k < 1 || k > block_p || d < 1)
     return (int)cudaErrorInvalidValue;
   if (n_q == 0 || n_p == 0) return 0;
-  const int kpad = (d + 7) / 8 * 8;  // K padded to the mma depth
-  const int stride = kpad + 4;       // 4 mod 8: conflict-free fragment loads
-  int sort_n = 1;
-  while (sort_n < k) sort_n <<= 1;
-  const size_t cbytes = sizeof(float) * kChunk * stride;
-  const size_t sbytes = sizeof(uint64_t) * kRows * sort_n;
-  const size_t smem = sizeof(float) * ((size_t)kRows * kDistStride + kRows * stride + kRows) +
-                      (cbytes > sbytes ? cbytes : sbytes);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;  // d too large
+  const L2Layout L = l2_layout(d, k);
+  if (L.smem > kSmemMax) return (int)cudaErrorInvalidValue;  // d too large
   const int vec16 = d % 4 == 0 && reinterpret_cast<uintptr_t>(c) % 16 == 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      l2_topk_tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess)  // all of L1 as shared memory: two blocks an SM
-    err = cudaFuncSetAttribute(l2_topk_tiles_kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  const cudaError_t err = prepare(L.smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((n_q + kRows - 1) / kRows, n_p / block_p);
-  l2_topk_tiles_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      q, c, csq, out_d, out_i, n_q, n_p, d, k, block_p, kpad, stride, sort_n, vec16);
+  l2_topk_tiles_kernel<<<grid, kThreads, L.smem, (cudaStream_t)stream>>>(
+      q, c, csq, out_d, out_i, n_q, n_p, d, k, block_p, L.kpad, L.stride, L.sort_n, vec16);
   return (int)cudaGetLastError();
+}
+
+// What the launcher asks for at (d, k), without a launch: returns the
+// bytes of dynamic shared memory; shape = {0 (its one shape) or -1
+// (refused: d too large), warps, stages of centroids in flight, blocks an
+// SM by the occupancy calculator (0 where refused)}.  A CUDA error comes
+// back negated.
+extern "C" int l2_topk_tiles_f32_smem_bytes(int d, int k, int* shape) {
+  const L2Layout L = l2_layout(d, k);
+  shape[0] = L.smem > kSmemMax ? -1 : 0;
+  shape[1] = kWarps;
+  shape[2] = 1;
+  shape[3] = 0;
+  if (shape[0] == 0) {
+    cudaError_t err = prepare(L.smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&shape[3], l2_topk_tiles_kernel,
+                                                          kThreads, L.smem);
+    if (err != cudaSuccess) return -(int)err;
+  }
+  return (int)L.smem;
 }

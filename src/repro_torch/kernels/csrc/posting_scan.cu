@@ -76,7 +76,9 @@
 //   mbarrier), deeper rings and deeper bias prefetch measured no faster.
 // Registers and spills (`-Xptxas -v`) are printed by every chip_smoke.py
 // run.  Plain C interface, loaded with ctypes; each entry returns
-// cudaGetLastError().
+// cudaGetLastError(), and its `<entry>_smem_bytes` twin answers, without
+// a launch, what the launcher asks for (repro_torch.analysis.smem mirrors
+// the arithmetic).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -354,36 +356,65 @@ bool bad_shape(int bs, int d, int k) {
 }
 
 // The most warps and stages whose shared memory lets two blocks share an
-// SM, else the most that fit one block; refused (d too large) if none.
-template <typename T, bool kQ8, bool kTopk>
-int launch_per_query(const int* table, const float* q, const void* blocks,
-                     const float* bias, const float* sz, float* out_d,
-                     int* out_i, int n_q, int nb, int bs, int d, int k,
-                     cudaStream_t stream) {
+// SM (variant 0), else the most that fit one block (1); -1: refused (d
+// too large), L then the last shape tried.
+int pq_choose(int bs, int d, int elem, PqLayout& L) {
   static const int kShapes[][2] = {{8, 2}, {4, 2}, {2, 2}, {1, 2}, {1, 1}};
-  PqLayout L{};
-  bool found = false;
   const int caps[2] = {kSmemTwoPerSm, kSmemPerBlock};
-  for (int cap : caps) {
+  for (int v = 0; v < 2; ++v)
     for (const auto& ws : kShapes) {
-      L = pq_layout(bs, d, (int)sizeof(T), ws[0], ws[1]);
-      if (L.total <= cap) {
-        found = true;
-        break;
-      }
+      L = pq_layout(bs, d, elem, ws[0], ws[1]);
+      if (L.total <= caps[v]) return v;
     }
-    if (found) break;
-  }
-  if (!found) return (int)cudaErrorInvalidValue;
+  return -1;
+}
+
+// The kernel's attributes for layout L: the opt-in size, and all of L1 as
+// shared memory.
+template <typename T, bool kQ8, bool kTopk>
+cudaError_t prepare(const PqLayout& L) {
   auto* kernel = scan_per_query_kernel<T, kQ8, kTopk>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  return err;
+}
+
+template <typename T, bool kQ8, bool kTopk>
+int launch_per_query(const int* table, const float* q, const void* blocks,
+                     const float* bias, const float* sz, float* out_d,
+                     int* out_i, int n_q, int nb, int bs, int d, int k,
+                     cudaStream_t stream) {
+  PqLayout L{};
+  if (pq_choose(bs, d, (int)sizeof(T), L) < 0) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = prepare<T, kQ8, kTopk>(L);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)n_q, L.warps * 32, L.total, stream>>>(
+  scan_per_query_kernel<T, kQ8, kTopk><<<(unsigned)n_q, L.warps * 32, L.total, stream>>>(
       table, q, static_cast<const T*>(blocks), bias, sz, out_d, out_i, nb, bs, d, k, L);
   return (int)cudaGetLastError();
+}
+
+// What launch_per_query asks for, without a launch: returns the bytes of
+// dynamic shared memory; shape = {variant of pq_choose, warps, stages,
+// blocks an SM by the occupancy calculator (0 where refused)}.  A CUDA
+// error comes back negated.
+template <typename T, bool kQ8, bool kTopk>
+int query_per_query(int bs, int d, int* shape) {
+  PqLayout L{};
+  shape[0] = pq_choose(bs, d, (int)sizeof(T), L);
+  shape[1] = L.warps;
+  shape[2] = L.stages;
+  shape[3] = 0;
+  if (shape[0] >= 0) {
+    auto* kernel = scan_per_query_kernel<T, kQ8, kTopk>;
+    cudaError_t err = prepare<T, kQ8, kTopk>(L);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&shape[3], kernel, L.warps * 32,
+                                                          L.total);
+    if (err != cudaSuccess) return -(int)err;
+  }
+  return L.total;
 }
 
 }  // namespace
@@ -430,4 +461,22 @@ extern "C" int scan_per_query_topk_q8(const int* table, const float* q,
   if (n_q == 0 || nb == 0) return 0;
   return launch_per_query<int8_t, true, true>(table, q, codes, bias, sz, out_d, out_i,
                                               n_q, nb, bs, d, k, (cudaStream_t)stream);
+}
+
+// The launchers' shared memory, without a launch (see query_per_query);
+// a shape the entry refuses before its shared memory is reckoned (bad BS,
+// k, d or dtype) returns -cudaErrorInvalidValue.
+extern "C" int scan_per_query_topk_smem_bytes(int dtype, int bs, int d, int k, int* shape) {
+  if (bad_shape(bs, d, k) || dtype < 0 || dtype > 2) return -(int)cudaErrorInvalidValue;
+  DISPATCH_DTYPE(query_per_query, false, true, bs, d, shape)
+}
+
+extern "C" int scan_per_query_smem_bytes(int dtype, int bs, int d, int* shape) {
+  if (bad_shape(bs, d, 1) || dtype < 0 || dtype > 2) return -(int)cudaErrorInvalidValue;
+  DISPATCH_DTYPE(query_per_query, false, false, bs, d, shape)
+}
+
+extern "C" int scan_per_query_topk_q8_smem_bytes(int bs, int d, int k, int* shape) {
+  if (bad_shape(bs, d, k)) return -(int)cudaErrorInvalidValue;
+  return query_per_query<int8_t, true, true>(bs, d, shape);
 }

@@ -142,7 +142,9 @@
 // Contract: 1 <= BS <= 32, 1 <= k <= BS, d % 4 == 0 and within the
 // largest d above, a 16-byte aligned pool, ids in [0, B) (#3: or -1,
 // padding).  Plain C interface, loaded
-// with ctypes; returns cudaGetLastError().
+// with ctypes; returns cudaGetLastError().  Each entry's `<entry>_smem_bytes`
+// twin answers, without a launch, what the launcher asks for
+// (repro_torch.analysis.smem mirrors the arithmetic).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -760,50 +762,116 @@ Layout<KMAX == 0, Shape<T, kWide>::warps, Shape<T, kWide>::ring> layout_of(int b
   return {bs, d, (int)sizeof(T), stride};
 }
 
+// The kernel's attributes for `smem` bytes: the opt-in size, and all of
+// L1 as shared memory (two blocks an SM where the layout allows).
+template <typename T, int KMAX, bool kQ8, bool kWide>
+cudaError_t prepare(int smem) {
+  auto* kernel = scan_batched_topk_tc<T, KMAX, kQ8, kWide>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  return err;
+}
+
 template <typename T, int KMAX, bool kQ8, bool kWide>
 int launch_as(const int* ids, const float* q, const void* blocks, const float* bias,
               const float* sz, float* out_d, int* out_i, int nb, int n_q, int bs, int d,
               int k, int kpad, int stride, cudaStream_t stream) {
   const auto L = layout_of<T, KMAX, kWide>(bs, d, stride);
-  if (L.total > kSmemMax) return (int)cudaErrorInvalidValue;  // d too large
   const int vec16 = (bs * d * (int)sizeof(T)) % 16 == 0;
   const int vec_out = k % 4 == 0 && reinterpret_cast<uintptr_t>(out_d) % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(out_i) % 16 == 0;
-  auto* kernel = scan_batched_topk_tc<T, KMAX, kQ8, kWide>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
-  if (err == cudaSuccess)  // all of L1 as shared memory: two blocks an SM
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  const cudaError_t err = prepare<T, KMAX, kQ8, kWide>(L.total);
   if (err != cudaSuccess) return (int)err;
   constexpr int run = KMAX == 0 ? kRunAll : kRun;
   const int runs = (nb + run - 1) / run, qtiles = (n_q + kQTile - 1) / kQTile;
   const dim3 grid = KMAX == 0 ? dim3(qtiles, runs) : dim3(runs, qtiles);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  kernel<<<grid, Shape<T, kWide>::threads, L.total, stream>>>(
+  scan_batched_topk_tc<T, KMAX, kQ8, kWide><<<grid, Shape<T, kWide>::threads, L.total, stream>>>(
       ids, q, static_cast<const T*>(blocks), bias, sz, out_d, out_i, nb, n_q, bs, d, k, kpad,
       stride, vec16, vec_out);
   return (int)cudaGetLastError();
 }
 
-// The default shape where its layout fits, else, for f32 and bf16 pages,
-// the wide one (which refuses a d that passes kSmemMax even there); int8
-// pages past the default layout are refused.
+// K padded to two mma depths, and a query row's stride: 16 mod 32 floats,
+// so the 16-byte loads of a quarter warp (rows g, g + 1; columns 4t) hit
+// 32 distinct banks.
+int kpad_of(int d) { return (d + 15) / 16 * 16; }
+int stride_of(int kpad) { return kpad % 32 == 16 ? kpad : kpad + 16; }
+
+// The shape the launcher takes: the default where its layout fits (0),
+// else, for f32 and bf16 pages, the wide one (1); -1: refused (d too
+// large; int8 pages take no wide shape).  `bytes`: the layout's size (if
+// refused, the last one tried).
+template <typename T, int KMAX>
+int shape_of(int bs, int d, int stride, int* bytes) {
+  *bytes = layout_of<T, KMAX, false>(bs, d, stride).total;
+  if (*bytes <= kSmemMax) return 0;
+  if (sizeof(T) == 1) return -1;
+  *bytes = layout_of<T, KMAX, true>(bs, d, stride).total;
+  return *bytes <= kSmemMax ? 1 : -1;
+}
+
 template <typename T, int KMAX, bool kQ8>
 int launch(const int* ids, const float* q, const void* blocks, const float* bias,
            const float* sz, float* out_d, int* out_i, int nb, int n_q, int bs, int d,
            int k, cudaStream_t stream) {
-  const int kpad = (d + 15) / 16 * 16;  // K padded to two mma depths
-  // a query row's stride is 16 mod 32 floats: the 16-byte loads of a
-  // quarter warp (rows g, g + 1; columns 4t) then hit 32 distinct banks
-  const int stride = kpad % 32 == 16 ? kpad : kpad + 16;
-  if (layout_of<T, KMAX, false>(bs, d, stride).total <= kSmemMax)
+  const int kpad = kpad_of(d), stride = stride_of(kpad);
+  int bytes;
+  const int shape = shape_of<T, KMAX>(bs, d, stride, &bytes);
+  if (shape < 0) return (int)cudaErrorInvalidValue;  // d too large
+  if constexpr (sizeof(T) == 1)
     return launch_as<T, KMAX, kQ8, false>(ids, q, blocks, bias, sz, out_d, out_i, nb, n_q, bs,
                                           d, k, kpad, stride, stream);
-  if constexpr (sizeof(T) == 1)
-    return (int)cudaErrorInvalidValue;  // d too large
+  else if (shape == 0)
+    return launch_as<T, KMAX, kQ8, false>(ids, q, blocks, bias, sz, out_d, out_i, nb, n_q, bs,
+                                          d, k, kpad, stride, stream);
   else
     return launch_as<T, KMAX, kQ8, true>(ids, q, blocks, bias, sz, out_d, out_i, nb, n_q, bs,
                                          d, k, kpad, stride, stream);
+}
+
+// Blocks an SM of one instantiation at `smem` bytes, by the occupancy
+// calculator (after the attributes the launcher sets).
+template <typename T, int KMAX, bool kQ8, bool kWide>
+cudaError_t occupancy(int smem, int* blocks) {
+  auto* kernel = scan_batched_topk_tc<T, KMAX, kQ8, kWide>;
+  cudaError_t err = prepare<T, KMAX, kQ8, kWide>(smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, Shape<T, kWide>::threads,
+                                                        smem);
+  return err;
+}
+
+// What launch asks for, without a launch: returns the bytes of dynamic
+// shared memory; shape = {shape_of's variant, warps, stages (the ring),
+// blocks an SM by the occupancy calculator (0 where refused)}.  A CUDA
+// error comes back negated.
+template <typename T, int KMAX, bool kQ8>
+int query(int bs, int d, int* shape) {
+  int bytes;
+  shape[0] = shape_of<T, KMAX>(bs, d, stride_of(kpad_of(d)), &bytes);
+  const bool wide = sizeof(T) != 1 && shape[0] != 0;
+  shape[1] = wide ? Shape<T, true>::warps : Shape<T, false>::warps;
+  shape[2] = wide ? Shape<T, true>::ring : Shape<T, false>::ring;
+  shape[3] = 0;
+  cudaError_t err = cudaSuccess;
+  if constexpr (sizeof(T) == 1) {
+    if (shape[0] == 0) err = occupancy<T, KMAX, kQ8, false>(bytes, &shape[3]);
+  } else {
+    if (shape[0] == 0) err = occupancy<T, KMAX, kQ8, false>(bytes, &shape[3]);
+    if (shape[0] == 1) err = occupancy<T, KMAX, kQ8, true>(bytes, &shape[3]);
+  }
+  return err == cudaSuccess ? bytes : -(int)err;
+}
+
+template <typename T, bool kQ8>
+int query_k(int bs, int d, int k, int* shape) {
+  if (k <= 4) return query<T, 4, kQ8>(bs, d, shape);
+  if (k <= 10) return query<T, 10, kQ8>(bs, d, shape);
+  if (k <= 16) return query<T, 16, kQ8>(bs, d, shape);
+  return query<T, 32, kQ8>(bs, d, shape);
 }
 
 template <typename T, bool kQ8>
@@ -875,4 +943,32 @@ extern "C" int scan_batched_topk_q8(const int* ids, const float* q,
   if (n_q == 0 || nb == 0) return 0;
   return dispatch_k<int8_t, true>(ids, q, codes, bias, sz, out_d, out_i, nb, n_q, bs, d, k,
                                   (cudaStream_t)stream);
+}
+
+// The launchers' shared memory, without a launch (see query); a shape the
+// entry refuses before its shared memory is reckoned (bad BS, k, d or
+// dtype) returns -cudaErrorInvalidValue.
+extern "C" int scan_batched_smem_bytes(int dtype, int bs, int d, int* shape) {
+  if (bad_shape(bs, d, bs)) return -(int)cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0: return query<float, 0, false>(bs, d, shape);
+    case 1: return query<__nv_bfloat16, 0, false>(bs, d, shape);
+    case 2: return query<int8_t, 0, false>(bs, d, shape);
+    default: return -(int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int scan_batched_topk_smem_bytes(int dtype, int bs, int d, int k, int* shape) {
+  if (bad_shape(bs, d, k)) return -(int)cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0: return query_k<float, false>(bs, d, k, shape);
+    case 1: return query_k<__nv_bfloat16, false>(bs, d, k, shape);
+    case 2: return query_k<int8_t, false>(bs, d, k, shape);
+    default: return -(int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int scan_batched_topk_q8_smem_bytes(int bs, int d, int k, int* shape) {
+  if (bad_shape(bs, d, k)) return -(int)cudaErrorInvalidValue;
+  return query_k<int8_t, true>(bs, d, k, shape);
 }

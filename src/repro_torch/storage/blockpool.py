@@ -395,9 +395,9 @@ def _put(pool: BlockPool, pids, vecs, vids, vers, ns, enable, *,
 
     ns = ns.long()
     need = torch.where(enable, (ns + bs - 1) // bs, 0)
-    ok = enable & (torch.cumsum(need, 0) <= pool.free_top)
+    ok = enable & (torch.cumsum(need, 0, dtype=torch.int64) <= pool.free_top)
     used = torch.where(ok, need, 0)
-    off = torch.cumsum(used, 0) - used                  # exclusive
+    off = torch.cumsum(used, 0, dtype=torch.int64) - used   # exclusive
     i_idx = torch.arange(mb, device=dev)[None, :]
     in_use = ok[:, None] & (i_idx < need[:, None])      # (k, MB)
     pos = pool.free_top.long() - 1 - (off[:, None] + i_idx)

@@ -786,7 +786,10 @@ def _sharded_pair(card):
 @pytest.mark.parametrize("schedule", ["batched", "per_query"])
 def test_sharded_search_on_the_card_matches_the_cpu_path(card, schedule):
     """A 4-shard search through the kernels (#1, #4 / #6 per shard, then the
-    tournament merge) against the plain path on the CPU: tie-tolerant."""
+    tournament merge) against the plain path on the CPU: tie-tolerant.
+    Distances within atol + 1e-5 max||q||^2 (the bound chip_smoke.py and
+    the kernel tests hold the f32 expansion to: ||q||^2 - 2 q.b + ||b||^2
+    carries ~1e-6 ||q||^2 of rounding on either path)."""
     cpu, gpu, base = _sharded_pair(card)
     for be in (cpu, gpu):
         be.scan_schedule = schedule
@@ -794,8 +797,9 @@ def test_sharded_search_on_the_card_matches_the_cpu_path(card, schedule):
     q = base[:64] + 0.01
     d0, v0 = cpu.search(q, 10, 8)
     d1, v1 = gpu.search(q, 10, 8)
-    np.testing.assert_allclose(d1, d0, atol=1e-4, rtol=1e-5)
-    assert (np.abs(d0 - d1)[v0 != v1] <= 1e-4 + 1e-5 * np.abs(d0[v0 != v1])).all()
+    tol = 1e-4 + 1e-5 * float(np.max(np.sum(q.astype(np.float64) ** 2, axis=1)))
+    np.testing.assert_allclose(d1, d0, atol=tol, rtol=0)
+    assert (np.abs(d0 - d1)[v0 != v1] <= tol).all()
     assert not ((v1 // 4096 == 1) & (v1 >= 0)).any()
 
 
@@ -912,3 +916,67 @@ def test_retriever_on_the_card_matches_the_cpu(card):
     gpu.add_items(fresh)
     _, v = gpu.index.search(gpu.embed_items(fresh), 10)
     assert all(1500 + i in v[i] for i in range(len(fresh)))
+
+
+# ---------------------------------------------------------------------------
+# the launchers' shared memory: the C queries against spflint's mirror
+# ---------------------------------------------------------------------------
+
+def _smem_cases():
+    from repro_torch.analysis.config import DEFAULT_SPEC
+
+    spec = DEFAULT_SPEC.smem
+    return [pytest.param(entry, form, payload, g, id=f"{entry}-{payload}-{g['name']}")
+            for entry, (form, payloads) in spec.entries.items()
+            for payload in payloads for g in spec.bindings]
+
+
+@pytest.mark.parametrize("entry,form,payload,g", _smem_cases())
+def test_smem_query_equals_the_mirror(card, entry, form, payload, g):
+    """Each launch entry's ``_smem_bytes`` query (the launcher's own
+    arithmetic) equals ``repro_torch.analysis.smem`` at every payload and
+    geometry of the spec; the card's occupancy is at most the blocks an SM
+    the shared memory allows."""
+    from repro_torch.analysis import smem as SM
+    from repro_torch.analysis.config import DEFAULT_SPEC
+    from repro_torch.kernels import build
+
+    spec = DEFAULT_SPEC.smem
+    want = SM.shape_of(form, payload, g, spec)
+    got, shape = build.smem_query(entry, *SM.query_args(entry, form, payload, g))
+    assert (got, shape[:3]) == (want.bytes, (want.variant, want.warps, want.stages))
+    assert torch.cuda.get_device_properties(0).shared_memory_per_block_optin == spec.limit_bytes
+    if want.variant >= 0:
+        assert 1 <= shape[3] <= SM.blocks_per_sm(want, spec)
+
+
+def _edge_cases():
+    from repro_torch.analysis.config import DEFAULT_SPEC
+
+    return [pytest.param(entry, form, payload, id=f"{entry}-{payload}")
+            for entry, (form, payloads) in DEFAULT_SPEC.smem.entries.items()
+            for payload in payloads]
+
+
+@pytest.mark.parametrize("entry,form,payload", _edge_cases())
+def test_launcher_launches_or_refuses_as_the_mirror_predicts(card, entry, form, payload):
+    """At BS = 32 the largest d the mirror says fits launches and agrees
+    with the plain version; the next d is refused with
+    cudaErrorInvalidValue: the wrapper raises and counts no launch."""
+    import chip_smoke
+    from repro_torch.analysis import smem as SM
+    from repro_torch.analysis.config import DEFAULT_SPEC
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    fit, past = chip_smoke._edge_geometries(SM, DEFAULT_SPEC.smem, form, payload)
+    run, plain = chip_smoke._resource_launch(torch, gen, entry, form, payload, fit)
+    got, want = run(), plain()
+    if isinstance(got, tuple):
+        chip_smoke.compare_kmin(*got, *want, atol=1e-2)
+    else:
+        chip_smoke.compare_dense(got, want)
+    run, _ = chip_smoke._resource_launch(torch, gen, entry, form, payload, past)
+    before = sum(LK.LAUNCHES.values()) + sum(SK.LAUNCHES.values())
+    with pytest.raises(RuntimeError, match=r"CUDA error 1$"):
+        run()
+    assert sum(LK.LAUNCHES.values()) + sum(SK.LAUNCHES.values()) == before
