@@ -118,6 +118,26 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
    and 4,096 removed (none may come back), then the engine through a
    ``ServiceSpec``: 8 bursts of 1,024 users with churn, ``drain()``,
    ``report()``.
+   A ninth, ``train``, frees the earlier state and trains each recsys
+   family's ``train_batch`` cell at its published width through
+   ``repro_torch.train.Trainer`` (AdamW ``OPT``, no checkpoint): two-tower
+   (``CONFIG``, f32, params made on the card by ``twotower_init_counter``)
+   and MIND at 32,768 rows a batch, DeepFM at 65,536, BERT4Rec at 512 (the
+   cuts ``TRAIN_BATCH`` names: what one card's 80 GB holds), 2 warm-up and
+   4 timed steps each.  Every step must be finite with ``grad_norm > 0``
+   and ``lr == schedule(OPT, count)``, every parameter leaf must move in
+   step 1, and step 1's loss and ``grad_norm`` must equal the CPU path's
+   on a host copy of the same parameters and batch (two-tower: only the
+   rows the batch touches, remapped) within 1e-5 and 1e-4 relative.  It
+   prints each family's step p50, peak memory and one step split into
+   forward, backward and AdamW (CUDA events).  The trained towers, cast to
+   bf16, then serve 65,536 items through ``IndexedRetriever`` (#1, #4):
+   ids held against the gather oracle (``ORACLE_OVERLAP``), recall against
+   brute force with no floor.  Last, MIND restarts under
+   ``torch.use_deterministic_algorithms(True)``: 6 steps in one run
+   against 3, a checkpoint under a temporary root in ``build/``, a fresh
+   ``Trainer`` restoring it and 3 more; every leaf of the parameters and
+   the optimiser state must be equal.
    The launch counts are reset before each path and read after it, and
    every kernel of the path must have launched.
 4. Prints the ``kernels`` JSON line, the card's name and power limit, and
@@ -1377,6 +1397,7 @@ PATH_KERNELS = {
     "durable": ("l2_topk_tiles", "scan_batched_topk", "scan_per_query_topk"),
     "sharded": ("l2_topk_tiles", "scan_batched_topk", "scan_per_query_topk"),
     "retrieval": ("l2_topk_tiles", "scan_per_query_topk", "scan_batched_topk"),
+    "train": ("l2_topk_tiles", "scan_per_query_topk"),
 }
 
 
@@ -3230,6 +3251,348 @@ def retrieval_path(torch, np, seed, report, *, device="cuda", model_cfg=None, n=
     return report
 
 
+# ---------------------------------------------------------------------------
+# train: the recsys families' training path
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCHS = ("two-tower-retrieval", "deepfm", "bert4rec", "mind")
+# train_batch is 65,536 rows (the reference's configs/common.py
+# RECSYS_SHAPES); cut only where one card's 80 GB forces it (PERF.md
+# section 4): the (B, B) f32 in-batch logits of two-tower and MIND (17.2 GB
+# at 65,536, and autograd keeps several), BERT4Rec's (B*4, 1,048,575) f32
+# logits of the masked positions (16.8 MB a sequence).
+TRAIN_BATCH = {"two-tower-retrieval": 32_768, "deepfm": 65_536, "bert4rec": 512,
+               "mind": 32_768}
+TRAIN_WARM = 2                  # warm-up steps, then the timed ones
+TRAIN_TIMED = 4
+TRAIN_RESTART = 6               # the MIND restart: 6 steps, or 3 + checkpoint + 3
+# first step on the card against the CPU's on the same params and batch
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GNORM_RTOL = 1e-4
+TRAIN_SERVE_N = 65_536          # items the trained towers serve
+TRAIN_SERVE_SCALE = 2           # ann_index_cfg capacities x2: 4 slots an item, as `retrieval`
+
+
+def train_cells(arch):
+    """``(config module, loss function, init function)`` of ``arch``."""
+    from repro_torch.configs import bert4rec, deepfm, mind, two_tower_retrieval
+    from repro_torch.models import recsys as R
+
+    return {"two-tower-retrieval": (two_tower_retrieval, R.twotower_loss, None),
+            "deepfm": (deepfm, R.deepfm_loss, R.deepfm_init),
+            "bert4rec": (bert4rec, R.bert4rec_loss, R.bert4rec_init),
+            "mind": (mind, R.mind_loss, R.mind_init)}[arch]
+
+
+def train_batch_fn(np, arch, cfg, b, seed, device):
+    """Step ``s``'s batch of ``b`` rows, drawn as the config's batch maker
+    draws from ``np.random.default_rng((seed, s))``."""
+    mod = train_cells(arch)[0]
+    sh = {"kind": "train", "batch": b}
+    if arch == "deepfm":
+        return lambda s: mod._make_batch(cfg, sh, np.random.default_rng((seed, s)), device)
+    return lambda s: mod._make_batch(cfg, sh, np.random.default_rng((seed, s)), "train",
+                                     "train_batch", device)
+
+
+def train_init(torch, arch, cfg, seed, device):
+    """Parameters made on ``device``: two-tower by ``twotower_init_counter``
+    (no host draw of its 10M-row table), the others from a generator."""
+    from repro_torch.models.recsys import twotower_init_counter
+
+    if arch == "two-tower-retrieval":
+        return twotower_init_counter(seed, cfg, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return train_cells(arch)[2](gen, cfg, device=device)
+
+
+def train_host_copy(torch, np, arch, params, batch, cfg):
+    """``(params, batch, cfg)`` on the CPU for the first-step check.  Two-
+    tower copies only what the batch touches: each user field's ids and the
+    items, remapped to rows 0.. of small tables (the same loss, the same
+    gradient norm: untouched rows take no gradient)."""
+    import copy
+
+    from repro_torch import convert
+    from repro_torch.models.recsys import TwoTower
+
+    host = {k: v.cpu() for k, v in batch.items()}
+    if arch != "two-tower-retrieval":
+        from_np = {"deepfm": convert.deepfm_params_from_numpy,
+                   "bert4rec": convert.bert4rec_params_from_numpy,
+                   "mind": convert.mind_params_from_numpy}[arch]
+        return from_np(convert.params_to_numpy(params), cfg, device="cpu"), host, cfg
+    dev = params.device
+    uf, items = host["user_fields"].numpy(), host["item_ids"].numpy()
+    uniq = [np.unique(uf[:, j]) for j in range(cfg.n_user_fields)]
+    vp = max(len(u) for u in uniq)
+    user = torch.zeros((cfg.n_user_fields * vp, cfg.embed_dim))
+    remapped = np.empty_like(uf)
+    for j, u in enumerate(uniq):
+        rows = torch.as_tensor(j * cfg.user_vocab_per_field + u, device=dev)
+        user[j * vp:j * vp + len(u)] = params.user_embed.detach()[rows].cpu()
+        remapped[:, j] = np.searchsorted(u, uf[:, j])
+    ui = np.unique(items)
+    item = params.item_embed.detach()[torch.as_tensor(ui, device=dev)].cpu()
+    small = dataclasses.replace(cfg, n_items=len(ui), user_vocab_per_field=vp)
+    model = TwoTower(small, user, item, copy.deepcopy(params.user_mlp).cpu(),
+                     copy.deepcopy(params.item_mlp).cpu())
+    host.update(user_fields=torch.as_tensor(remapped), item_ids=torch.as_tensor(
+        np.searchsorted(ui, items).astype(np.int32)))
+    return model, host, small
+
+
+def leaf_samples(torch, params):
+    """Up to 2^20 evenly strided values of every parameter leaf."""
+    from repro_torch.convert import param_leaves
+
+    out = []
+    for _, t, _ in param_leaves(params):
+        flat = t.detach().reshape(-1)
+        out.append(flat[::max(1, flat.numel() >> 20)].clone())
+    return out
+
+
+def split_step(torch, loss_fn, params, opt_state, batch, device):
+    """One more step from its parts (``value_and_grad`` is the forward and
+    ``torch.autograd.grad``; then ``adamw_update``), each timed: CUDA
+    events on the card, the host clock on the CPU."""
+    from repro_torch.configs.common import OPT
+    from repro_torch.convert import param_leaves
+    from repro_torch.train.optimizer import adamw_update
+
+    leaves = [t for _, t, _ in param_leaves(params)]
+    card = device != "cpu"
+    if card:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        mark = [e.record for e in ev]
+    else:
+        stamps = []
+        mark = [lambda: stamps.append(time.perf_counter())] * 4
+    mark[0]()
+    with torch.enable_grad():
+        loss, _ = loss_fn(params, batch)
+        mark[1]()
+        grads = torch.autograd.grad(loss, leaves)
+    mark[2]()
+    adamw_update(grads, opt_state, params, OPT)
+    mark[3]()
+    if card:
+        torch.cuda.synchronize()
+        ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    else:
+        ms = [(stamps[i + 1] - stamps[i]) * 1e3 for i in range(3)]
+    return dict(zip(("forward_ms", "backward_ms", "adamw_ms"), ms))
+
+
+def rel_err(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def train_family(torch, np, seed, rep, arch, cfg, b, device):
+    """``arch``'s ``train_batch`` cell at ``cfg`` with ``b`` rows a batch
+    through ``Trainer`` (OPT, no checkpoint): step 1 (checked against the
+    CPU, every leaf must move), then the rest of TRAIN_WARM + TRAIN_TIMED;
+    every step finite, ``grad_norm > 0``, ``lr == schedule(OPT, count)``;
+    p50, peak memory, one step split.  Returns the trainer."""
+    from repro_torch.configs.common import OPT
+    from repro_torch.train.optimizer import global_norm, schedule, value_and_grad
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    card = device != "cpu"
+    loss = train_cells(arch)[1]
+    loss_fn = lambda p, bt: loss(p, bt, cfg)        # noqa: E731
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    params, init_s = timed(torch, lambda: train_init(torch, arch, cfg, seed, device))
+    param_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    batch_for = train_batch_fn(np, arch, cfg, b, seed, device)
+    host, copy_s = timed(torch, lambda: train_host_copy(torch, np, arch, params, batch_for(0),
+                                                        cfg))
+    before = leaf_samples(torch, params)
+    steps = TRAIN_WARM + TRAIN_TIMED
+    tr = Trainer(loss_fn=loss_fn, init_params_fn=lambda: params, batch_fn=batch_for,
+                 opt_cfg=OPT, trainer_cfg=TrainerConfig(total_steps=steps,
+                                                        checkpoint_every=steps + 1, log_every=1),
+                 device=device)
+    tr.run(steps=1)
+    moved = [not torch.equal(x, y) for x, y in zip(before, leaf_samples(torch, params))]
+    check(all(moved), f"[train] {arch}: {moved.count(False)} parameter leaves did not move "
+          "in step 1")
+    del before
+
+    # ---- the first step against the CPU's on a host copy
+    cpu_params, cpu_batch, cpu_cfg = host
+    t0 = time.perf_counter()
+    (cpu_loss, _), grads = value_and_grad(lambda p, bt: loss(p, bt, cpu_cfg), cpu_params,
+                                          cpu_batch)
+    cpu_gnorm = float(global_norm(grads))
+    cpu_s = time.perf_counter() - t0
+    del host, cpu_params, cpu_batch, grads
+    first = tr.history[0]
+    first_step = dict(loss=first["loss"], cpu_loss=float(cpu_loss),
+                      loss_rel_err=rel_err(first["loss"], float(cpu_loss)),
+                      grad_norm=first["grad_norm"], cpu_grad_norm=cpu_gnorm,
+                      grad_norm_rel_err=rel_err(first["grad_norm"], cpu_gnorm),
+                      host_copy_s=copy_s, cpu_step_s=cpu_s)
+    check(first_step["loss_rel_err"] <= TRAIN_LOSS_RTOL,
+          f"[train] {arch}: first-step loss {first_step}")
+    check(first_step["grad_norm_rel_err"] <= TRAIN_GNORM_RTOL,
+          f"[train] {arch}: first-step grad_norm {first_step}")
+
+    tr.run()
+    for h in tr.history:
+        lr = float(schedule(OPT, torch.tensor(h["step"], dtype=torch.int32, device=device)))
+        check(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) and h["grad_norm"] > 0,
+              f"[train] {arch}: step {h['step']} {h}")
+        check(h["lr"] == lr, f"[train] {arch}: step {h['step']} lr {h['lr']} != schedule {lr}")
+    check(int(tr.opt_state["count"]) == steps, f"[train] {arch}: count {tr.opt_state['count']}")
+    step_ms = [h["dt"] * 1e3 for h in tr.history]
+    split = split_step(torch, loss_fn, tr.params, tr.opt_state, batch_for(steps), device)
+    peak = torch.cuda.max_memory_allocated() if card else None
+    rep.update(batch=b, param_bytes=param_bytes, init_s=init_s, step_ms=step_ms,
+               p50_ms=statistics.median(step_ms[TRAIN_WARM:]), peak_bytes=peak,
+               split=split, first_step=first_step,
+               losses=[h["loss"] for h in tr.history],
+               grad_norms=[h["grad_norm"] for h in tr.history])
+    log(f"[train] {arch}: B={b}, {param_bytes} bytes of params made in {init_s:.2f} s; step p50 "
+        f"{rep['p50_ms']:.2f} ms (steps {', '.join(f'{x:.2f}' for x in step_ms)} ms); one step "
+        f"forward {split['forward_ms']:.2f} / backward {split['backward_ms']:.2f} / AdamW "
+        f"{split['adamw_ms']:.2f} ms; peak {peak} bytes; first step loss {first['loss']:.6f} "
+        f"(CPU {float(cpu_loss):.6f}, rel {first_step['loss_rel_err']:.2e}), grad_norm "
+        f"{first['grad_norm']:.6f} (CPU {cpu_gnorm:.6f}, rel "
+        f"{first_step['grad_norm_rel_err']:.2e}; CPU step {cpu_s:.1f} s)")
+    return tr
+
+
+def train_restart(torch, np, seed, rep, cfg, b, device, parent):
+    """MIND under deterministic algorithms: A runs TRAIN_RESTART steps; B
+    runs half, checkpoints under a temporary root in ``parent``, and a
+    fresh Trainer restores it and runs to TRAIN_RESTART.  Every leaf of
+    the parameters and the optimiser state, ``count`` included, must be
+    equal; the root is removed."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs.common import OPT
+    from repro_torch.convert import train_state_leaves
+    from repro_torch.train.checkpoint import CheckpointStore
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    loss = train_cells("mind")[1]
+    batch_for = train_batch_fn(np, "mind", cfg, b, seed, device)
+
+    def trainer(ckpt=None):
+        return Trainer(loss_fn=lambda p, bt: loss(p, bt, cfg),
+                       init_params_fn=lambda: train_init(torch, "mind", cfg, seed, device),
+                       batch_fn=batch_for, opt_cfg=OPT,
+                       trainer_cfg=TrainerConfig(total_steps=10 ** 9, checkpoint_every=10 ** 9),
+                       ckpt_dir=ckpt, device=device)
+
+    half = TRAIN_RESTART // 2
+    os.makedirs(parent, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="train_", dir=parent)
+    try:
+        with deterministic_algorithms(torch):
+            a = trainer()
+            a.run(steps=TRAIN_RESTART)
+            b1 = trainer()
+            b1.run(steps=half)
+            store = CheckpointStore(root)
+            _, write_s = timed(torch, lambda: store.save(
+                half, (b1.params, b1.opt_state), extra={"straggler_steps": b1.straggler_steps}))
+            del b1
+            ckpt_bytes = sum(f.stat().st_size for f in Path(root).rglob("*") if f.is_file())
+            b2 = trainer(root)
+            _, restore_s = timed(torch, lambda: b2.run(steps=0))
+            check(b2.step == half, f"[train] restart: restored step {b2.step} != {half}")
+            b2.run(steps=TRAIN_RESTART - half)
+        la = train_state_leaves(a.params, a.opt_state)
+        lb = train_state_leaves(b2.params, b2.opt_state)
+        same = [bool(torch.equal(x, y)) for (x, _), (y, _) in zip(la, lb)]
+        check(len(la) == len(lb) and all(same),
+              f"[train] restart: {same.count(False)} of {len(la)} leaves differ")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rep.update(steps=TRAIN_RESTART, checkpoint_at=half, checkpoint_bytes=ckpt_bytes,
+               write_s=write_s, restore_s=restore_s, leaves=len(la), fs=fs_type(parent))
+    log(f"[train] MIND restart under deterministic algorithms: {len(la)} leaves bit-identical "
+        f"after {TRAIN_RESTART} steps against {half} + checkpoint + {TRAIN_RESTART - half}; "
+        f"checkpoint {ckpt_bytes} bytes written in {write_s:.2f} s, restored in "
+        f"{restore_s:.2f} s (init + load; {rep['fs']})")
+
+
+def train_serve(torch, np, seed, rep, params, *, device, n, index_cfg, users_n):
+    """The trained towers cast to bf16 (``SERVE_CONFIG``'s dtype, in place)
+    serve ``n`` items through ``IndexedRetriever``: the kernel path's ids
+    against the gather oracle's (``ORACLE_OVERLAP``), recall@10 against
+    brute force (no floor)."""
+    from repro_torch.serve.retrieval import IndexedRetriever
+
+    k = 10
+    params.to(torch.bfloat16)
+    cfg = params.cfg = dataclasses.replace(params.cfg, dtype="bfloat16")
+    retr = IndexedRetriever(params, cfg, index_cfg, device=device)
+    _, build_s = timed(torch, lambda: retr.build_corpus(np.arange(n)))
+    users = retrieval_users(np, seed, users_n, cfg)
+    _, bf = retr.retrieve_bruteforce(users, k=k)
+    (_, ids), lookup_s = timed(torch, lambda: retr.retrieve(users, k=k))
+    recall = overlap(bf, ids)
+    u = retr._users(users).cpu().numpy()
+    oracle = retr.index.search(u, k, use_pallas_scan=False)[1]
+    ov = overlap(oracle, retr.index.search(u, k)[1])
+    check(ov >= ORACLE_OVERLAP, f"[train] served towers overlap the oracle by {ov} < "
+          f"{ORACLE_OVERLAP}")
+    rep.update(n=n, build_s=build_s, users=users_n, lookup_s=lookup_s, recall_at_10=recall,
+               oracle_overlap=ov)
+    log(f"[train] trained towers in bf16 serve {n} items: build {build_s:.1f} s, a Q={users_n} "
+        f"lookup {lookup_s * 1e3:.2f} ms, recall@10 {recall} against brute force (no floor), "
+        f"kernel path vs gather oracle id overlap {ov}")
+
+
+def train_path(torch, np, seed, report, *, device="cuda", configs=None, batches=None,
+               serve_n=TRAIN_SERVE_N, index_cfg=None, users_n=RETRIEVAL_USERS, ckpt_parent=None):
+    """Each recsys family's ``train_batch`` cell at its published width
+    (``configs``: each config module's ``CONFIG``), ``batches`` rows a
+    batch (``TRAIN_BATCH``), through ``Trainer`` (:func:`train_family`),
+    each family's state freed before the next; the trained two-tower
+    serves (:func:`train_serve`); then the MIND restart
+    (:func:`train_restart`).  Small configs and ``device="cpu"`` rehearse
+    the path on the CPU."""
+    configs = configs or {a: train_cells(a)[0].CONFIG for a in TRAIN_ARCHS}
+    batches = batches or TRAIN_BATCH
+    index_cfg = index_cfg or retrieval_index_cfg(TRAIN_SERVE_SCALE)
+    report["reduced"] = {a: f"train_batch {batches[a]} rows of 65,536" for a in TRAIN_ARCHS
+                         if batches[a] < 65_536}
+    card = device != "cpu"
+    for arch in TRAIN_ARCHS:
+        report[arch] = {}
+        t0 = time.perf_counter()
+        tr = train_family(torch, np, seed, report[arch], arch, configs[arch], batches[arch],
+                          device)
+        if arch == "two-tower-retrieval":
+            params = tr.params
+            del tr
+            gc.collect()
+            report["serve"] = {}
+            train_serve(torch, np, seed, report["serve"], params, device=device, n=serve_n,
+                        index_cfg=index_cfg, users_n=users_n)
+            del params
+        else:
+            del tr
+        gc.collect()
+        if card:
+            torch.cuda.empty_cache()
+        report[arch]["seconds"] = time.perf_counter() - t0
+    report["restart"] = {}
+    train_restart(torch, np, seed, report["restart"], configs["mind"], batches["mind"], device,
+                  ckpt_parent or ROOT / "build")
+    gc.collect()
+    if card:
+        torch.cuda.empty_cache()
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="chip smoke for the PyTorch/CUDA port")
     ap.add_argument("--seed", type=int, default=0)
@@ -3413,6 +3776,19 @@ def main() -> int:
         f"ms, recall@10 {rt['recall_at_10']} (N={rt['n']}), {fc['recall_at_10']} (N={fc['n']}, "
         f"floor {fc['recall_floor']}); launches on the path: {got}; {rt['seconds']:.1f} s "
         f"({card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    reset()
+    report["train"] = {}
+    t0 = time.perf_counter()
+    train_path(torch, np, args.seed, report["train"])
+    report["train"]["seconds"] = time.perf_counter() - t0
+    got = launched("train")
+    tn = report["train"]
+    log("[train] step p50 ms " + ", ".join(f"{a} {tn[a]['p50_ms']:.2f} (B={tn[a]['batch']}, "
+                                           f"peak {tn[a]['peak_bytes']})" for a in TRAIN_ARCHS)
+        + f"; launches on the path: {got}; {tn['seconds']:.1f} s ({card})")
     for name, n in launches.items():
         results[name]["launches"] = n
     for name in ("l2_topk_tiles", "scan_batched", "scan_batched_topk", "scan_batched_topk_q8"):

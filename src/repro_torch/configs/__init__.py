@@ -1,0 +1,70 @@
+"""Architecture registry of the port.
+
+``get_cells(arch)`` returns the (arch × shape) Cell list; ``all_cells()``
+every cell of the ported archs: the four recsys families (two-tower
+retrieval, DeepFM, BERT4Rec, MIND).  Exact configs are in the per-arch
+modules.  An arch of the reference that is not ported yet raises
+``KeyError`` naming ``ROADMAP.md`` queue 1.
+"""
+from __future__ import annotations
+
+from repro_torch.configs.common import Cell
+
+_ARCH_MODULES = [
+    "bert4rec",
+    "mind",
+    "two_tower_retrieval",
+    "deepfm",
+]
+
+# the reference's other archs, and the queue 1 item that ports each
+_NOT_PORTED = {
+    "granite-20b": 9, "deepseek-7b": 9, "qwen1.5-110b": 9, "granite-moe-1b-a400m": 9,
+    "phi3.5-moe-42b-a6.6b": 9, "gat-cora": 9, "spfresh-1b": 10,
+}
+
+_CELLS: dict[str, list[Cell]] | None = None
+
+
+def _load() -> dict[str, list[Cell]]:
+    global _CELLS
+    if _CELLS is None:
+        import importlib
+
+        cells_by_arch = {}
+        for mod_name in _ARCH_MODULES:
+            mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
+            cells = mod.cells()
+            assert cells, mod_name
+            cells_by_arch[cells[0].arch] = cells
+        _CELLS = cells_by_arch
+    return _CELLS
+
+
+def arch_names() -> list[str]:
+    return list(_load().keys())
+
+
+def get_cells(arch: str) -> list[Cell]:
+    cells = _load()
+    if arch in cells:
+        return cells[arch]
+    if arch in _NOT_PORTED:
+        raise KeyError(f"{arch} is not ported yet: ROADMAP.md queue 1 item {_NOT_PORTED[arch]}")
+    raise KeyError(arch)
+
+
+def get_cell(arch: str, shape: str) -> Cell:
+    for c in get_cells(arch):
+        if c.shape == shape:
+            return c
+    raise KeyError(f"{arch}/{shape}")
+
+
+def all_cells(include_skipped: bool = True) -> list[Cell]:
+    out = []
+    for cells in _load().values():
+        for c in cells:
+            if include_skipped or c.skip_reason is None:
+                out.append(c)
+    return out

@@ -4,12 +4,21 @@ interaction=dot — sampled-softmax retrieval [RecSys'19 (YouTube)].
 The flagship of the reference: ``retrieval_cand`` is the ANN query the
 SPFresh index serves (``repro_torch.serve.retrieval``).  ``SERVE_CONFIG``
 is the bf16 checkpoint the serving cells read; ``ann_index_cfg`` the
-index over the item tower's embeddings.
+index over the item tower's embeddings.  ``cells()`` gives
+``train_batch``, ``serve_p99``, ``serve_bulk`` and ``retrieval_cand``; the
+reference's mesh cell ``retrieval_cand_ann`` waits for the dry run
+(``ROADMAP.md`` queue 1 item 10).
 """
 import dataclasses
 
+import torch
+
+from repro_torch.configs.common import (OPT, RECSYS_SHAPES, Cell, _ids, _recsys_cell, _sds,
+                                        _serve_step)
 from repro_torch.core.types import LireConfig
+from repro_torch.models import recsys as R
 from repro_torch.models.recsys import TwoTowerConfig
+from repro_torch.train.optimizer import make_train_step
 
 CONFIG = TwoTowerConfig(
     name="two-tower-retrieval",
@@ -40,3 +49,52 @@ def ann_index_cfg() -> LireConfig:
         split_limit=96, merge_limit=12, reassign_range=16,
         reassign_budget=128, replica_count=2, nprobe=16,
     )
+
+
+def _batch_struct(cfg, sh, kind, shape_name):
+    b = sh["batch"]
+    out = {"user_fields": _sds((b, cfg.n_user_fields), torch.int32)}
+    if shape_name == "retrieval_cand":
+        out["candidate_ids"] = _sds((sh["n_candidates"],), torch.int32)
+        return out
+    out["item_ids"] = _sds((b,), torch.int32)
+    if kind == "train":
+        out["item_logq"] = _sds((b,), torch.float32)
+    return out
+
+
+def _make_batch(cfg, sh, rng, kind, shape_name, device):
+    b = sh["batch"]
+    out = {"user_fields": _ids(rng.integers(0, cfg.user_vocab_per_field,
+                                            size=(b, cfg.n_user_fields)), device)}
+    if shape_name == "retrieval_cand":
+        out["candidate_ids"] = _ids(rng.integers(0, cfg.n_items, size=sh["n_candidates"]),
+                                    device)
+        return out
+    out["item_ids"] = _ids(rng.integers(0, cfg.n_items, size=b), device)
+    if kind == "train":
+        out["item_logq"] = torch.zeros((b,), dtype=torch.float32, device=device)
+    return out
+
+
+def cells() -> list[Cell]:
+    out = []
+    for shape_name, sh in RECSYS_SHAPES.items():
+        kind = sh["kind"]
+        if kind == "train":
+            def make_step(cfg):
+                return make_train_step(lambda p, b, _cfg=cfg: R.twotower_loss(p, b, _cfg), OPT)
+            donate = (0, 1)
+        elif shape_name == "retrieval_cand":
+            make_step, donate = _serve_step(R.twotower_retrieval), ()
+        else:
+            make_step, donate = _serve_step(R.twotower_score_pairs), ()
+        # the serving cells read a bf16-cast checkpoint
+        cell_cfg = SERVE_CONFIG if shape_name == "retrieval_cand" else CONFIG
+        out.append(_recsys_cell(
+            "two-tower-retrieval", shape_name, cell_cfg, SMOKE, kind, make_step,
+            R.twotower_init,
+            lambda cfg, s, rng, dev, _k=kind, _n=shape_name: _make_batch(cfg, s, rng, _k, _n, dev),
+            donate=donate,
+        ))
+    return out

@@ -11,8 +11,18 @@ leading ``(n_shards,)`` axis) and the port's list of per-shard states:
 :func:`sharded_state_from_numpy` and :func:`sharded_state_to_numpy` carry
 it across in both directions.
 
-The two-tower model's params travel as the reference's nested tree
-(:func:`twotower_params_from_numpy`, :func:`twotower_params_to_numpy`).
+The recsys models' params travel as the reference's nested tree of
+numpy arrays (``twotower_params_{from,to}_numpy`` and the DeepFM, BERT4Rec
+and MIND pairs), and AdamW's state as the reference's ``{"count", "m",
+"v"}`` (:func:`adamw_state_from_numpy`, :func:`adamw_state_to_numpy`).
+
+A parameter tree is flattened in the reference's leaf order, which is
+``jax.tree_util``'s: dict keys sorted, lists in order
+(:func:`param_leaves`, :func:`tree_paths`, :func:`tree_from_paths`).  An
+``nn.Linear``'s weight is the transpose of the reference's ``w`` and its
+leaf is marked so; its ``weight`` and ``bias`` take the reference's names
+``w`` and ``b``.  A training checkpoint stores ``(params, opt_state)``
+as the reference's store does (:func:`train_state_leaves`).
 """
 from __future__ import annotations
 
@@ -20,6 +30,7 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.core.types import IndexState, LireConfig, make_empty_state, resolve_device
 from repro_torch.utils.tree import tensor_leaves
@@ -100,14 +111,7 @@ def _rebuild(template, got: dict, prefix: str = ""):
 
 def state_to_numpy(state: IndexState) -> dict[str, np.ndarray]:
     """Inverse of :func:`state_from_numpy` (bfloat16 → uint16 bits)."""
-    out = {}
-    for name, t in tensor_leaves(state).items():
-        t = t.detach().cpu()
-        if t.dtype == torch.bfloat16:
-            out[name] = t.view(torch.int16).numpy().view(np.uint16)
-        else:
-            out[name] = t.numpy()
-    return out
+    return {name: _host(t) for name, t in tensor_leaves(state).items()}
 
 
 _GROUP_LEAVES = ("group_centroids", "group_sqn", "members", "member_valid")
@@ -137,35 +141,200 @@ def twotower_params_from_numpy(tree: dict, cfg, *, device="cuda"):
     from repro_torch.models.recsys import TwoTower, _linear, torch_dtype
 
     dev = resolve_device(device)
-    like = torch.empty((), dtype=torch_dtype(cfg.dtype))
-
-    def leaf(arr):
-        arr = np.asarray(arr)
-        if like.dtype == torch.float32 and arr.dtype != np.float32:
-            raise TypeError(f"a {arr.dtype} leaf for a float32 config")
-        if like.dtype == torch.bfloat16 and arr.dtype.itemsize != 2:
-            raise TypeError(f"a {arr.dtype} leaf for a bfloat16 config")
-        return _to_tensor(arr, like, dev)
+    dt = torch_dtype(cfg.dtype)
 
     def mlp(layers):
-        return torch.nn.ModuleList(_linear(leaf(lp["w"]).T.contiguous(), leaf(lp["b"]))
-                                   for lp in layers)
+        return torch.nn.ModuleList(_linear(_leaf_tensor(lp["w"], dt, dev).T.contiguous(),
+                                           _leaf_tensor(lp["b"], dt, dev)) for lp in layers)
 
-    return TwoTower(cfg, leaf(tree["user_embed"]), leaf(tree["item_embed"]),
+    return TwoTower(cfg, _leaf_tensor(tree["user_embed"], dt, dev),
+                    _leaf_tensor(tree["item_embed"], dt, dev),
                     mlp(tree["user_mlp"]), mlp(tree["item_mlp"]))
 
 
-def twotower_params_to_numpy(model) -> dict:
-    """Inverse of :func:`twotower_params_from_numpy`: the reference's tree
-    on the host (each ``w`` back to ``(in, out)``; bfloat16 → uint16 bits)."""
-    def leaf(t):
-        t = t.detach().cpu()
-        if t.dtype == torch.bfloat16:
-            return t.view(torch.int16).numpy().view(np.uint16)
-        return t.numpy()
+# ---------------------------------------------------------------------------
+# Parameter trees in the reference's leaf order
+# ---------------------------------------------------------------------------
 
-    def mlp(layers):
-        return [{"w": leaf(lin.weight.T.contiguous()), "b": leaf(lin.bias)} for lin in layers]
+def _key(part: str):
+    return int(part) if part.isdigit() else part
 
-    return {"user_embed": leaf(model.user_embed), "item_embed": leaf(model.item_embed),
-            "user_mlp": mlp(model.user_mlp), "item_mlp": mlp(model.item_mlp)}
+
+def tree_paths(tree, prefix: tuple = ()) -> list[tuple[tuple, object]]:
+    """``[(path, leaf)]`` of a tree of dicts, lists and tuples in
+    ``jax.tree_util``'s order: a dict's keys sorted, a list's items in
+    order.  A ``None`` leaf is dropped, as JAX drops it."""
+    if isinstance(tree, dict):
+        return [e for k in sorted(tree) for e in tree_paths(tree[k], prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [e for i, x in enumerate(tree) for e in tree_paths(x, prefix + (i,))]
+    return [] if tree is None else [(prefix, tree)]
+
+
+def tree_from_paths(items) -> dict:
+    """Inverse of :func:`tree_paths` over dicts and lists: a level whose
+    keys are ints is a list."""
+    root: dict = {}
+    for path, leaf in items:
+        node = root
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(isinstance(k, int) for k in node):
+            return [listify(node[i]) for i in range(len(node))]
+        return {k: listify(v) for k, v in node.items()}
+
+    return listify(root)
+
+
+def param_leaves(params) -> list[tuple[tuple, torch.Tensor, bool]]:
+    """``[(path, tensor, transposed)]`` for every parameter of ``params``
+    (an ``nn.Module`` or a tree of tensors) in the reference's leaf order.
+    ``transposed`` marks an ``nn.Linear`` weight, which the reference holds
+    as ``w (in, out)``."""
+    if not isinstance(params, nn.Module):
+        return [(path, t, False) for path, t in tree_paths(params)]
+    out = []
+    for mname, mod in params.named_modules():
+        lin = isinstance(mod, nn.Linear)
+        for pname, p in mod.named_parameters(recurse=False):
+            path = tuple(_key(x) for x in mname.split(".") if mname)
+            out.append((path + ({"weight": "w", "bias": "b"}[pname] if lin else pname,),
+                        p, lin and pname == "weight"))
+    return sorted(out, key=lambda e: e[0])
+
+
+def _host(t: torch.Tensor, transposed: bool = False) -> np.ndarray:
+    """A leaf in the reference's layout on the host, bfloat16 as uint16
+    bits: a copy, never a view of ``t``'s memory (which a later in-place
+    step would change under the caller)."""
+    t = t.detach()
+    t = t.T if transposed else t
+    if t.device.type == "cpu":
+        t = t.clone(memory_format=torch.contiguous_format)
+    else:
+        t = t.contiguous().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def params_to_numpy(params) -> dict:
+    """The reference's parameter tree of ``params`` (any recsys model or a
+    tree of tensors) on the host: each ``w`` ``(in, out)``, bfloat16 as
+    uint16 bits."""
+    return tree_from_paths((path, _host(t, tr)) for path, t, tr in param_leaves(params))
+
+
+def _leaf_tensor(arr, dtype: torch.dtype, device) -> torch.Tensor:
+    """``arr`` as a ``dtype`` tensor on ``device``, refusing a leaf of
+    another dtype (bfloat16 given as uint16 bits or numpy's bfloat16)."""
+    arr = np.asarray(arr)
+    like = torch.empty((), dtype=dtype)
+    if dtype == torch.bfloat16:
+        if arr.dtype.itemsize != 2:
+            raise TypeError(f"a {arr.dtype} leaf for a bfloat16 tensor")
+    elif arr.dtype != np.dtype(str(dtype).removeprefix("torch.")):
+        raise TypeError(f"a {arr.dtype} leaf for a {dtype} tensor")
+    return _to_tensor(arr, like, device)
+
+
+def _tensor_tree(tree, dtype: torch.dtype, device):
+    return tree_from_paths((path, _leaf_tensor(a, dtype, device)) for path, a in tree_paths(tree))
+
+
+def deepfm_params_from_numpy(tree: dict, cfg, *, device="cuda"):
+    """The port's ``DeepFM`` holding the reference's DeepFM params ``tree``
+    (numpy, in ``cfg.dtype``) on ``device``."""
+    from repro_torch.models.recsys import DeepFM, torch_dtype
+
+    return DeepFM(cfg, _tensor_tree(tree, torch_dtype(cfg.dtype), resolve_device(device)))
+
+
+def bert4rec_params_from_numpy(tree: dict, cfg, *, device="cuda"):
+    """The port's ``Bert4Rec`` holding the reference's BERT4Rec params."""
+    from repro_torch.models.recsys import Bert4Rec, torch_dtype
+
+    return Bert4Rec(cfg, _tensor_tree(tree, torch_dtype(cfg.dtype), resolve_device(device)))
+
+
+def mind_params_from_numpy(tree: dict, cfg, *, device="cuda"):
+    """The port's ``MIND`` holding the reference's MIND params
+    (``routing_init`` is f32 in every dtype, as there)."""
+    from repro_torch.models.recsys import MIND, torch_dtype
+
+    dev = resolve_device(device)
+    t = _tensor_tree({k: v for k, v in tree.items() if k != "routing_init"},
+                     torch_dtype(cfg.dtype), dev)
+    t["routing_init"] = _leaf_tensor(tree["routing_init"], torch.float32, dev)
+    return MIND(cfg, t)
+
+
+# the inverse of each ``*_params_from_numpy``
+twotower_params_to_numpy = params_to_numpy
+deepfm_params_to_numpy = bert4rec_params_to_numpy = mind_params_to_numpy = params_to_numpy
+
+
+# ---------------------------------------------------------------------------
+# AdamW's state and training checkpoints
+# ---------------------------------------------------------------------------
+
+def adamw_state_to_numpy(opt_state: dict, params) -> dict:
+    """The reference's ``{"count", "m", "v"}`` of the port's AdamW state
+    (``m`` and ``v`` lists in ``params``' leaf order), each moment a tree
+    shaped like the reference's params."""
+    leaves = param_leaves(params)
+
+    def tree(ms):
+        return tree_from_paths((path, _host(m, tr)) for (path, _, tr), m in zip(leaves, ms))
+
+    return {"count": _host(opt_state["count"]), "m": tree(opt_state["m"]),
+            "v": tree(opt_state["v"])}
+
+
+def adamw_state_from_numpy(tree: dict, params, *, device="cuda") -> dict:
+    """Inverse of :func:`adamw_state_to_numpy`: the port's AdamW state for
+    ``params`` on ``device``."""
+    dev = resolve_device(device)
+    leaves = param_leaves(params)
+
+    def moments(t):
+        arrs = dict(tree_paths(t))
+        return [_oriented(_leaf_tensor(arrs[path], torch.float32, dev), tr, p.shape)
+                for path, p, tr in leaves]
+
+    return {"count": _leaf_tensor(tree["count"], torch.int32, dev),
+            "m": moments(tree["m"]), "v": moments(tree["v"])}
+
+
+def _oriented(t: torch.Tensor, transposed: bool, shape) -> torch.Tensor:
+    """A leaf in the reference's layout turned into the port's."""
+    t = t.T.contiguous() if transposed else t
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"a leaf of shape {tuple(t.shape)} for a tensor of {tuple(shape)}")
+    return t
+
+
+def train_state_leaves(params, opt_state: dict) -> list[tuple[torch.Tensor, bool]]:
+    """``[(tensor, transposed)]`` of ``(params, opt_state)`` in the order
+    the reference's ``CheckpointStore`` stores the pair: the parameters,
+    then ``count``, then ``m`` and ``v`` in the parameters' order."""
+    leaves = param_leaves(params)
+    flags = [tr for _, _, tr in leaves]
+    return ([(t, tr) for _, t, tr in leaves] + [(opt_state["count"], False)]
+            + list(zip(opt_state["m"], flags)) + list(zip(opt_state["v"], flags)))
+
+
+@torch.no_grad()
+def fill_train_state_(params, opt_state: dict, arrays: list) -> None:
+    """Copy ``arrays`` (numpy, in :func:`train_state_leaves` order and the
+    reference's layout) into ``(params, opt_state)``'s tensors in place."""
+    leaves = train_state_leaves(params, opt_state)
+    if len(arrays) != len(leaves):
+        raise ValueError(f"{len(arrays)} leaves for a state of {len(leaves)}")
+    for (t, tr), arr in zip(leaves, arrays):
+        t.copy_(_oriented(_to_tensor(np.asarray(arr), t, t.device), tr, t.shape))

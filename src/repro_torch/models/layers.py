@@ -1,5 +1,7 @@
-"""Parameter initialisers shared by the models (the initialisers of the
-reference's ``models/layers.py``).
+"""Layers shared by the models (the reference's ``models/layers.py``):
+the initialisers, ``ParamTree`` (parameters under the reference's tree
+names), the norms and the SwiGLU MLP.  Rotary embeddings, attention and
+MoE wait for the LM models.
 
 ``dense_init`` and ``embed_init`` draw from an explicit ``torch.Generator``
 on an explicit device, as the reference's draw from an explicit PRNG key:
@@ -13,6 +15,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch import nn
 
 _M32 = 0xFFFFFFFF
 # standard deviation of the sum of four uniform 16-bit integers
@@ -73,3 +76,71 @@ def counter_normal(seed: int, stream: int, n_rows: int, dim: int, *, scale: floa
         s = (h1 & 0xFFFF) + (h1 >> 16) + (h2 & 0xFFFF) + (h2 >> 16) - _SUM4_MEAN
         out[r0:r0 + rows.shape[0]] = (s.to(torch.float32) * c).to(dtype)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Parameter trees
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1.0e30
+
+
+class ParamTree(nn.Module):
+    """Parameters held under the reference's tree names: a dict's tensors
+    become parameters, its dicts sub-modules and its lists
+    ``nn.ModuleList``s, so ``named_parameters`` gives the reference's
+    paths (``"mlp.0.w"``).  ``tree["name"]`` reads an entry as the
+    reference reads its dict, so one function body serves this module and
+    a plain dict of tensors."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for name, v in tree.items():
+            if isinstance(v, torch.Tensor):
+                self.register_parameter(name, nn.Parameter(v))
+            elif isinstance(v, dict):
+                self.add_module(name, ParamTree(v))
+            else:
+                self.add_module(name, nn.ModuleList(ParamTree(x) for x in v))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * scale.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU)
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype, *, device) -> dict:
+    """``{"wi_gate", "wi_up", "wo"}``, each from ``dense_init``."""
+    return {
+        "wi_gate": dense_init(gen, d_model, d_ff, dtype, device=device),
+        "wi_up": dense_init(gen, d_model, d_ff, dtype, device=device),
+        "wo": dense_init(gen, d_ff, d_model, dtype, device=device),
+    }
+
+
+def mlp(params, x: torch.Tensor) -> torch.Tensor:
+    gate = torch.nn.functional.silu(x @ params["wi_gate"])
+    up = x @ params["wi_up"]
+    return (gate * up) @ params["wo"]

@@ -63,9 +63,10 @@ class IndexedRetriever:
         self.index = SPFreshIndex.build(self.index_cfg, embs, device=self.device)
         self._id_map = np.asarray(item_ids)
 
+    @torch.no_grad()
     def _embed(self, item_ids, batch: int = 4096) -> torch.Tensor:
         """Item embeddings ``(N, D)`` f32 on the device, ``batch`` items a
-        tower call."""
+        tower call (no graph: the towers serve here)."""
         ids = torch.as_tensor(np.asarray(item_ids)).to(self.device)
         return torch.cat([self.params.item_tower(ids[s:s + batch]).float()
                           for s in range(0, ids.shape[0], batch)])
@@ -73,6 +74,7 @@ class IndexedRetriever:
     def embed_items(self, item_ids: np.ndarray, batch: int = 4096) -> np.ndarray:
         return self._embed(item_ids, batch).cpu().numpy()
 
+    @torch.no_grad()
     def _users(self, user_fields) -> torch.Tensor:
         return self.params.user_tower(torch.as_tensor(np.asarray(user_fields))).float()
 

@@ -24,7 +24,9 @@ which is the JAX package's flatten order of the same state, so either
 package reads the other's snapshots.  A bfloat16 leaf is stored as numpy
 writes the JAX package's: its 2-byte bit pattern as a ``|V2`` void, never
 converted numerically.  Leaves are found by their dotted names
-(``pool.dirty``, ``pool.post_scale``, ``telemetry.*``).
+(``pool.dirty``, ``pool.post_scale``, ``telemetry.*``).  A legacy
+snapshot also takes a plain list of tensors, stored in list order (the
+training checkpoints of ``train/checkpoint.py``).
 
 A state is read into numpy arrays and then filled straight onto the
 device (``convert.fill_state``): the template passed to a load gives only
@@ -203,6 +205,15 @@ def _assemble(template: Any, leaves_np: list[np.ndarray], device) -> Any:
 # Legacy full snapshots (format 1)
 # ---------------------------------------------------------------------------
 
+def _leaf_list(state: Any) -> list[torch.Tensor]:
+    """A state's leaves in leaf order: a list of tensors as it is (a
+    training checkpoint's, already in the reference's order), else the
+    state dataclass's ``tensor_leaves``."""
+    if isinstance(state, list):
+        return state
+    return list(tensor_leaves(state).values())
+
+
 def save_snapshot(path: str, state: Any, *, step: int = 0, extra: dict | None = None) -> None:
     """Crash-safe commit: write to a temp dir, rotate the previous
     snapshot aside (``path + ".old"``), rename the new one in, then drop
@@ -211,7 +222,7 @@ def save_snapshot(path: str, state: Any, *, step: int = 0, extra: dict | None = 
     ``snapshot_exists`` resolve the fallback — so a checkpoint can never
     destroy the only recovery point (the WAL is truncated strictly after
     this function returns)."""
-    leaves = list(tensor_leaves(state).values())
+    leaves = _leaf_list(state)
     arrays = {f"leaf_{i}": to_numpy(x) for i, x in enumerate(leaves)}
     parent = os.path.dirname(os.path.abspath(path)) or "."
     os.makedirs(parent, exist_ok=True)
@@ -280,10 +291,12 @@ def _migrate_leaves(raw: list[np.ndarray], template: Any) -> list[np.ndarray]:
     1 (dirty), 2 (codec), 3 (telemetry), 4 (dirty+tel), 5 (tel+codec), or
     6 (dirty+tel+codec).  A delta CHAIN folds in its own (old) leaf
     coordinates first and migrates once at the end."""
-    tmpl_leaves = list(tensor_leaves(template).values())
+    tmpl_leaves = _leaf_list(template)
     n_leaves = len(raw)
     if n_leaves == len(tmpl_leaves):
         return raw
+    if isinstance(template, list):
+        raise ValueError(f"snapshot has {n_leaves} leaves, template has {len(tmpl_leaves)}")
     dirty_at = _dirty_leaf_index(template)
     tel_at = _telemetry_leaf_indices(template)
     codec_at = _codec_leaf_indices(template)

@@ -67,14 +67,18 @@ def test_the_boundary_covers_the_serving_layer_and_grouping():
     for mod in ("serve/__init__.py", "serve/engine.py", "serve/queue.py", "serve/policy.py",
                 "serve/ownership.py", "storage/durability.py", "core/grouping.py",
                 "serve/retrieval.py", "models/recsys.py", "models/layers.py",
-                "configs/two_tower_retrieval.py"):
+                "configs/two_tower_retrieval.py", "configs/common.py", "configs/deepfm.py",
+                "configs/bert4rec.py", "configs/mind.py", "train/optimizer.py",
+                "train/trainer.py", "train/checkpoint.py", "launch/train.py"):
         assert mod in names, mod
 
 
 @pytest.mark.parametrize("entry", ["SPFreshIndex.build", "build_state", "make_empty_state",
                                    "group_index_from_numpy", "twotower_init",
                                    "twotower_init_counter", "twotower_params_from_numpy",
-                                   "IndexedRetriever"])
+                                   "IndexedRetriever", "deepfm_init", "bert4rec_init",
+                                   "mind_init", "mind_params_from_numpy", "make_smoke_inputs",
+                                   "Trainer", "adamw_state_from_numpy"])
 def test_entry_points_default_to_the_card(entry):
     """Without ``device=`` an entry point runs on CUDA; on a machine with
     no card it raises rather than falling back to the CPU."""
@@ -91,8 +95,15 @@ def test_entry_points_default_to_the_card(entry):
     from repro_torch import convert
     from repro_torch.configs.two_tower_retrieval import SMOKE
     from repro_torch.models import recsys
+    from repro_torch.configs import get_cell
+    from repro_torch.configs.bert4rec import SMOKE as B4
+    from repro_torch.configs.deepfm import SMOKE as DF
+    from repro_torch.configs.mind import SMOKE as MI
     from repro_torch.serve.retrieval import IndexedRetriever
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.trainer import Trainer, TrainerConfig
 
+    mind_cpu = recsys.mind_init(torch.Generator().manual_seed(0), MI, device="cpu")
     tower = recsys.twotower_init(torch.Generator().manual_seed(0), SMOKE, device="cpu")
     icfg = dataclasses.replace(cfg, dim=SMOKE.tower_dims[-1])
     call = {
@@ -105,6 +116,17 @@ def test_entry_points_default_to_the_card(entry):
         "build_state": lambda: build_state(cfg, x),
         "make_empty_state": lambda: make_empty_state(cfg),
         "group_index_from_numpy": lambda: group_index_from_numpy(leaves).members,
+        "deepfm_init": lambda: recsys.deepfm_init(torch.Generator(), DF).embed,
+        "bert4rec_init": lambda: recsys.bert4rec_init(torch.Generator(), B4).item_embed,
+        "mind_init": lambda: recsys.mind_init(torch.Generator(), MI).item_embed,
+        "mind_params_from_numpy": lambda: convert.mind_params_from_numpy(
+            convert.params_to_numpy(mind_cpu), MI).item_embed,
+        "make_smoke_inputs": lambda: get_cell("deepfm", "train_batch").make_smoke_inputs(
+            DF, np.random.default_rng(0))[2]["fields"],
+        "Trainer": lambda: Trainer(loss_fn=None, init_params_fn=None, batch_fn=None,
+                                   opt_cfg=AdamWConfig(), trainer_cfg=TrainerConfig()),
+        "adamw_state_from_numpy": lambda: convert.adamw_state_from_numpy(
+            convert.adamw_state_to_numpy(adamw_init(mind_cpu), mind_cpu), mind_cpu)["count"],
     }[entry]
     if torch.cuda.is_available():
         assert call().device.type == "cuda"

@@ -6,7 +6,9 @@ that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import copy
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -20,6 +22,10 @@ from repro_torch.kernels.posting_scan import kernel as SK
 from repro_torch.utils.tree import map_tensors
 
 pytestmark = pytest.mark.cuda
+
+# cuBLAS is deterministic under torch.use_deterministic_algorithms only with
+# a fixed workspace, read when CUDA starts (the training restart below)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 BIG = 3.0e38
 
@@ -980,3 +986,112 @@ def test_launcher_launches_or_refuses_as_the_mirror_predicts(card, entry, form, 
     with pytest.raises(RuntimeError, match=r"CUDA error 1$"):
         run()
     assert sum(LK.LAUNCHES.values()) + sum(SK.LAUNCHES.values()) == before
+
+
+# ---------------------------------------------------------------------------
+# The recsys training path: each family's smoke step on the card against
+# the CPU's, the MIND restart under deterministic algorithms, the ragged bag
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCHS = ["two-tower-retrieval", "deepfm", "bert4rec", "mind"]
+
+
+def _train_inputs(arch, device):
+    """A train cell's smoke inputs on the CPU and a copy on ``device``."""
+    from repro_torch.configs import get_cell
+    from repro_torch.train.optimizer import adamw_init
+
+    cell = get_cell(arch, "train_batch")
+    params, opt, batch = cell.make_smoke_inputs(cell.smoke_cfg, np.random.default_rng(0),
+                                                device="cpu")
+    gpu = copy.deepcopy(params).to(device)
+    return cell, (params, opt, batch), (gpu, adamw_init(gpu),
+                                        {k: v.to(device) for k, v in batch.items()})
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_on_the_card_matches_the_cpu(card, arch):
+    """Three smoke steps: the loss at 1e-5 relative, ``grad_norm`` at 1e-4,
+    ``lr`` and ``count`` exact, every parameter and moment at rtol 1e-4,
+    atol 1e-5 (TF32 off: the card sums in f32, in its own order)."""
+    from repro_torch.convert import train_state_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cell, cpu, gpu = _train_inputs(arch, card)
+    for _ in range(3):
+        *cpu_state, mc = cell.smoke_step_fn(*cpu)
+        *gpu_state, mg = cell.smoke_step_fn(*gpu)
+        np.testing.assert_allclose(float(mg["loss"]), float(mc["loss"]), rtol=1e-5)
+        np.testing.assert_allclose(float(mg["grad_norm"]), float(mc["grad_norm"]), rtol=1e-4)
+        assert float(mg["lr"]) == float(mc["lr"])
+    for (a, _), (b, _) in zip(train_state_leaves(*cpu[:2]), train_state_leaves(*gpu[:2])):
+        assert b.device.type == card.type
+        np.testing.assert_allclose(b.detach().cpu().numpy(), a.detach().numpy(), rtol=1e-4,
+                                   atol=1e-5)
+
+
+def test_mind_restart_on_the_card_is_bit_identical(card, tmp_path):
+    """Six steps in one run against three, a checkpoint, a fresh Trainer
+    restoring it and three more, all under deterministic algorithms."""
+    from repro_torch.configs import get_cell
+    from repro_torch.configs.common import OPT
+    from repro_torch.convert import train_state_leaves
+    from repro_torch.models import recsys as R
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cell = get_cell("mind", "train_batch")
+    cfg = cell.smoke_cfg
+
+    def trainer(ckpt):
+        return Trainer(
+            loss_fn=lambda p, b: R.mind_loss(p, b, cfg),
+            init_params_fn=lambda: R.mind_init(torch.Generator(device="cuda").manual_seed(0),
+                                               cfg, device=card),
+            batch_fn=lambda s: cell.make_smoke_inputs(cfg, np.random.default_rng(s),
+                                                      device=card)[-1],
+            opt_cfg=OPT, trainer_cfg=TrainerConfig(total_steps=6, checkpoint_every=3),
+            ckpt_dir=ckpt, device=card)
+
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        a = trainer(None)
+        a.run()
+        trainer(str(tmp_path)).run(steps=3)
+        b = trainer(str(tmp_path))
+        b.run()
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    assert a.step == b.step == 6
+    for (x, _), (y, _) in zip(train_state_leaves(a.params, a.opt_state),
+                              train_state_leaves(b.params, b.opt_state)):
+        assert torch.equal(x, y)
+
+
+def test_embedding_bag_ragged_on_the_card_matches_the_cpu(card):
+    """The card's sum equals the CPU's and is the same bits run to run
+    under deterministic algorithms; its gradient too."""
+    from repro_torch.models.recsys import embedding_bag_ragged
+
+    gen = torch.Generator().manual_seed(0)
+    table = torch.randn(5000, 64, generator=gen)
+    flat = torch.randint(-1, 5000, (200_000,), generator=gen)
+    seg = torch.randint(0, 1030, (200_000,), generator=gen)       # some past n_segments
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        outs = []
+        for _ in range(2):
+            t = table.to(card).requires_grad_(True)
+            out = embedding_bag_ragged(t, flat.to(card), seg.to(card), 1024, combiner="mean")
+            (g,) = torch.autograd.grad(out.square().sum(), t)
+            outs.append((out.detach(), g))
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    t = table.clone().requires_grad_(True)
+    want = embedding_bag_ragged(t, flat, seg, 1024, combiner="mean")
+    (wg,) = torch.autograd.grad(want.square().sum(), t)
+    np.testing.assert_allclose(outs[0][0].cpu().numpy(), want.detach().numpy(), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(outs[0][1].cpu().numpy(), wg.numpy(), rtol=1e-5, atol=1e-5)

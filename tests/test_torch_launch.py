@@ -5,10 +5,20 @@ lines it prints: the per-epoch table, then the engine report (policy and
 slots, the queue, the replicas when there are any, durability, latency
 percentiles).  Cases: a single index, 2 shards, 2 shards × 2 copies, and
 a durable service reopened with ``--recover``.
+
+The training launcher (``repro_torch.launch.train``) trains each ported
+arch 3 steps on the CPU with ``--ckpt`` and a second run resumes from the
+saved step; an arch that is not ported exits naming ``ROADMAP.md``.
 """
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import pytest
 
 from repro_torch.launch import serve
+from repro_torch.launch import train
 
 COMMON = ["--n", "2000", "--epochs", "2", "--device", "cpu"]
 
@@ -66,3 +76,41 @@ def test_launcher_durable_then_recover(capsys, tmp_path):
     assert report(lines, "durability: recovered=True")
     with pytest.raises(SystemExit):
         serve.main(COMMON + ["--recover"])
+
+
+@pytest.mark.parametrize("arch", ["two-tower-retrieval", "deepfm", "bert4rec", "mind"])
+def test_train_launcher_trains_and_resumes(capsys, tmp_path, arch):
+    ckpt = str(tmp_path / "ck")
+    train.main(["--arch", arch, "--steps", "3", "--device", "cpu", "--ckpt", ckpt,
+                "--log-every", "1"])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == f"training {arch}/train_batch (smoke-scale config on cpu)"
+    assert [line.split()[1] for line in lines if line.startswith("step")] == ["0", "1", "2"]
+    assert lines[-1] == "done" and sorted(os.listdir(ckpt)) == ["step_3"]
+    train.main(["--arch", arch, "--steps", "5", "--device", "cpu", "--ckpt", ckpt,
+                "--log-every", "1"])
+    lines = capsys.readouterr().out.splitlines()
+    assert "resumed from step 3" in lines
+    assert [line.split()[1] for line in lines if line.startswith("step")] == ["3", "4"]
+    assert sorted(os.listdir(ckpt)) == ["step_3", "step_5"]
+
+
+def test_train_launcher_refuses_an_arch_not_ported():
+    with pytest.raises(SystemExit, match="ROADMAP.md"):
+        train.main(["--arch", "gat-cora", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="no train cell"):
+        train.main(["--arch", "mind", "--shape", "serve_p99", "--device", "cpu"])
+
+
+def test_train_launcher_runs_as_a_module():
+    repo = Path(__file__).resolve().parents[1]
+    env = {**os.environ, "PYTHONPATH": str(repo / "src")}
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch", "deepfm",
+                           "--steps", "2", "--device", "cpu"], capture_output=True, text=True,
+                          env=env, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.splitlines()[-1] == "done"
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                           "qwen1.5-110b", "--device", "cpu"], capture_output=True, text=True,
+                          env=env, timeout=300)
+    assert proc.returncode != 0 and "ROADMAP.md queue 1" in proc.stderr

@@ -167,3 +167,236 @@ def test_serving_configs_mirror_the_reference():
     from repro.configs.two_tower_retrieval import _ann_index_cfg
     ref, port = dataclasses.asdict(_ann_index_cfg()), dataclasses.asdict(TC.ann_index_cfg())
     assert ref == port
+
+
+# ---------------------------------------------------------------------------
+# The training families: losses, forwards and gradients against the
+# reference's on its converted params.  f32 at rtol = atol = 1e-5;
+# gradients against jax.grad at rtol 1e-4, atol 1e-6.
+# ---------------------------------------------------------------------------
+
+from repro.configs import bert4rec as RB4  # noqa: E402
+from repro.configs import deepfm as RDF  # noqa: E402
+from repro.configs import mind as RMI  # noqa: E402
+from repro_torch.configs import bert4rec as TB4  # noqa: E402
+from repro_torch.configs import deepfm as TDF  # noqa: E402
+from repro_torch.configs import mind as TMI  # noqa: E402
+from repro_torch.train.optimizer import value_and_grad  # noqa: E402
+
+F32 = dict(rtol=1e-5, atol=1e-5)
+GRAD = dict(rtol=1e-4, atol=1e-6)
+
+
+def _batch_deepfm(cfg, rng, b=24):
+    fields = rng.integers(-3, cfg.vocab_per_field + 3, size=(b, cfg.n_fields))
+    return {"fields": fields.astype(np.int32),
+            "labels": rng.integers(0, 2, size=b).astype(np.int32)}
+
+
+def _batch_twotower(cfg, rng, b=24):
+    users, items = _ids(cfg, rng, b)
+    return {"user_fields": users, "item_ids": items,
+            "item_logq": rng.normal(size=b).astype(np.float32)}
+
+
+def _batch_bert4rec(cfg, rng, b=6, m=3):
+    items = rng.integers(0, cfg.n_items, size=(b, cfg.seq_len)).astype(np.int32)
+    items[0, -3:] = -1                                 # padding at the end
+    items[1, 2] = -1                                   # and mid-sequence
+    pos = np.stack([rng.choice(cfg.seq_len, size=m, replace=False) for _ in range(b)])
+    labels = items[np.arange(b)[:, None], pos].copy()
+    labels[2, 1] = -1                                  # an ignored slot
+    items[np.arange(b)[:, None], pos] = cfg.mask_id
+    return {"items": items, "mask_pos": pos.astype(np.int32),
+            "mask_label": labels.astype(np.int32)}
+
+
+def _batch_mind(cfg, rng, b=12):
+    items = rng.integers(0, cfg.n_items, size=(b, cfg.seq_len)).astype(np.int32)
+    items[0, 4:] = -1
+    items[3, 1] = -1
+    return {"items": items, "target": rng.integers(0, cfg.n_items, size=b).astype(np.int32)}
+
+
+# name: (port smoke config, reference init, port from_numpy, losses (ref, port), batch)
+FAMILIES = {
+    "deepfm": (TDF.SMOKE, R.deepfm_init, convert.deepfm_params_from_numpy,
+               (R.deepfm_loss, T.deepfm_loss), _batch_deepfm),
+    "two-tower": (TC.SMOKE, R.twotower_init, convert.twotower_params_from_numpy,
+                  (R.twotower_loss, T.twotower_loss), _batch_twotower),
+    "bert4rec": (TB4.SMOKE, R.bert4rec_init, convert.bert4rec_params_from_numpy,
+                 (R.bert4rec_loss, T.bert4rec_loss), _batch_bert4rec),
+    "mind": (TMI.SMOKE, R.mind_init, convert.mind_params_from_numpy,
+             (R.mind_loss, T.mind_loss), _batch_mind),
+}
+REF_CFG = {"deepfm": R.DeepFMConfig, "two-tower": R.TwoTowerConfig,
+           "bert4rec": R.Bert4RecConfig, "mind": R.MINDConfig}
+_JIT: dict = {}
+
+
+def ref_jit(fn, *, grad=False):
+    """``fn`` (and its gradient) compiled once, the config static."""
+    key = (fn, grad)
+    if key not in _JIT:
+        f = jax.grad(lambda p, b, c: fn(p, b, c)[0]) if grad else fn
+        _JIT[key] = jax.jit(f, static_argnums=2)
+    return _JIT[key]
+
+
+def family(name, seed=0):
+    """``(port cfg, ref cfg, ref params (numpy tree), port model on the
+    CPU, numpy batch)``."""
+    cfg, init, from_np, _, make = FAMILIES[name]
+    rcfg = REF_CFG[name](**dataclasses.asdict(cfg))
+    tree = _np(init(jax.random.PRNGKey(seed), rcfg))
+    return cfg, rcfg, tree, from_np(tree, cfg, device="cpu"), make(cfg, np.random.default_rng(seed))
+
+
+def _t(batch):
+    return {k: torch.as_tensor(v) for k, v in batch.items()}
+
+
+def _j(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("name", list(FAMILIES))
+def test_losses_and_gradients_match_the_reference(name):
+    cfg, rcfg, tree, model, batch = family(name)
+    r_loss, t_loss = FAMILIES[name][3]
+    rl, rm = ref_jit(r_loss)(tree, _j(batch), rcfg)
+    (tl, tm), grads = value_and_grad(lambda p, b: t_loss(p, b, cfg), model, _t(batch))
+    np.testing.assert_allclose(float(tl), float(rl), **F32)
+    assert set(tm) == set(rm)
+    rg = jax.tree_util.tree_leaves(ref_jit(r_loss, grad=True)(tree, _j(batch), rcfg))
+    leaves = convert.param_leaves(model)
+    assert len(rg) == len(grads) == len(leaves)
+    for (path, p, tr), g, r in zip(leaves, grads, rg):
+        g = (g.T if tr else g).numpy()
+        assert g.shape == r.shape, path
+        np.testing.assert_allclose(g, np.asarray(r), err_msg=str(path), **GRAD)
+    assert any(np.abs(np.asarray(r)).max() > 0 for r in rg)
+
+
+def test_forward_and_serving_functions_match_the_reference():
+    cfg, rcfg, tree, model, batch = family("deepfm")
+    np.testing.assert_allclose(T.deepfm_forward(model, _t(batch), cfg).detach().numpy(),
+                               ref_jit(R.deepfm_forward)(tree, _j(batch), rcfg), **F32)
+    cfg, rcfg, tree, model, batch = family("bert4rec")
+    items = {"items": batch["items"]}
+    np.testing.assert_allclose(T.bert4rec_encode(model, torch.as_tensor(batch["items"]),
+                                                 cfg).detach().numpy(),
+                               ref_jit(R.bert4rec_encode)(tree, jnp.asarray(batch["items"]),
+                                                          rcfg), **F32)
+    ts = T.bert4rec_score(model, _t(items), cfg)
+    assert ts.dtype == torch.float32 and not ts.requires_grad
+    np.testing.assert_allclose(ts.numpy(), ref_jit(R.bert4rec_score)(tree, _j(items), rcfg),
+                               **F32)
+    cfg, rcfg, tree, model, batch = family("mind")
+    items = {"items": batch["items"]}
+    caps = T.mind_serve(model, _t(items), cfg)
+    assert tuple(caps.shape) == (batch["items"].shape[0], cfg.n_interests, cfg.embed_dim)
+    np.testing.assert_allclose(caps.numpy(), ref_jit(R.mind_serve)(tree, _j(items), rcfg), **F32)
+    np.testing.assert_allclose(
+        T.mind_interests(model, torch.as_tensor(batch["items"]), cfg).detach().numpy(),
+        ref_jit(R.mind_interests)(tree, jnp.asarray(batch["items"]), rcfg), **F32)
+
+
+def _bags(rng):
+    table = rng.normal(size=(40, 8)).astype(np.float32)
+    ids = rng.integers(-1, 40, size=(5, 4)).astype(np.int32)
+    ids[2] = -1                                        # an empty bag
+    flat = rng.integers(-1, 40, size=23).astype(np.int32)
+    seg = rng.integers(0, 7, size=23).astype(np.int32)  # unsorted; 6 and 7 out of range
+    seg[:3] = [-2, 9, 6]
+    return table, ids, flat, seg
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+def test_bag_lookups_and_their_gradients_match_the_reference(combiner):
+    table, ids, flat, seg = _bags(np.random.default_rng(1))
+    n_seg = 6
+    ref_fixed = jax.jit(lambda t, i: R.bag_lookup(t, i, combiner=combiner))
+    ref_ragged = jax.jit(lambda t, f, s: R.embedding_bag_ragged(t, f, s, n_seg,
+                                                                combiner=combiner))
+    tt = torch.tensor(table, requires_grad=True)
+    got = T.bag_lookup(tt, torch.as_tensor(ids), combiner=combiner)
+    np.testing.assert_allclose(got.detach().numpy(), ref_fixed(table, ids), **F32)
+    (g,) = torch.autograd.grad(got.square().sum(), tt)
+    rg = jax.grad(lambda t: jnp.sum(jnp.square(ref_fixed(t, ids))))(table)
+    np.testing.assert_allclose(g.numpy(), rg, **GRAD)
+    got = T.embedding_bag_ragged(tt, torch.as_tensor(flat), torch.as_tensor(seg), n_seg,
+                                 combiner=combiner)
+    assert tuple(got.shape) == (n_seg, 8)
+    np.testing.assert_allclose(got.detach().numpy(), ref_ragged(table, flat, seg), **F32)
+    (g,) = torch.autograd.grad(got.square().sum(), tt)
+    rg = jax.grad(lambda t: jnp.sum(jnp.square(ref_ragged(t, flat, seg))))(table)
+    np.testing.assert_allclose(g.numpy(), rg, **GRAD)
+
+
+@pytest.mark.parametrize("name", ["deepfm", "bert4rec", "mind"])
+def test_family_param_conversion_round_trips(name):
+    """reference → port → reference is bit-equal, in the reference's leaf
+    order, each ``w`` ``(in, out)``."""
+    cfg, _, tree, model, _ = family(name)
+    back = convert.params_to_numpy(model)
+    flat_a, tdef_a = jax.tree_util.tree_flatten(tree)
+    flat_b, tdef_b = jax.tree_util.tree_flatten(back)
+    assert tdef_a == tdef_b
+    for a, b in zip(flat_a, flat_b):
+        np.testing.assert_array_equal(a, b)
+    assert [p for p, _ in convert.tree_paths(tree)] == [p for p, _, _ in
+                                                       convert.param_leaves(model)]
+
+
+def test_the_port_inits_have_the_reference_shapes():
+    inits = {"deepfm": T.deepfm_init, "bert4rec": T.bert4rec_init, "mind": T.mind_init}
+    for name, init in inits.items():
+        _, _, tree, _, _ = family(name)
+        a = convert.params_to_numpy(init(torch.Generator().manual_seed(1), FAMILIES[name][0],
+                                         device="cpu"))
+        ref = jax.tree_util.tree_flatten(tree)
+        got = jax.tree_util.tree_flatten(a)
+        assert got[1] == ref[1], name
+        for x, r in zip(got[0], ref[0]):
+            assert x.shape == r.shape and x.dtype == r.dtype, name
+
+
+def test_towers_train_and_serving_stays_grad_free():
+    """``TwoTower``'s parameters take gradients through the methods; the
+    reference-named serving functions build no graph."""
+    model = convert.twotower_params_from_numpy(_np(_ref_params(TC.SMOKE)), TC.SMOKE,
+                                               device="cpu")
+    assert all(p.requires_grad for p in model.parameters())
+    users, items = _ids(TC.SMOKE, np.random.default_rng(2))
+    assert model.user_tower(torch.as_tensor(users)).requires_grad
+    for out in (T.user_tower(model, torch.as_tensor(users)),
+                T.item_tower(model, torch.as_tensor(items)),
+                T.twotower_score_pairs(model, {"user_fields": torch.as_tensor(users),
+                                               "item_ids": torch.as_tensor(items)}),
+                T.twotower_retrieval(model, {"user_fields": torch.as_tensor(users),
+                                             "candidate_ids": torch.as_tensor(items)})):
+        assert not out.requires_grad
+
+
+def test_layers_match_the_reference():
+    """``rms_norm``, ``layer_norm`` and the SwiGLU ``mlp`` (on the
+    reference's ``init_mlp`` params) at f32 rtol = atol = 1e-5."""
+    from repro.models import layers as RL
+
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(3, 5, 24)).astype(np.float32) * 3
+    scale, bias = (rng.normal(size=24).astype(np.float32) for _ in range(2))
+    tx = torch.as_tensor(x)
+    np.testing.assert_allclose(TL.rms_norm(tx, torch.as_tensor(scale)).numpy(),
+                               RL.rms_norm(jnp.asarray(x), jnp.asarray(scale)), **F32)
+    np.testing.assert_allclose(
+        TL.layer_norm(tx, torch.as_tensor(scale), torch.as_tensor(bias)).numpy(),
+        RL.layer_norm(jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias)), **F32)
+    tree = _np(RL.init_mlp(jax.random.PRNGKey(0), 24, 40, jnp.float32))
+    params = TL.ParamTree({k: torch.tensor(v) for k, v in tree.items()})
+    np.testing.assert_allclose(TL.mlp(params, tx).detach().numpy(),
+                               RL.mlp(tree, jnp.asarray(x)), **F32)
+    port = TL.init_mlp(torch.Generator().manual_seed(0), 24, 40, torch.float32, device="cpu")
+    assert {k: tuple(v.shape) for k, v in port.items()} == {k: v.shape for k, v in tree.items()}
+    assert TL.NEG_INF == RL.NEG_INF
