@@ -94,7 +94,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
    schedule and nprobe must equal the host merge of the four shards' own
    searches and reach the reference's sharded recall minus 0.05, a dead
    shard must leak no handle, and one ``search_begin`` over the four
-   shards must issue no host sync; 16 of the serve path's request steps
+   shards must issue no host sync; 8 of the serve path's request steps
    (deletes by handle; the engine's slots work the build's backlog down)
    must land every insert, replay on a clone bit for bit on every shard
    and leave the synced replica bit-identical; a crash recovers every
@@ -112,10 +112,11 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
    run): recall of ``retrieve`` against ``retrieve_bruteforce`` under both
    schedules, at least the reference's at that size minus 0.05, and the
    kernel path's ids against the gather oracle's on the same state.  Then
-   ``RETRIEVAL_N`` items: ANN and brute-force p50 at Q=1 and Q=1,024,
-   where a lookup's time goes, recall (no floor at this size) and the
-   oracle check again, 16,384 items added (every one must find itself)
-   and 4,096 removed (none may come back), then the engine through a
+   on the same corpus (``RETRIEVAL_N`` items; a larger one would be built
+   anew): ANN and brute-force p50 at Q=1 and Q=1,024, where a lookup's
+   time goes, recall and the oracle check again, ``RETRIEVAL_ADD`` items
+   added (every one must find itself) and ``RETRIEVAL_REMOVE`` removed
+   (none may come back), then the engine through a
    ``ServiceSpec``: 8 bursts of 1,024 users with churn, ``drain()``,
    ``report()``.
    A ninth, ``train``, frees the earlier state and trains each recsys
@@ -138,8 +139,24 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
    against 3, a checkpoint under a temporary root in ``build/``, a fresh
    ``Trainer`` restoring it and 3 more; every leaf of the parameters and
    the optimiser state must be equal.
+   A tenth, ``lm``, frees the earlier state and serves the LM family at
+   published widths and depths in bf16, params made on the card from the
+   seed (``repro_torch.models.transformer`` through the cells' steps):
+   granite-moe-1b-a400m (GQA, 32 experts top-8, a padded vocab) prefills
+   ``LM_PREFILL`` (two prefills bit-identical; layer 0 split by CUDA events
+   into attention, MoE and the rest; the attention timed against
+   ``scaled_dot_product_attention`` at the same shapes, timed only) and
+   decodes ``LM_DECODE_STEPS`` steps on the ``decode_32k`` cell's zero
+   cache at ``pos = seq // 2`` (one step under
+   ``set_sync_debug_mode("error")``; only the decoded positions written);
+   deepseek-7b decodes token 1,024 on its prefill's cache, held against a
+   prefill over 1,025 tokens within ``LM_CONSIST_REL`` of max |logits|
+   (bf16); then both cut to 2 layers in f32, on the card against the CPU
+   on the same params and prompt (``LM_CPU_REL``; the MoE's gate_idx equal
+   but at near-ties).  It prints prefill tokens/s, decode ms a step and
+   tokens/s, peak memory, and reaches no kernel of the table.
    The launch counts are reset before each path and read after it, and
-   every kernel of the path must have launched.
+   every kernel of the path must have launched (the ``lm`` path none).
 4. Prints the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
 
@@ -958,8 +975,8 @@ def phase_scan_q8(torch, gen, results, blocks):
                                                                     q8=True)
 
 
-# The retrieval path's scan geometry (configs/two_tower_retrieval.py
-# ann_index_cfg at its capacities x RETRIEVAL_SCALE = 16): d=256, bf16
+# The retrieval path's scan geometry at 524,288 items (configs/
+# two_tower_retrieval.py ann_index_cfg at its capacities x 16): d=256, bf16
 # pages of BS=32 in a 65,536-block pool, nprobe 16 (64 pages a query, #4),
 # navigation over 32,768 centroid slots; a batch of Q=1,024 users; #6 and
 # #3 over a 32,768-page budget, as the d=100 rows.
@@ -1398,6 +1415,7 @@ PATH_KERNELS = {
     "sharded": ("l2_topk_tiles", "scan_batched_topk", "scan_per_query_topk"),
     "retrieval": ("l2_topk_tiles", "scan_per_query_topk", "scan_batched_topk"),
     "train": ("l2_topk_tiles", "scan_per_query_topk"),
+    "lm": (),                       # the LM path reaches no kernel of the table
 }
 
 
@@ -2521,7 +2539,9 @@ def durable_path(torch, np, seed, report, *, cfg=None, device="cuda", n=None,
 
 SHARDS = 4
 REPLICAS = 2
-SHARDED_STEPS = 16
+# request steps and async operations a thread: cut from 16 and 40 with the lm
+# path, for the smoke's time budget (PERF.md section 4)
+SHARDED_STEPS = 8
 SHARDED_GROUP_COMMIT = 8
 # The build's backlog is not drained first (a sharded round is four rounds
 # of host dispatch): the engine's slots work it down, each a round of
@@ -2532,7 +2552,7 @@ SHARDED_GROUP_COMMIT = 8
 SHARDED_BUDGET = 128
 SHARDED_RETRIES = 32
 SHARDED_THREADS = 4
-SHARDED_OPS = 40
+SHARDED_OPS = 20
 SHARDED_ROWS = 32
 SHARDED_WINDOW = 4
 SEARCH_REPS = 5
@@ -2993,20 +3013,21 @@ def sharded_path(torch, np, seed, report, *, cfg=None, device="cuda", n=None,
 # the retrieval path: two-tower retrieval served by the index
 # ---------------------------------------------------------------------------
 
-# The corpus: item ids 0..RETRIEVAL_N-1, embedded at SERVE_CONFIG's full
-# width, in an index of the reference's ann_index_cfg with its three
-# capacities times RETRIEVAL_SCALE.  retrieval_cand has 1,000,000
-# candidates (the reference's configs/common.py:346); the path takes
-# 524,288 (capacities x 16), the cut that keeps the whole smoke near its
-# budget (PERF.md section 4).
-RETRIEVAL_N = 524_288
-RETRIEVAL_SCALE = 16
 # The recall floor's corpus: the largest the reference's CPU run builds
 # (scripts/reference_recall.py, cell "retrieval", about 50 minutes on 8
 # CPU cores), capacities x 8.  Recall falls as N grows, so the floor holds
 # at this size only.
 RETRIEVAL_FLOOR_N = 262_144
 RETRIEVAL_FLOOR_SCALE = 8
+# The corpus the rest of the path serves: item ids 0..RETRIEVAL_N-1,
+# embedded at SERVE_CONFIG's full width, in an index of the reference's
+# ann_index_cfg with its three capacities times RETRIEVAL_SCALE.
+# retrieval_cand has 1,000,000 candidates (the reference's
+# configs/common.py:346); the path takes the floor's 262,144 and serves
+# them from the floor's index: with the lm path a second build of 524,288
+# took the whole smoke past its time budget (PERF.md section 4).
+RETRIEVAL_N = RETRIEVAL_FLOOR_N
+RETRIEVAL_SCALE = RETRIEVAL_FLOOR_SCALE
 # Recall@10 of the reference's IndexedRetriever (gather oracle, nprobe 16)
 # against its brute force on the same params, the floor's corpus and the
 # users; the port must reach it minus RECALL_MARGIN under both schedules.
@@ -3017,8 +3038,10 @@ REFERENCE_RECALL_RETRIEVAL = 0.10126953125
 ORACLE_OVERLAP = 0.95
 RETRIEVAL_USERS = 1024          # the Q=1,024 batch
 RETRIEVAL_LOOKUPS = 64          # single-user lookups (the retrieval_cand batch)
-RETRIEVAL_ADD = 16_384
-RETRIEVAL_REMOVE = 4_096
+# churn: items added (each must find itself) and removed; cut from 16,384
+# and 4,096 with the lm path, for the smoke's time budget (PERF.md section 4)
+RETRIEVAL_ADD = 4_096
+RETRIEVAL_REMOVE = 1_024
 RETRIEVAL_BURSTS = 8            # engine bursts of RETRIEVAL_USERS users
 RETRIEVAL_ENGINE_ADD = 1024     # churn after the middle burst
 RETRIEVAL_ENGINE_REMOVE = 256
@@ -3063,12 +3086,13 @@ def retrieval_path(torch, np, seed, report, *, device="cuda", model_cfg=None, n=
     ``retrieve_bruteforce`` under both schedules, each at least ``floor``
     (by default, at ``RETRIEVAL_FLOOR_N`` items, the reference's minus
     ``RECALL_MARGIN``), and each schedule's ids overlapping the gather
-    oracle's on the same state by ``ORACLE_OVERLAP``; then it is dropped.
-    Then ``n`` items in an index of config ``cfg``: build; ANN p50 at Q=1
-    (``lookups`` users) and Q=``users_n`` under both schedules, where a
-    Q=``users_n`` lookup's time goes (towers, #1, the scan, the rest),
-    brute-force p50; recall@10 (no floor: the reference has none at this
-    size) and the oracle overlap again.  Churn: ``add_items`` of ``n_add``
+    oracle's on the same state by ``ORACLE_OVERLAP``.  Then ``n`` items in
+    an index of config ``cfg`` (the floor's index itself where ``n`` and
+    ``cfg`` are the floor's, as by default; else the floor's is dropped
+    and this one built): ANN p50 at Q=1 (``lookups`` users) and
+    Q=``users_n`` under both schedules, where a Q=``users_n`` lookup's time
+    goes (towers, #1, the scan, the rest), brute-force p50; recall@10 (no
+    floor past the floor's size) and the oracle overlap again.  Churn: ``add_items`` of ``n_add``
     items (inserts, drains, ``maintain(32)``), every fresh item in its own
     top-10 under both schedules, ``remove_items`` of ``n_remove``, none
     returned to the users or to its own embedding.  Then the engine,
@@ -3137,14 +3161,17 @@ def retrieval_path(torch, np, seed, report, *, device="cuda", model_cfg=None, n=
                                   recall_floor=floor, oracle_overlap=fov)
     log(f"[retrieval] N={floor_n}: build {fbuild_s:.1f} s (the reference's size, floor "
         f"{floor}: its recall minus {RECALL_MARGIN})")
-    del retr
-    gc.collect()
-    if device == "cuda":
-        torch.cuda.empty_cache()
 
-    # ---- the path's corpus
-    retr = IndexedRetriever(params, model_cfg, cfg, device=device)
-    _, build_s = timed(torch, lambda: retr.build_corpus(np.arange(n)))
+    # ---- the path's corpus: the floor's, unless another size or config
+    if (n, cfg) == (floor_n, floor_cfg):
+        build_s = fbuild_s
+    else:
+        del retr
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        retr = IndexedRetriever(params, model_cfg, cfg, device=device)
+        _, build_s = timed(torch, lambda: retr.build_corpus(np.arange(n)))
     st = retr.index.stats()
     mem = retr.index.memory_bytes()
     backlog = retr.index.backlog()
@@ -3353,6 +3380,28 @@ def leaf_samples(torch, params):
     return out
 
 
+class Clock:
+    """Marks between pieces of work: CUDA events on the card, the host
+    clock on the CPU; ``ms()`` gives the time between consecutive marks."""
+
+    def __init__(self, torch, card):
+        self.torch, self.card, self.marks = torch, card, []
+
+    def mark(self):
+        if self.card:
+            ev = self.torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def ms(self):
+        if self.card:
+            self.torch.cuda.synchronize()
+            return [a.elapsed_time(b) for a, b in zip(self.marks, self.marks[1:])]
+        return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
+
+
 def split_step(torch, loss_fn, params, opt_state, batch, device):
     """One more step from its parts (``value_and_grad`` is the forward and
     ``torch.autograd.grad``; then ``adamw_update``), each timed: CUDA
@@ -3362,27 +3411,16 @@ def split_step(torch, loss_fn, params, opt_state, batch, device):
     from repro_torch.train.optimizer import adamw_update
 
     leaves = [t for _, t, _ in param_leaves(params)]
-    card = device != "cpu"
-    if card:
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        mark = [e.record for e in ev]
-    else:
-        stamps = []
-        mark = [lambda: stamps.append(time.perf_counter())] * 4
-    mark[0]()
+    clock = Clock(torch, device != "cpu")
+    clock.mark()
     with torch.enable_grad():
         loss, _ = loss_fn(params, batch)
-        mark[1]()
+        clock.mark()
         grads = torch.autograd.grad(loss, leaves)
-    mark[2]()
+    clock.mark()
     adamw_update(grads, opt_state, params, OPT)
-    mark[3]()
-    if card:
-        torch.cuda.synchronize()
-        ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
-    else:
-        ms = [(stamps[i + 1] - stamps[i]) * 1e3 for i in range(3)]
-    return dict(zip(("forward_ms", "backward_ms", "adamw_ms"), ms))
+    clock.mark()
+    return dict(zip(("forward_ms", "backward_ms", "adamw_ms"), clock.ms()))
 
 
 def rel_err(a, b):
@@ -3593,6 +3631,351 @@ def train_path(torch, np, seed, report, *, device="cuda", configs=None, batches=
     return report
 
 
+# ---------------------------------------------------------------------------
+# lm: the LM family's serving path
+# ---------------------------------------------------------------------------
+
+LM_MOE = "granite-moe-1b-a400m"     # GQA (G=2), 32 experts top-8, a padded vocab
+LM_DENSE = "deepseek-7b"            # MHA at d=4,096, dense SwiGLU, an unpadded vocab
+# prefill_32k is 32 sequences of 32,768 tokens, decode_32k 128 sequences
+# against a 32,768-position cache (configs/common.py LM_SHAPES); the
+# batches are cut to what one card serves within the path's time and 80 GB
+# (PERF.md section 4): a prefill holds a (B, 8, 65,536, 1,024) f32 score
+# chunk and its temporaries (~13 GB at B=2), a decode a 1.61 GB cache a
+# sequence
+LM_PREFILL = dict(batch=2, seq=32_768)
+LM_DECODE = dict(batch=32, seq=32_768)
+LM_DECODE_STEPS = 8                 # timed decode steps, after one warm-up
+# deepseek-7b: a prefill of `seq` tokens, then decode_step of token `seq`
+# on the cache padded to seq + 1, against a prefill over seq + 1 tokens.
+# In bf16 each layer rounds its ~6 intermediates to 8 bits, and a decode's
+# one-row products and the prefill's 1,025-row ones accumulate in other
+# orders: the two part by a few bf16 ulps a layer (~1% of max|logits| over
+# 30 layers at d=1,024 on the CPU).  A wrong position, mask or cache write
+# moves the logits by their own size.
+LM_CONSIST = dict(batch=2, seq=1024)
+LM_CONSIST_REL = 5e-2
+# each model cut to 2 layers at full width in f32 on the card and on the
+# CPU, TF32 off: the last position's logits within LM_CPU_REL of their max
+# |value|; the MoE's gate_idx equal but where the CPU's probabilities of the
+# two experts are within LM_NEAR_TIE (ROADMAP.md, ground rules)
+LM_CPU = dict(layers=2, batch=1, seq=128)
+LM_CPU_REL = 1e-4
+LM_NEAR_TIE = 1e-6
+
+
+def lm_model(torch, cfg, seed, device):
+    """``(params, prefill step, decode step)`` at ``cfg``: params made on
+    ``device`` from a generator seeded ``seed``; the steps an LM's
+    ``prefill_32k`` and ``decode_32k`` cells build for ``cfg``."""
+    from repro_torch.configs.common import lm_step
+    from repro_torch.models import transformer as tf
+
+    params = tf.init_params(torch.Generator(device=device).manual_seed(seed), cfg, device=device)
+    return params, lm_step("prefill", cfg), lm_step("decode", cfg)
+
+
+def lm_tokens(torch, np, seed, cfg, b, s, device):
+    """``(b, s)`` int32 token ids uniform over ``[0, vocab)`` from ``seed``."""
+    rng = np.random.default_rng(seed + 23)
+    return torch.as_tensor(rng.integers(0, cfg.vocab, size=(b, s)).astype(np.int32)).to(device)
+
+
+def lm_layer_split(torch, params, tokens, cfg, card):
+    """Layer 0 of a prefill over ``tokens``, split by marks into attention
+    (``chunked_attention``), FFN/MoE (``rms_norm`` + ``_ffn``) and the rest
+    (the first norm, QKV, rotary, the output projection, the residual
+    adds).  Returns the times and the layer's rotated ``(q, k, v)``."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as tf
+
+    with torch.no_grad():
+        x = params["embed"][tokens.long()]
+        lp = tf.layer_params(params, 0)
+        positions = torch.arange(x.shape[1], device=x.device)
+        clock = Clock(torch, card)
+        clock.mark()
+        q, k, v = tf._qkv(lp, L.rms_norm(x, lp["ln1"]), cfg)
+        q, k = L.rope(q, positions, cfg.rope_theta), L.rope(k, positions, cfg.rope_theta)
+        clock.mark()
+        att = L.chunked_attention(q, k, v, causal=True, kv_chunk=cfg.kv_chunk)
+        clock.mark()
+        x = x + att.reshape(*x.shape[:2], -1) @ lp["wo"]
+        clock.mark()
+        y, _ = tf._ffn(lp, L.rms_norm(x, lp["ln2"]), cfg)
+        clock.mark()
+        x = x + y
+        clock.mark()
+    ms = clock.ms()
+    return dict(attention_ms=ms[1], ffn_ms=ms[3], rest_ms=ms[0] + ms[2] + ms[4]), (q, k, v)
+
+
+def lm_attention_vs_sdpa(torch, q, k, v, cfg, card):
+    """The port's ``chunked_attention`` and ``scaled_dot_product_attention``
+    (causal, K and V repeated to the query heads before the clock) on the
+    same bf16 inputs: ms each, CUDA events around back-to-back calls.  The
+    library call is a yardstick, timed only."""
+    from repro_torch.models import layers as L
+
+    if not card:
+        return dict(attention_ms=None, sdpa_ms=None)
+    g = q.shape[2] // k.shape[2]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k.repeat_interleave(g, dim=2),
+                                              v.repeat_interleave(g, dim=2)))
+    with torch.no_grad():
+        ours = cuda_ms(lambda: L.chunked_attention(q, k, v, causal=True, kv_chunk=cfg.kv_chunk),
+                       reps=2, warm=1)
+        lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), reps=5, warm=1)
+    return dict(attention_ms=ours, sdpa_ms=lib)
+
+
+def lm_rel_err(got, want, cfg) -> float:
+    """``max |got - want|`` over the live vocab columns, over their max |want|."""
+    got, want = got[..., :cfg.vocab], want[..., :cfg.vocab]
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def lm_logits_ok(torch, logits, cfg, what):
+    """Finite logits of ``(B, vocab_padded)`` f32, the padded columns -1e30."""
+    check(logits.dtype == torch.float32 and logits.shape[-1] == cfg.vocab_padded,
+          f"[lm] {what}: logits {logits.dtype} {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), f"[lm] {what}: non-finite logits")
+    check(bool((logits[..., cfg.vocab:] == -1e30).all()), f"[lm] {what}: padded columns")
+
+
+def lm_serve_moe(torch, np, seed, rep, cfg, *, device, prefill, decode, steps):
+    """granite-moe at ``cfg``: two prefills of ``prefill`` (bit-identical,
+    timed), layer 0 split, attention against SDPA, then ``steps`` greedy
+    decode steps on a zero cache of ``decode`` at ``pos = seq // 2``, one
+    of them under ``set_sync_debug_mode("error")`` on the card."""
+    card = device != "cpu"
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    (params, prefill_step, decode_step), init_s = timed(
+        torch, lambda: lm_model(torch, cfg, seed, device))
+    toks = lm_tokens(torch, np, seed, cfg, prefill["batch"], prefill["seq"], device)
+    (logits, cache), first_s = timed(torch, lambda: prefill_step(params, toks))
+    (logits2, cache2), prefill_s = timed(torch, lambda: prefill_step(params, toks))
+    same = [torch.equal(a, b) for a, b in ((logits, logits2), (cache["k"], cache2["k"]),
+                                           (cache["v"], cache2["v"]))]
+    check(all(same), f"[lm] {LM_MOE}: two prefills differ (logits, k, v equal: {same})")
+    lm_logits_ok(torch, logits, cfg, f"{LM_MOE} prefill")
+    check(bool(torch.isfinite(cache["k"]).all() and torch.isfinite(cache["v"]).all()),
+          f"[lm] {LM_MOE}: non-finite cache")
+    cache_bytes = 2 * cache["k"].numel() * cache["k"].element_size()
+    del logits2, cache2, cache
+    split, (q, k, v) = lm_layer_split(torch, params, toks, cfg, card)
+    vs = lm_attention_vs_sdpa(torch, q, k, v, cfg, card)
+    del q, k, v
+    n_tok = prefill["batch"] * prefill["seq"]
+    rep["prefill"] = dict(batch=prefill["batch"], seq=prefill["seq"], first_s=first_s,
+                          ms=prefill_s * 1e3, tokens_per_s=n_tok / prefill_s,
+                          cache_bytes=cache_bytes, bit_identical=True, layer0=split, **vs)
+    log(f"[lm] {LM_MOE} prefill B={prefill['batch']} S={prefill['seq']}: {prefill_s * 1e3:.1f} "
+        f"ms ({n_tok / prefill_s:.0f} tokens/s; first {first_s:.2f} s), two prefills "
+        f"bit-identical; layer 0: attention {split['attention_ms']:.2f} ms, MoE "
+        f"{split['ffn_ms']:.2f} ms, rest {split['rest_ms']:.2f} ms; attention "
+        f"{vs['attention_ms']} ms against SDPA {vs['sdpa_ms']} ms at the same shapes")
+
+    from repro_torch.models import transformer as tf
+
+    b, s = decode["batch"], decode["seq"]
+    cache = tf.init_cache(cfg, b, s, device=device)
+    pos = torch.tensor(s // 2, dtype=torch.int32, device=device)
+    tok = lm_tokens(torch, np, seed + 1, cfg, b, 1, device)[:, 0]
+    ok = torch.ones((), dtype=torch.bool, device=device)
+    logits, cache2 = decode_step(params, cache, tok, pos, cfg)           # warm-up
+    check(cache2 is cache, f"[lm] {LM_MOE}: decode_step did not write its cache in place")
+    tok, pos = logits.argmax(dim=-1), pos + 1
+    if card:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, _ = decode_step(params, cache, tok, pos, cfg)
+    finally:
+        if card:
+            torch.cuda.set_sync_debug_mode("default")
+    tok, pos = logits.argmax(dim=-1), pos + 1
+    clock = Clock(torch, card)
+    clock.mark()
+    for _ in range(steps):
+        logits, _ = decode_step(params, cache, tok, pos, cfg)
+        ok = ok & torch.isfinite(logits).all()
+        tok, pos = logits.argmax(dim=-1), pos + 1
+    clock.mark()
+    ms = clock.ms()[0] / steps
+    check(bool(ok), f"[lm] {LM_MOE}: non-finite decode logits")
+    lm_logits_ok(torch, logits, cfg, f"{LM_MOE} decode")
+    written = int(pos) - s // 2
+    check(bool(cache["k"][:, :, s // 2:s // 2 + written].abs().sum() > 0)
+          and bool(cache["k"][:, :, s // 2 + written:].abs().sum() == 0)
+          and bool(cache["k"][:, :, :s // 2].abs().sum() == 0),
+          f"[lm] {LM_MOE}: the decode wrote other cache positions than {s // 2}..")
+    peak = torch.cuda.max_memory_allocated() if card else None
+    rep["decode"] = dict(batch=b, seq=s, pos0=s // 2, steps=steps, ms_per_step=ms,
+                         tokens_per_s=b * 1e3 / ms, cache_bytes=2 * cache["k"].numel()
+                         * cache["k"].element_size(), sync_free=card)
+    rep.update(param_bytes=sum(t.numel() * t.element_size() for t in params.parameters()),
+               init_s=init_s, peak_bytes=peak)
+    log(f"[lm] {LM_MOE} decode B={b} at a {s}-position cache from pos {s // 2}: {ms:.2f} ms a "
+        f"step ({b * 1e3 / ms:.0f} tokens/s), "
+        f"{'one step under set_sync_debug_mode(error)' if card else 'no sync check on the CPU'}; "
+        f"{rep['param_bytes']} bytes of params made in {init_s:.2f} s; peak {peak} bytes")
+
+
+def lm_dense_consistency(torch, np, seed, rep, cfg, *, device, consist, tol):
+    """deepseek-7b at ``cfg``: a prefill over ``seq + 1`` tokens, and a
+    prefill over ``seq`` then ``decode_step`` of token ``seq`` on the cache
+    padded to ``seq + 1`` (a warm-up, then the timed step under
+    ``set_sync_debug_mode("error")`` on the card; each writes the same
+    position): the two last-position logits within ``tol`` of their max."""
+    from repro_torch.models import transformer as tf
+
+    card = device != "cpu"
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    (params, prefill_step, decode_step), init_s = timed(
+        torch, lambda: lm_model(torch, cfg, seed, device))
+    b, s = consist["batch"], consist["seq"]
+    toks = lm_tokens(torch, np, seed + 2, cfg, b, s + 1, device)
+    full, _ = prefill_step(params, toks)
+    (_, cache), prefill_s = timed(torch, lambda: prefill_step(params, toks[:, :s]))
+    big = tf.init_cache(cfg, b, s + 1, device=device)
+    for name in ("k", "v"):
+        big[name][:, :, :s] = cache[name]
+    del cache
+    pos = torch.tensor(s, dtype=torch.int32, device=device)
+    decode_step(params, big, toks[:, s], pos)           # warm-up: writes the same position
+    if card:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        (dec, _), decode_s = timed(torch, lambda: decode_step(params, big, toks[:, s], pos))
+    finally:
+        if card:
+            torch.cuda.set_sync_debug_mode("default")
+    lm_logits_ok(torch, full, cfg, f"{LM_DENSE} prefill")
+    lm_logits_ok(torch, dec, cfg, f"{LM_DENSE} decode")
+    err = lm_rel_err(dec, full, cfg)
+    agree = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
+    check(err <= tol, f"[lm] {LM_DENSE}: decode at {s} against a prefill over {s + 1}: "
+          f"max error {err} of max |logits| > {tol}")
+    peak = torch.cuda.max_memory_allocated() if card else None
+    rep.update(batch=b, seq=s, init_s=init_s, prefill_ms=prefill_s * 1e3,
+               prefill_tokens_per_s=b * s / prefill_s, decode_ms=decode_s * 1e3,
+               decode_vs_prefill_rel_err=err, tol=tol, argmax_agree=agree, peak_bytes=peak,
+               param_bytes=sum(t.numel() * t.element_size() for t in params.parameters()))
+    log(f"[lm] {LM_DENSE}: {rep['param_bytes']} bytes of params made in {init_s:.2f} s; prefill "
+        f"B={b} S={s} {prefill_s * 1e3:.1f} ms ({b * s / prefill_s:.0f} tokens/s); decode of "
+        f"token {s} {decode_s * 1e3:.2f} ms{' (sync-free)' if card else ''}; against the prefill "
+        f"over {s + 1}: max "
+        f"error {err:.3e} of max |logits| (tol {tol}), argmax agree {agree}; peak {peak} bytes")
+
+
+def lm_routed_prefill(torch, params, tokens, cfg):
+    """``prefill``'s last logits and, for each MoE layer, the router's
+    ``(gate_idx, probs)`` on its input, recorded around ``layers.moe``."""
+    from unittest import mock
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as tf
+
+    seen, real = [], L.moe
+
+    def recording(p, x, **kw):
+        probs, _, idx = L.moe_gates(p, x, kw["top_k"])
+        seen.append((idx.cpu(), probs.cpu()))
+        return real(p, x, **kw)
+
+    with mock.patch.object(L, "moe", recording):
+        logits, _ = tf.prefill(params, tokens, cfg)
+    return logits.cpu(), seen
+
+
+def lm_card_vs_cpu(torch, np, seed, rep, arch, cfg, *, device, shape):
+    """``arch`` cut to ``shape["layers"]`` layers at full width in f32: the
+    same params (made on ``device``, carried to the CPU by ``convert``) and
+    prompt through ``prefill`` on both; the last logits within LM_CPU_REL of
+    their max, the MoE's gate_idx equal but at near-ties."""
+    from repro_torch import convert
+
+    cut = dataclasses.replace(cfg, n_layers=shape["layers"], dtype="float32")
+    params, _, _ = lm_model(torch, cut, seed, device)
+    host, copy_s = timed(torch, lambda: convert.lm_params_from_numpy(
+        convert.lm_params_to_numpy(params), cut, device="cpu"))
+    toks = lm_tokens(torch, np, seed + 3, cut, shape["batch"], shape["seq"], device)
+    got, gates = lm_routed_prefill(torch, params, toks, cut)
+    del params
+    t0 = time.perf_counter()
+    want, cpu_gates = lm_routed_prefill(torch, host, toks.cpu(), cut)
+    cpu_s = time.perf_counter() - t0
+    err = lm_rel_err(got, want, cut)
+    check(err <= LM_CPU_REL, f"[lm] {arch} at {shape['layers']} layers: card against CPU "
+          f"logits {err} of max |logits| > {LM_CPU_REL}")
+    diff, ties, gap = 0, 0, 0.0
+    for (idx, _), (cidx, cprobs) in zip(gates, cpu_gates):
+        for t, kk in (idx != cidx).nonzero().tolist():
+            g = abs(float(cprobs[t, idx[t, kk]] - cprobs[t, cidx[t, kk]]))
+            diff += 1
+            ties += g <= LM_NEAR_TIE
+            gap = max(gap, g)
+    check(diff == ties, f"[lm] {arch}: {diff - ties} gate_idx differ past a near-tie "
+          f"(largest probability gap {gap})")
+    rep.update(layers=shape["layers"], batch=shape["batch"], seq=shape["seq"],
+               logits_rel_err=err, tol=LM_CPU_REL, moe_layers=len(gates),
+               gate_idx_differ=diff, near_tie=LM_NEAR_TIE, host_copy_s=copy_s, cpu_s=cpu_s)
+    log(f"[lm] {arch} at {shape['layers']} layers, f32, a {shape['seq']}-token prompt: card "
+        f"against CPU logits {err:.3e} of max |logits| (tol {LM_CPU_REL}); gate_idx differ at "
+        f"{diff} of {sum(g[0].numel() for g in gates)} (near-ties); CPU {cpu_s:.1f} s")
+
+
+def lm_path(torch, np, seed, report, *, device="cuda", configs=None, prefill=LM_PREFILL,
+            decode=LM_DECODE, steps=LM_DECODE_STEPS, consist=LM_CONSIST, cpu=LM_CPU,
+            consist_tol=LM_CONSIST_REL):
+    """The LM family served at its published widths and depths (``configs``:
+    each arch's ``CONFIG``, bf16, params made on the device from ``seed``):
+    granite-moe-1b-a400m prefills and decodes (:func:`lm_serve_moe`),
+    deepseek-7b's decode against a longer prefill
+    (:func:`lm_dense_consistency`), then both cut to 2 layers in f32 on the
+    card against the CPU (:func:`lm_card_vs_cpu`); each model freed before
+    the next.  Small configs and ``device="cpu"`` rehearse it on the CPU."""
+    from repro_torch.configs import deepseek_7b, granite_moe_1b_a400m
+
+    configs = configs or {LM_MOE: granite_moe_1b_a400m.CONFIG, LM_DENSE: deepseek_7b.CONFIG}
+    card = device != "cpu"
+
+    def free():
+        gc.collect()
+        if card:
+            torch.cuda.empty_cache()
+
+    report["reduced"] = {
+        f"{LM_MOE}/prefill_32k": f"batch {prefill['batch']} of 32",
+        f"{LM_MOE}/decode_32k": f"batch {decode['batch']} of 128, {steps} steps",
+        f"{LM_DENSE}": f"prefill B={consist['batch']} S={consist['seq']}, one decode step",
+        "card_vs_cpu": f"{cpu['layers']} layers, f32, one {cpu['seq']}-token prompt"}
+    t0 = time.perf_counter()
+    report[LM_MOE] = {}
+    lm_serve_moe(torch, np, seed, report[LM_MOE], configs[LM_MOE], device=device,
+                 prefill=prefill, decode=decode, steps=steps)
+    report[LM_MOE]["seconds"] = time.perf_counter() - t0
+    free()
+    t0 = time.perf_counter()
+    report[LM_DENSE] = {}
+    lm_dense_consistency(torch, np, seed, report[LM_DENSE], configs[LM_DENSE], device=device,
+                         consist=consist, tol=consist_tol)
+    report[LM_DENSE]["seconds"] = time.perf_counter() - t0
+    free()
+    report["card_vs_cpu"] = {}
+    for arch in (LM_MOE, LM_DENSE):
+        report["card_vs_cpu"][arch] = {}
+        lm_card_vs_cpu(torch, np, seed, report["card_vs_cpu"][arch], arch, configs[arch],
+                       device=device, shape=cpu)
+        free()
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="chip smoke for the PyTorch/CUDA port")
     ap.add_argument("--seed", type=int, default=0)
@@ -3668,6 +4051,8 @@ def main() -> int:
         got = {**LK.LAUNCHES, **SK.LAUNCHES}
         for name in PATH_KERNELS[path]:
             check(got[name] > 0, f"kernel {name} was not launched on the {path} main path")
+        if not PATH_KERNELS[path]:
+            check(not any(got.values()), f"the {path} path launched kernels: {got}")
         for name, n in got.items():
             launches[name] += n
         report[path]["launches"] = got
@@ -3789,6 +4174,22 @@ def main() -> int:
     log("[train] step p50 ms " + ", ".join(f"{a} {tn[a]['p50_ms']:.2f} (B={tn[a]['batch']}, "
                                            f"peak {tn[a]['peak_bytes']})" for a in TRAIN_ARCHS)
         + f"; launches on the path: {got}; {tn['seconds']:.1f} s ({card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    reset()
+    report["lm"] = {}
+    t0 = time.perf_counter()
+    lm_path(torch, np, args.seed, report["lm"])
+    report["lm"]["seconds"] = time.perf_counter() - t0
+    got = launched("lm")
+    lm, dense = report["lm"][LM_MOE], report["lm"][LM_DENSE]
+    log(f"[lm] {LM_MOE}: prefill {lm['prefill']['ms']:.1f} ms ({lm['prefill']['tokens_per_s']:.0f} "
+        f"tokens/s), decode {lm['decode']['ms_per_step']:.2f} ms a step "
+        f"({lm['decode']['tokens_per_s']:.0f} tokens/s), peak {lm['peak_bytes']}; {LM_DENSE}: "
+        f"decode against prefill {dense['decode_vs_prefill_rel_err']:.3e}, peak "
+        f"{dense['peak_bytes']}; launches on the path: {got}; {report['lm']['seconds']:.1f} s "
+        f"({card})")
     for name, n in launches.items():
         results[name]["launches"] = n
     for name in ("l2_topk_tiles", "scan_batched", "scan_batched_topk", "scan_batched_topk_q8"):

@@ -11,10 +11,11 @@ leading ``(n_shards,)`` axis) and the port's list of per-shard states:
 :func:`sharded_state_from_numpy` and :func:`sharded_state_to_numpy` carry
 it across in both directions.
 
-The recsys models' params travel as the reference's nested tree of
-numpy arrays (``twotower_params_{from,to}_numpy`` and the DeepFM, BERT4Rec
-and MIND pairs), and AdamW's state as the reference's ``{"count", "m",
-"v"}`` (:func:`adamw_state_from_numpy`, :func:`adamw_state_to_numpy`).
+The recsys and LM models' params travel as the reference's nested tree
+of numpy arrays (``twotower_params_{from,to}_numpy``, the DeepFM, BERT4Rec
+and MIND pairs, ``lm_params_{from,to}_numpy``), and AdamW's state as the
+reference's ``{"count", "m", "v"}`` (:func:`adamw_state_from_numpy`,
+:func:`adamw_state_to_numpy`).
 
 A parameter tree is flattened in the reference's leaf order, which is
 ``jax.tree_util``'s: dict keys sorted, lists in order
@@ -274,9 +275,24 @@ def mind_params_from_numpy(tree: dict, cfg, *, device="cuda"):
     return MIND(cfg, t)
 
 
+def lm_params_from_numpy(tree: dict, cfg, *, device="cuda"):
+    """The port's ``LM`` holding the reference's LM params ``tree`` (numpy,
+    ``layers`` stacked ``(L, …)``, in ``cfg.dtype``; a MoE router f32 in
+    every dtype, as there) on ``device``."""
+    from repro_torch.models.recsys import torch_dtype
+    from repro_torch.models.transformer import LM
+
+    dev = resolve_device(device)
+    dt = torch_dtype(cfg.dtype)
+    return LM(cfg, tree_from_paths(
+        (path, _leaf_tensor(a, torch.float32 if path[-2:] == ("moe", "router") else dt, dev))
+        for path, a in tree_paths(tree)))
+
+
 # the inverse of each ``*_params_from_numpy``
 twotower_params_to_numpy = params_to_numpy
 deepfm_params_to_numpy = bert4rec_params_to_numpy = mind_params_to_numpy = params_to_numpy
+lm_params_to_numpy = params_to_numpy
 
 
 # ---------------------------------------------------------------------------

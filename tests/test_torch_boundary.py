@@ -69,7 +69,10 @@ def test_the_boundary_covers_the_serving_layer_and_grouping():
                 "serve/retrieval.py", "models/recsys.py", "models/layers.py",
                 "configs/two_tower_retrieval.py", "configs/common.py", "configs/deepfm.py",
                 "configs/bert4rec.py", "configs/mind.py", "train/optimizer.py",
-                "train/trainer.py", "train/checkpoint.py", "launch/train.py"):
+                "train/trainer.py", "train/checkpoint.py", "launch/train.py",
+                "models/transformer.py", "configs/deepseek_7b.py", "configs/granite_20b.py",
+                "configs/granite_moe_1b_a400m.py", "configs/phi35_moe_42b_a6_6b.py",
+                "configs/qwen15_110b.py"):
         assert mod in names, mod
 
 
@@ -78,7 +81,8 @@ def test_the_boundary_covers_the_serving_layer_and_grouping():
                                    "twotower_init_counter", "twotower_params_from_numpy",
                                    "IndexedRetriever", "deepfm_init", "bert4rec_init",
                                    "mind_init", "mind_params_from_numpy", "make_smoke_inputs",
-                                   "Trainer", "adamw_state_from_numpy"])
+                                   "Trainer", "adamw_state_from_numpy", "lm_init_params",
+                                   "lm_params_from_numpy", "init_cache"])
 def test_entry_points_default_to_the_card(entry):
     """Without ``device=`` an entry point runs on CUDA; on a machine with
     no card it raises rather than falling back to the CPU."""
@@ -103,7 +107,11 @@ def test_entry_points_default_to_the_card(entry):
     from repro_torch.train.optimizer import AdamWConfig, adamw_init
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
+    from repro_torch.configs.granite_moe_1b_a400m import SMOKE as LM
+    from repro_torch.models import transformer
+
     mind_cpu = recsys.mind_init(torch.Generator().manual_seed(0), MI, device="cpu")
+    lm_cpu = transformer.init_params(torch.Generator().manual_seed(0), LM, device="cpu")
     tower = recsys.twotower_init(torch.Generator().manual_seed(0), SMOKE, device="cpu")
     icfg = dataclasses.replace(cfg, dim=SMOKE.tower_dims[-1])
     call = {
@@ -127,6 +135,10 @@ def test_entry_points_default_to_the_card(entry):
                                    opt_cfg=AdamWConfig(), trainer_cfg=TrainerConfig()),
         "adamw_state_from_numpy": lambda: convert.adamw_state_from_numpy(
             convert.adamw_state_to_numpy(adamw_init(mind_cpu), mind_cpu), mind_cpu)["count"],
+        "lm_init_params": lambda: transformer.init_params(torch.Generator(), LM).embed,
+        "lm_params_from_numpy": lambda: convert.lm_params_from_numpy(
+            convert.lm_params_to_numpy(lm_cpu), LM).embed,
+        "init_cache": lambda: transformer.init_cache(LM, 1, 4)["k"],
     }[entry]
     if torch.cuda.is_available():
         assert call().device.type == "cuda"

@@ -1,8 +1,11 @@
 """The port's cell registry (``repro_torch.configs``) against the
 reference's: the ported archs, their exact configs, every cell's smoke
 batch (the same draws as the reference's), a smoke step of every cell
-(finite, a train step moves the parameters), and every serving cell's
-step on the reference's params at f32 rtol = atol = 1e-5.
+(finite, a train step moves the parameters, a decode step writes its
+cache in place), every serving cell's step on the reference's params at
+f32 rtol = atol = 1e-5, and one train step of every LM arch's ``train_4k``
+cell against the reference's (loss and ``grad_norm`` rtol 1e-5, the
+updated state at the training tests' rtol 1e-4, atol 1e-5).
 """
 import dataclasses
 
@@ -13,26 +16,40 @@ import torch
 
 from repro.configs import get_cell as ref_cell
 from repro_torch import configs as C
+from repro_torch import convert
 from repro_torch.configs import bert4rec, deepfm, mind, two_tower_retrieval
 from repro_torch.convert import param_leaves
-from tests.test_torch_train import ref_inputs
+from repro_torch.train.optimizer import adamw_init
+from tests.test_torch_lm import ARCHS as LM_MODULES
+from tests.test_torch_train import STEP, assert_state_close, ref_inputs
 
 PORTED = {"bert4rec", "mind", "two-tower-retrieval", "deepfm"}
+LM_ARCHS = set(LM_MODULES)
 MODULES = {"bert4rec": bert4rec, "mind": mind, "two-tower-retrieval": two_tower_retrieval,
            "deepfm": deepfm}
 SHAPES = ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand")
-CELLS = C.all_cells()
+LM_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+CELLS = [c for c in C.all_cells() if c.family == "recsys"]
+LM_CELLS = [c for c in C.all_cells() if c.family == "lm"]
 
 
 def test_registry_holds_the_ported_archs():
-    assert set(C.arch_names()) == PORTED
+    assert set(C.arch_names()) == PORTED | LM_ARCHS
     for arch in PORTED:
         assert [c.shape for c in C.get_cells(arch)] == list(SHAPES)
         assert all(c.family == "recsys" and c.skip_reason is None for c in C.get_cells(arch))
+    for arch in LM_ARCHS:
+        cells = C.get_cells(arch)
+        assert [c.shape for c in cells] == list(LM_SHAPES)
+        assert [c.kind for c in cells] == ["train", "prefill", "decode", "decode"]
+        assert [c.donate_argnums for c in cells] == [(0, 1), (), (1,), (1,)]
+        assert all(c.family == "lm" for c in cells)
+        assert [c.skip_reason is None for c in cells] == [True, True, True, False]
+    assert len(C.all_cells(include_skipped=False)) == len(C.all_cells()) - len(LM_ARCHS)
     assert C.get_cell("mind", "serve_bulk").kind == "serve"
     assert C.get_cell("deepfm", "train_batch").donate_argnums == (0, 1)
     with pytest.raises(KeyError, match="ROADMAP.md queue 1 item 9"):
-        C.get_cells("granite-20b")
+        C.get_cells("gat-cora")
     with pytest.raises(KeyError, match="ROADMAP.md queue 1 item 10"):
         C.get_cell("spfresh-1b", "maintain")
     with pytest.raises(KeyError):
@@ -118,3 +135,97 @@ def test_serving_cells_match_the_reference(cell):
     got = cell.smoke_step_fn(model, tb)
     assert tuple(got.shape) == want.shape
     np.testing.assert_allclose(got.float().numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The LM family
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", sorted(LM_ARCHS))
+def test_exact_lm_configs(arch):
+    ref, mod = LM_MODULES[arch]
+    assert dataclasses.asdict(mod.CONFIG) == dataclasses.asdict(ref.CONFIG)
+    assert dataclasses.asdict(mod.SMOKE) == dataclasses.asdict(ref.SMOKE)
+    for shape in LM_SHAPES:
+        r, t = ref_cell(arch, shape), C.get_cell(arch, shape)
+        assert (t.kind, t.family, t.skip_reason, t.donate_argnums) == (
+            r.kind, r.family, r.skip_reason, r.donate_argnums)
+        assert dataclasses.asdict(t.model_cfg) == dataclasses.asdict(r.model_cfg)
+        assert dataclasses.asdict(t.smoke_cfg) == dataclasses.asdict(r.smoke_cfg)
+    from repro_torch.configs.common import LM_SHAPES as T_SHAPES, LM_SMOKE_SHAPES as T_SMOKE
+    from repro.configs.common import LM_SHAPES as R_SHAPES, LM_SMOKE_SHAPES as R_SMOKE
+    assert (T_SHAPES, T_SMOKE) == (R_SHAPES, R_SMOKE)
+
+
+def _host(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+@pytest.mark.parametrize("cell", LM_CELLS, ids=lambda c: c.name)
+def test_lm_smoke_inputs_are_the_reference_draws(cell):
+    """Tokens drawn alike; a decode cell's cache is zeros of the
+    reference's shape at ``pos = seq // 2``."""
+    r = ref_cell(cell.arch, cell.shape)
+    want = r.make_smoke_inputs(r.smoke_cfg, np.random.default_rng(7))[1:]
+    got = cell.make_smoke_inputs(cell.smoke_cfg, np.random.default_rng(7), device="cpu")[1:]
+    if cell.kind == "train":
+        want, got = want[1:], got[1:]                   # the optimiser states: test_torch_train
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        if isinstance(w, dict):
+            assert set(g) == set(w)
+            for k in w:
+                assert g[k].dtype in (torch.int32, torch.bfloat16, torch.float32)
+                assert tuple(g[k].shape) == np.shape(w[k])
+                np.testing.assert_array_equal(_host(g[k]).astype(np.float32),
+                                              np.asarray(w[k]).astype(np.float32))
+        else:
+            assert g.dtype == torch.int32 and tuple(g.shape) == np.shape(w)
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("cell", [c for c in LM_CELLS if c.skip_reason is None],
+                         ids=lambda c: c.name)
+def test_lm_cell_smoke(cell):
+    args = cell.make_smoke_inputs(cell.smoke_cfg, np.random.default_rng(42), device="cpu")
+    scfg = cell.smoke_cfg
+    if cell.kind == "train":
+        before = [t.detach().clone() for _, t, _ in param_leaves(args[0])]
+        params, opt, metrics = cell.smoke_step_fn(*args)
+        assert params is args[0] and opt is args[1] and int(opt["count"]) == 1
+        assert all(torch.isfinite(v).all() for v in metrics.values())
+        assert {"loss", "ce", "aux", "grad_norm", "lr"} <= set(metrics)
+        after = [t for _, t, _ in param_leaves(params)]
+        assert any(not torch.equal(a, b) for a, b in zip(before, after))
+        return
+    logits, cache = cell.smoke_step_fn(*args)
+    b = args[1 if cell.kind == "prefill" else 2].shape[0]
+    assert logits.shape == (b, scfg.vocab_padded) and logits.dtype == torch.float32
+    assert torch.isfinite(logits).all() and not logits.requires_grad
+    if cell.kind == "decode":
+        assert cache is args[1]                            # donated: written in place
+        pos = int(args[3])
+        assert cache["k"][:, :, pos].abs().sum() > 0
+        assert cache["k"][:, :, pos + 1:].abs().sum() == 0
+
+
+_REF_TRAIN: dict = {}
+
+
+@pytest.mark.parametrize("arch", sorted(LM_ARCHS))
+def test_lm_train_cell_step_matches_the_reference(arch):
+    """One ``train_4k`` smoke step (loss, AdamW) from the reference's
+    smoke params, on the same batch."""
+    r, t = ref_cell(arch, "train_4k"), C.get_cell(arch, "train_4k")
+    params, opt, batch = r.make_smoke_inputs(r.smoke_cfg, np.random.default_rng(5))
+    lm = convert.lm_params_from_numpy(jax.tree_util.tree_map(np.asarray, params), t.smoke_cfg,
+                                      device="cpu")
+    tbatch = t.make_smoke_inputs(t.smoke_cfg, np.random.default_rng(5), device="cpu")[-1]
+    if arch not in _REF_TRAIN:
+        _REF_TRAIN[arch] = jax.jit(r.smoke_step_fn)
+    rp, ro, rm = _REF_TRAIN[arch](params, opt, batch)
+    _, opt_t, tm = t.smoke_step_fn(lm, adamw_init(lm), tbatch)
+    for key in ("loss", "ce", "aux", "grad_norm", "lr"):
+        np.testing.assert_allclose(float(tm[key]), float(rm[key]), rtol=1e-5, atol=1e-7,
+                                   err_msg=key)
+    assert_state_close(jax.tree_util.tree_map(np.asarray, rp), ro, lm, opt_t, STEP)

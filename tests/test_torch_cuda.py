@@ -1095,3 +1095,99 @@ def test_embedding_bag_ragged_on_the_card_matches_the_cpu(card):
     np.testing.assert_allclose(outs[0][0].cpu().numpy(), want.detach().numpy(), rtol=1e-5,
                                atol=1e-5)
     np.testing.assert_allclose(outs[0][1].cpu().numpy(), wg.numpy(), rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The LM family: prefill, decode and a train step on the card against the
+# CPU at the smoke configs; a decode step without a host sync
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ["granite-20b", "deepseek-7b", "qwen1.5-110b", "granite-moe-1b-a400m",
+            "phi3.5-moe-42b-a6.6b"]
+
+
+def _lm_inputs(arch, shape, device):
+    """An LM cell's smoke inputs on the CPU and a copy on ``device`` (a
+    train cell's optimiser state made anew for the copy)."""
+    from repro_torch.configs import get_cell
+    from repro_torch.train.optimizer import adamw_init
+
+    cell = get_cell(arch, shape)
+    cpu = cell.make_smoke_inputs(cell.smoke_cfg, np.random.default_rng(0), device="cpu")
+    gpu = [copy.deepcopy(cpu[0]).to(device)]
+    for x in cpu[1:]:
+        if cell.kind == "train" and x is cpu[1]:
+            gpu.append(adamw_init(gpu[0]))
+        else:
+            gpu.append({k: v.to(device) for k, v in x.items()} if isinstance(x, dict)
+                       else x.to(device))
+    return cell, cpu, gpu
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_prefill_and_decode_on_the_card_match_the_cpu(card, arch):
+    """The ``prefill_32k`` and ``decode_32k`` smoke steps: logits and cache
+    at rtol = atol = 1e-5 (TF32 off), the decode's cache written in place."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for shape in ("prefill_32k", "decode_32k"):
+        cell, cpu, gpu = _lm_inputs(arch, shape, card)
+        (lc, cc), (lg, cg) = cell.smoke_step_fn(*cpu), cell.smoke_step_fn(*gpu)
+        np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(), rtol=1e-5, atol=1e-5)
+        for name in ("k", "v"):
+            assert cg[name].device.type == card.type
+            np.testing.assert_allclose(cg[name].cpu().numpy(), cc[name].numpy(), rtol=1e-5,
+                                       atol=1e-5)
+        if shape == "decode_32k":
+            assert cg is gpu[1]
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "deepseek-7b"])
+def test_lm_decode_step_runs_without_a_host_sync(card, arch):
+    cell, _, gpu = _lm_inputs(arch, "decode_32k", card)
+    cell.smoke_step_fn(*gpu)                              # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, _ = cell.smoke_step_fn(gpu[0], gpu[1], gpu[2], gpu[3] + 1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(logits).all()
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "qwen1.5-110b"])
+def test_lm_train_step_on_the_card_matches_the_cpu(card, arch):
+    """Two ``train_4k`` smoke steps: loss at 1e-5 relative, ``grad_norm``
+    at 1e-4, the state at rtol 1e-4, atol 1e-5."""
+    from repro_torch.convert import train_state_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cell, cpu, gpu = _lm_inputs(arch, "train_4k", card)
+    for _ in range(2):
+        *_, mc = cell.smoke_step_fn(*cpu)
+        *_, mg = cell.smoke_step_fn(*gpu)
+        np.testing.assert_allclose(float(mg["loss"]), float(mc["loss"]), rtol=1e-5)
+        np.testing.assert_allclose(float(mg["grad_norm"]), float(mc["grad_norm"]), rtol=1e-4)
+    for (a, _), (b, _) in zip(train_state_leaves(*cpu[:2]), train_state_leaves(*gpu[:2])):
+        np.testing.assert_allclose(b.detach().cpu().numpy(), a.detach().numpy(), rtol=1e-4,
+                                   atol=1e-5)
+
+
+def test_lm_path_on_the_card_at_small_widths(card):
+    """``chip_smoke.lm_path`` at small configs on the card: every check it
+    makes, no kernel launched."""
+    import chip_smoke
+    from repro_torch.configs import deepseek_7b, granite_moe_1b_a400m
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    moe = dataclasses.replace(granite_moe_1b_a400m.CONFIG, n_layers=3, d_model=128, n_heads=4,
+                              n_kv_heads=2, d_ff=64, n_experts=8, moe_top_k=2, vocab=1000,
+                              kv_chunk=32)
+    dense = dataclasses.replace(deepseek_7b.CONFIG, n_layers=4, d_model=128, n_heads=4,
+                                n_kv_heads=4, d_ff=256, vocab=1024, kv_chunk=32)
+    before = sum(LK.LAUNCHES.values()) + sum(SK.LAUNCHES.values())
+    rep = chip_smoke.lm_path(torch, np, 0, {}, device="cuda",
+                             configs={chip_smoke.LM_MOE: moe, chip_smoke.LM_DENSE: dense},
+                             prefill=dict(batch=2, seq=96), decode=dict(batch=4, seq=64), steps=3,
+                             consist=dict(batch=2, seq=40), cpu=dict(layers=2, batch=1, seq=24))
+    assert rep[chip_smoke.LM_MOE]["decode"]["sync_free"]
+    assert sum(LK.LAUNCHES.values()) + sum(SK.LAUNCHES.values()) == before

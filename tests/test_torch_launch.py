@@ -7,8 +7,9 @@ percentiles).  Cases: a single index, 2 shards, 2 shards × 2 copies, and
 a durable service reopened with ``--recover``.
 
 The training launcher (``repro_torch.launch.train``) trains each ported
-arch 3 steps on the CPU with ``--ckpt`` and a second run resumes from the
-saved step; an arch that is not ported exits naming ``ROADMAP.md``.
+recsys arch 3 steps on the CPU with ``--ckpt`` and a second run resumes
+from the saved step; it trains an LM's smoke cell 2 steps; an arch that
+is not ported exits naming ``ROADMAP.md``.
 """
 import os
 import subprocess
@@ -95,6 +96,16 @@ def test_train_launcher_trains_and_resumes(capsys, tmp_path, arch):
     assert sorted(os.listdir(ckpt)) == ["step_3", "step_5"]
 
 
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "qwen1.5-110b"])
+def test_train_launcher_trains_an_lm_smoke_cell(capsys, arch):
+    train.main(["--arch", arch, "--steps", "2", "--device", "cpu", "--log-every", "1"])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == f"training {arch}/train_4k (smoke-scale config on cpu)"
+    losses = [float(line.split()[3]) for line in lines if line.startswith("step")]
+    assert len(losses) == 2 and all(0 < x < 10 for x in losses)
+    assert lines[-1] == "done"
+
+
 def test_train_launcher_refuses_an_arch_not_ported():
     with pytest.raises(SystemExit, match="ROADMAP.md"):
         train.main(["--arch", "gat-cora", "--device", "cpu"])
@@ -111,6 +122,6 @@ def test_train_launcher_runs_as_a_module():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.splitlines()[-1] == "done"
     proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch",
-                           "qwen1.5-110b", "--device", "cpu"], capture_output=True, text=True,
+                           "gat-cora", "--device", "cpu"], capture_output=True, text=True,
                           env=env, timeout=300)
     assert proc.returncode != 0 and "ROADMAP.md queue 1" in proc.stderr

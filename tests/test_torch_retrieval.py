@@ -9,6 +9,7 @@ The port runs on the CPU (the kernel wrappers' plain versions); the
 reference its gather oracle.
 """
 import dataclasses
+from unittest.mock import patch
 
 import jax
 import numpy as np
@@ -176,6 +177,34 @@ def test_smoke_retrieval_path_runs_on_the_cpu():
     assert min(rep["recall_at_10"].values()) >= 0.5
     assert min(rep["oracle_overlap"].values()) >= chip_smoke.ORACLE_OVERLAP
     assert rep["engine_report"]["search"]["n"] > 0
+
+
+def test_smoke_retrieval_path_serves_the_floor_corpus_when_sizes_match():
+    """With ``n`` and ``cfg`` the floor's (the card's default), the path
+    serves the floor's index instead of building a second one."""
+    import torch
+
+    import chip_smoke
+
+    cfg = dataclasses.replace(T.TwoTowerConfig(**MODEL), dtype="bfloat16")
+    icfg = dataclasses.replace(chip_smoke.retrieval_index_cfg(1), **INDEX)
+    from repro_torch.serve.retrieval import IndexedRetriever
+
+    built, real = [], IndexedRetriever.build_corpus
+
+    def counting(self, ids):
+        built.append(len(ids))
+        return real(self, ids)
+
+    rep = {}
+    with patch.object(IndexedRetriever, "build_corpus", counting):
+        chip_smoke.retrieval_path(torch, np, 0, rep, device="cpu", model_cfg=cfg, n=1000,
+                                  cfg=icfg, floor_n=1000, floor_cfg=icfg, floor=0.5, users_n=32,
+                                  lookups=2, n_add=64, n_remove=32, bursts=2, engine_add=32,
+                                  engine_remove=16)
+    assert built == [1000]
+    assert rep["build_s"] == rep["floor_corpus"]["build_s"]
+    assert rep["fresh_self_top10"] == {"per_query": 1.0, "batched": 1.0}
 
 
 def test_attach_engine_compiles_a_service_spec_like_the_reference(pair):
