@@ -36,7 +36,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
    spills) is printed, and summed per library.
 3. Drives two main paths through ``SPFreshIndex`` at the full spfresh-1b
    per-shard geometry (``CONFIG_PAGED`` with kernel navigation), each from
-   N=1,000,000 int8-valued vectors of one seed, the first path's state
+   N=500,000 int8-valued vectors of one seed, the first path's state
    freed before the second is built:
    * ``fp32``: the bytes stored as they are; build, search under both
      scan schedules, insert four batches, delete, search again;
@@ -69,7 +69,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
    ``search_begin`` per schedule under ``set_sync_debug_mode("error")``
    that must return while the card still works; then an async phase (a
    pump thread with deferred readback, the ``per_query`` scan) fed by 4
-   submitter threads of 200 operations: no ordering violation, no
+   submitter threads of 100 operations: no ordering violation, no
    resurrected delete, ANN misses at most 5%, a bit-identical replay, the
    card's busy share from the profiler's trace.  A fifth, ``grouped``,
    builds the two-level group index (512 groups of 256) on the final
@@ -77,7 +77,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
    measures ``search_grouped``'s recall at gprobe 32.  A sixth,
    ``durable``, frees the earlier paths' state and opens a durable service
    (``repro_torch.api.open(service_spec(durable_root=...))``, the update
-   cell's geometry and generator at ``UPDATE_N``) under a temporary root
+   cell's geometry and generator at ``DURABLE_N``) under a temporary root
    in ``build/``: the open-time base unit, ``drain()`` and a re-base; 16
    of the serve path's request steps with group commit, a delta
    checkpoint, 16 more (the WAL tail); a crash and ``api.open(spec)``,
@@ -94,7 +94,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
    schedule and nprobe must equal the host merge of the four shards' own
    searches and reach the reference's sharded recall minus 0.05, a dead
    shard must leak no handle, and one ``search_begin`` over the four
-   shards must issue no host sync; 8 of the serve path's request steps
+   shards must issue no host sync; 4 of the serve path's request steps
    (deletes by handle; the engine's slots work the build's backlog down)
    must land every insert, replay on a clone bit for bit on every shard
    and leave the synced replica bit-identical; a crash recovers every
@@ -155,8 +155,33 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
    on the same params and prompt (``LM_CPU_REL``; the MoE's gate_idx equal
    but at near-ties).  It prints prefill tokens/s, decode ms a step and
    tokens/s, peak memory, and reaches no kernel of the table.
+   An eleventh, ``gnn``, trains gat-cora's four cells at their published
+   shapes through the cell's step (AdamW ``OPT``; GNN_WARM + GNN_TIMED
+   steps each, f32): ``full_graph_sm`` (Cora: 2,708 nodes, 10,556 edges,
+   1,433 features), ``molecule`` (128 graphs of 30 nodes, the mean
+   readout), ``minibatch_lg`` (1,024 targets sampled 15-10 by
+   ``minibatch_stream`` over ``CSRGraph.random`` of its 169,984 node
+   slots) and ``ogb_products`` (2,449,029 nodes, 61,859,140 edges, 100
+   features, drawn from the seed as the reference's smoke inputs draw a
+   full graph).  Every step must be finite and every leaf move in step 1;
+   step 1's loss and ``grad_norm`` must equal the CPU path's (but
+   ogb_products') within 1e-5 and 1e-4 relative; two forwards must give
+   the same bits (the sorted edges and ``segment_reduce``'s order); the
+   minibatch_lg stream restarts bit for bit under deterministic
+   algorithms.  It prints each cell's step p50, the forward / backward /
+   AdamW split, the peak and the seconds to make its graph and batch.
+   A twelfth, ``lm_train``, trains granite-moe-1b-a400m's ``train_4k``
+   cell at its full ``CONFIG`` (24 layers, bf16 params, f32 AdamW state,
+   the nested remat: each layer and each KV chunk checkpointed) on
+   ``LM_TRAIN_BATCH`` sequences of 4,096 tokens (what 80 GB holds), 1
+   warm-up and 3 timed steps: step p50, tokens/s, the split, the peak.
+   Then at 2 layers and full width: the first step in f32 on the card
+   against the CPU (1e-5 / 1e-4), remat on against off (the loss equal,
+   the remat's peak lower) and a restart bit-identical under
+   deterministic algorithms.  Neither part reaches a kernel of the table.
    The launch counts are reset before each path and read after it, and
-   every kernel of the path must have launched (the ``lm`` path none).
+   every kernel of the path must have launched (the ``lm``, ``gnn`` and
+   ``lm_train`` paths none).
 4. Prints the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
 
@@ -187,10 +212,16 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
 
-# Vectors the main path builds from: half of the ~2M live vectors the
+# Vectors the main path builds from: a quarter of the ~2M live vectors the
 # spfresh-1b shard is sized for (at 2M the build's posting count nears
-# num_postings_cap and the host-driven build would dominate the run).
-N_BASE = 1_000_000
+# num_postings_cap and the host-driven build would dominate the run).  Cut
+# from 1,000,000 with the gnn and lm_train paths, for the smoke's time
+# budget: fp32's build took 70-112 s there.  A search is no slower at
+# 500,000 (scripts/search_p50_on_card.py; PERF.md section 5).
+N_BASE = 500_000
+# searches timed for each schedule's p50: the first searches after a build
+# that follows a large free can take 2-3x as long on the host
+SEARCH_P50_REPS = 21
 
 # Recall@10 of the JAX reference on the same generator at N=20,000 on the
 # CPU, by codec cell and nprobe (scripts/reference_recall.py); the port
@@ -1416,6 +1447,8 @@ PATH_KERNELS = {
     "retrieval": ("l2_topk_tiles", "scan_per_query_topk", "scan_batched_topk"),
     "train": ("l2_topk_tiles", "scan_per_query_topk"),
     "lm": (),                       # the LM path reaches no kernel of the table
+    "lm_train": (),                 # nor LM training
+    "gnn": (),                      # nor the GAT
 }
 
 
@@ -1471,7 +1504,7 @@ def main_path(torch, np, seed, report, *, cell="fp32", cfg=None, device="cuda"):
     log(f"[{cell}] build: {build_s:.1f} s n_postings={st['n_postings']} "
         f"used_blocks={st['used_blocks']} state_bytes={mem['memory'] + mem['disk']} "
         f"(hot {mem['hot']}, exact tier {mem['cold']})")
-    report.update(build_s=build_s, n_postings=st["n_postings"],
+    report.update(n=n, build_s=build_s, n_postings=st["n_postings"],
                   used_blocks=st["used_blocks"], memory_bytes=mem)
     q_t = torch.as_tensor(queries, device=device)
     for name, v in lire.scan_page_stats(idx.state, q_t, nprobe=nprobe).items():
@@ -1490,7 +1523,7 @@ def main_path(torch, np, seed, report, *, cell="fp32", cfg=None, device="cuda"):
     res, p50, in_search = {}, {}, {}
     for sched in ("batched", "per_query"):
         res[sched] = search(sched)
-        times = [timed(torch, lambda: search(sched))[1] * 1e3 for _ in range(5)]
+        times = [timed(torch, lambda: search(sched))[1] * 1e3 for _ in range(SEARCH_P50_REPS)]
         p50[sched] = statistics.median(times)
         if device == "cuda":
             _, kms, host_ms = kernel_ms_in(torch, lambda: search(sched))
@@ -1867,9 +1900,10 @@ def update_path(torch, np, seed, report, *, cfg=None, device="cuda", n=None,
 # (scripts/reference_recall.py, cell "serve"); the port must reach each
 # minus RECALL_MARGIN.
 REFERENCE_RECALL_SERVE_250K = {1: 0.4193359375, 64: 0.92646484375, "grouped": 0.9265625000000001}
-# the async phase: submitter threads, operations each, rows per request
+# the async phase: submitter threads, operations each (cut from 200 with the
+# gnn and lm_train paths, for the smoke's time budget), rows per request
 ASYNC_THREADS = 4
-ASYNC_OPS = 200
+ASYNC_OPS = 50
 ASYNC_ROWS = 64
 ASYNC_MISS_LIMIT = 0.05
 JOIN_S = 600
@@ -2290,6 +2324,10 @@ def grouped_path(torch, np, seed, report, carry, ids, rows, *, device="cuda",
 # request; update dispatches per WAL fsync window.
 DURABLE_STEPS = 32
 DURABLE_DELTA_AT = 16
+# vectors the durable service is built from: cut from UPDATE_N with the gnn
+# and lm_train paths, for the smoke's time budget (PERF.md section 4: its
+# open and drain took 47.5 + 49.8 s at 250,000 on a slow host)
+DURABLE_N = 125_000
 DURABLE_THREADS = 4
 DURABLE_OPS = 50
 DURABLE_ROWS = 16
@@ -2345,7 +2383,7 @@ def durable_path(torch, np, seed, report, *, cfg=None, device="cuda", n=None,
     from repro_torch.utils.tree import clone_state
 
     cfg = cfg or path_config("fp32")
-    n = n or UPDATE_N
+    n = n or DURABLE_N
     k = 10
     n_fresh = steps * (SERVE_SEARCH_ROWS // 2)
     data, gen_s = timed(torch, lambda: make_spacev_like_bytes(n + n_fresh, cfg.dim, seed=seed))
@@ -2540,8 +2578,9 @@ def durable_path(torch, np, seed, report, *, cfg=None, device="cuda", n=None,
 SHARDS = 4
 REPLICAS = 2
 # request steps and async operations a thread: cut from 16 and 40 with the lm
-# path, for the smoke's time budget (PERF.md section 4)
-SHARDED_STEPS = 8
+# path, then from 8 and 20 with the gnn and lm_train paths, for the smoke's
+# time budget (PERF.md section 4)
+SHARDED_STEPS = 4
 SHARDED_GROUP_COMMIT = 8
 # The build's backlog is not drained first (a sharded round is four rounds
 # of host dispatch): the engine's slots work it down, each a round of
@@ -2552,7 +2591,7 @@ SHARDED_GROUP_COMMIT = 8
 SHARDED_BUDGET = 128
 SHARDED_RETRIES = 32
 SHARDED_THREADS = 4
-SHARDED_OPS = 20
+SHARDED_OPS = 10
 SHARDED_ROWS = 32
 SHARDED_WINDOW = 4
 SEARCH_REPS = 5
@@ -3373,8 +3412,13 @@ def leaf_samples(torch, params):
     """Up to 2^20 evenly strided values of every parameter leaf."""
     from repro_torch.convert import param_leaves
 
+    return tensor_samples([t for _, t, _ in param_leaves(params)])
+
+
+def tensor_samples(tensors):
+    """Up to 2^20 evenly strided values of each tensor."""
     out = []
-    for _, t, _ in param_leaves(params):
+    for t in tensors:
         flat = t.detach().reshape(-1)
         out.append(flat[::max(1, flat.numel() >> 20)].clone())
     return out
@@ -3427,6 +3471,24 @@ def rel_err(a, b):
     return abs(a - b) / max(abs(b), 1e-30)
 
 
+def first_step_vs_cpu(torch, first, loss_fn, host_params, host_batch, what):
+    """Step 1's loss and ``grad_norm`` against the CPU's on a host copy of
+    the same parameters and batch (TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL)."""
+    from repro_torch.train.optimizer import global_norm, value_and_grad
+
+    t0 = time.perf_counter()
+    (loss, _), grads = value_and_grad(loss_fn, host_params, host_batch)
+    gnorm = float(global_norm(grads))
+    out = dict(loss=first["loss"], cpu_loss=float(loss),
+               loss_rel_err=rel_err(first["loss"], float(loss)),
+               grad_norm=first["grad_norm"], cpu_grad_norm=gnorm,
+               grad_norm_rel_err=rel_err(first["grad_norm"], gnorm),
+               cpu_step_s=time.perf_counter() - t0)
+    check(out["loss_rel_err"] <= TRAIN_LOSS_RTOL, f"{what}: first-step loss {out}")
+    check(out["grad_norm_rel_err"] <= TRAIN_GNORM_RTOL, f"{what}: first-step grad_norm {out}")
+    return out
+
+
 def train_family(torch, np, seed, rep, arch, cfg, b, device):
     """``arch``'s ``train_batch`` cell at ``cfg`` with ``b`` rows a batch
     through ``Trainer`` (OPT, no checkpoint): step 1 (checked against the
@@ -3434,7 +3496,7 @@ def train_family(torch, np, seed, rep, arch, cfg, b, device):
     every step finite, ``grad_norm > 0``, ``lr == schedule(OPT, count)``;
     p50, peak memory, one step split.  Returns the trainer."""
     from repro_torch.configs.common import OPT
-    from repro_torch.train.optimizer import global_norm, schedule, value_and_grad
+    from repro_torch.train.optimizer import schedule
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     card = device != "cpu"
@@ -3461,22 +3523,11 @@ def train_family(torch, np, seed, rep, arch, cfg, b, device):
 
     # ---- the first step against the CPU's on a host copy
     cpu_params, cpu_batch, cpu_cfg = host
-    t0 = time.perf_counter()
-    (cpu_loss, _), grads = value_and_grad(lambda p, bt: loss(p, bt, cpu_cfg), cpu_params,
-                                          cpu_batch)
-    cpu_gnorm = float(global_norm(grads))
-    cpu_s = time.perf_counter() - t0
-    del host, cpu_params, cpu_batch, grads
     first = tr.history[0]
-    first_step = dict(loss=first["loss"], cpu_loss=float(cpu_loss),
-                      loss_rel_err=rel_err(first["loss"], float(cpu_loss)),
-                      grad_norm=first["grad_norm"], cpu_grad_norm=cpu_gnorm,
-                      grad_norm_rel_err=rel_err(first["grad_norm"], cpu_gnorm),
-                      host_copy_s=copy_s, cpu_step_s=cpu_s)
-    check(first_step["loss_rel_err"] <= TRAIN_LOSS_RTOL,
-          f"[train] {arch}: first-step loss {first_step}")
-    check(first_step["grad_norm_rel_err"] <= TRAIN_GNORM_RTOL,
-          f"[train] {arch}: first-step grad_norm {first_step}")
+    first_step = first_step_vs_cpu(torch, first, lambda p, bt: loss(p, bt, cpu_cfg), cpu_params,
+                                   cpu_batch, f"[train] {arch}")
+    first_step["host_copy_s"] = copy_s
+    del host, cpu_params, cpu_batch
 
     tr.run()
     for h in tr.history:
@@ -3497,43 +3548,32 @@ def train_family(torch, np, seed, rep, arch, cfg, b, device):
         f"{rep['p50_ms']:.2f} ms (steps {', '.join(f'{x:.2f}' for x in step_ms)} ms); one step "
         f"forward {split['forward_ms']:.2f} / backward {split['backward_ms']:.2f} / AdamW "
         f"{split['adamw_ms']:.2f} ms; peak {peak} bytes; first step loss {first['loss']:.6f} "
-        f"(CPU {float(cpu_loss):.6f}, rel {first_step['loss_rel_err']:.2e}), grad_norm "
-        f"{first['grad_norm']:.6f} (CPU {cpu_gnorm:.6f}, rel "
-        f"{first_step['grad_norm_rel_err']:.2e}; CPU step {cpu_s:.1f} s)")
+        f"(CPU {first_step['cpu_loss']:.6f}, rel {first_step['loss_rel_err']:.2e}), grad_norm "
+        f"{first['grad_norm']:.6f} (CPU {first_step['cpu_grad_norm']:.6f}, rel "
+        f"{first_step['grad_norm_rel_err']:.2e}; CPU step {first_step['cpu_step_s']:.1f} s)")
     return tr
 
 
-def train_restart(torch, np, seed, rep, cfg, b, device, parent):
-    """MIND under deterministic algorithms: A runs TRAIN_RESTART steps; B
-    runs half, checkpoints under a temporary root in ``parent``, and a
-    fresh Trainer restores it and runs to TRAIN_RESTART.  Every leaf of
-    the parameters and the optimiser state, ``count`` included, must be
-    equal; the root is removed."""
+def restart_check(torch, rep, what, trainer, steps, parent):
+    """A restart under deterministic algorithms: ``trainer(ckpt)`` makes a
+    fresh ``Trainer`` (checkpointing under ``ckpt`` when given).  A runs
+    ``steps`` steps; B runs half, checkpoints under a temporary root in
+    ``parent``, and a fresh trainer restores it and runs to ``steps``.
+    Every leaf of the parameters and the optimiser state, ``count``
+    included, must be equal; the root is removed."""
     import shutil
     import tempfile
 
-    from repro_torch.configs.common import OPT
     from repro_torch.convert import train_state_leaves
     from repro_torch.train.checkpoint import CheckpointStore
-    from repro_torch.train.trainer import Trainer, TrainerConfig
 
-    loss = train_cells("mind")[1]
-    batch_for = train_batch_fn(np, "mind", cfg, b, seed, device)
-
-    def trainer(ckpt=None):
-        return Trainer(loss_fn=lambda p, bt: loss(p, bt, cfg),
-                       init_params_fn=lambda: train_init(torch, "mind", cfg, seed, device),
-                       batch_fn=batch_for, opt_cfg=OPT,
-                       trainer_cfg=TrainerConfig(total_steps=10 ** 9, checkpoint_every=10 ** 9),
-                       ckpt_dir=ckpt, device=device)
-
-    half = TRAIN_RESTART // 2
+    half = steps // 2
     os.makedirs(parent, exist_ok=True)
     root = tempfile.mkdtemp(prefix="train_", dir=parent)
     try:
         with deterministic_algorithms(torch):
             a = trainer()
-            a.run(steps=TRAIN_RESTART)
+            a.run(steps=steps)
             b1 = trainer()
             b1.run(steps=half)
             store = CheckpointStore(root)
@@ -3543,21 +3583,43 @@ def train_restart(torch, np, seed, rep, cfg, b, device, parent):
             ckpt_bytes = sum(f.stat().st_size for f in Path(root).rglob("*") if f.is_file())
             b2 = trainer(root)
             _, restore_s = timed(torch, lambda: b2.run(steps=0))
-            check(b2.step == half, f"[train] restart: restored step {b2.step} != {half}")
-            b2.run(steps=TRAIN_RESTART - half)
+            check(b2.step == half, f"{what}: restored step {b2.step} != {half}")
+            b2.run(steps=steps - half)
         la = train_state_leaves(a.params, a.opt_state)
         lb = train_state_leaves(b2.params, b2.opt_state)
         same = [bool(torch.equal(x, y)) for (x, _), (y, _) in zip(la, lb)]
         check(len(la) == len(lb) and all(same),
-              f"[train] restart: {same.count(False)} of {len(la)} leaves differ")
+              f"{what}: {same.count(False)} of {len(la)} leaves differ")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    rep.update(steps=TRAIN_RESTART, checkpoint_at=half, checkpoint_bytes=ckpt_bytes,
+    rep.update(steps=steps, checkpoint_at=half, checkpoint_bytes=ckpt_bytes,
                write_s=write_s, restore_s=restore_s, leaves=len(la), fs=fs_type(parent))
-    log(f"[train] MIND restart under deterministic algorithms: {len(la)} leaves bit-identical "
-        f"after {TRAIN_RESTART} steps against {half} + checkpoint + {TRAIN_RESTART - half}; "
+    log(f"{what} under deterministic algorithms: {len(la)} leaves bit-identical "
+        f"after {steps} steps against {half} + checkpoint + {steps - half}; "
         f"checkpoint {ckpt_bytes} bytes written in {write_s:.2f} s, restored in "
         f"{restore_s:.2f} s (init + load; {rep['fs']})")
+
+
+def restart_trainer(torch, loss_fn, init_fn, batch_fn, device):
+    """``trainer(ckpt)`` for :func:`restart_check`: OPT, no periodic
+    checkpoint, every step logged."""
+    from repro_torch.configs.common import OPT
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    def trainer(ckpt=None):
+        return Trainer(loss_fn=loss_fn, init_params_fn=init_fn, batch_fn=batch_fn, opt_cfg=OPT,
+                       trainer_cfg=TrainerConfig(total_steps=10 ** 9, checkpoint_every=10 ** 9),
+                       ckpt_dir=ckpt, device=device)
+    return trainer
+
+
+def train_restart(torch, np, seed, rep, cfg, b, device, parent):
+    """MIND restarted (:func:`restart_check`) over TRAIN_RESTART steps."""
+    loss = train_cells("mind")[1]
+    restart_check(torch, rep, "[train] MIND restart", restart_trainer(
+        torch, lambda p, bt: loss(p, bt, cfg),
+        lambda: train_init(torch, "mind", cfg, seed, device),
+        train_batch_fn(np, "mind", cfg, b, seed, device), device), TRAIN_RESTART, parent)
 
 
 def train_serve(torch, np, seed, rep, params, *, device, n, index_cfg, users_n):
@@ -3976,6 +4038,392 @@ def lm_path(torch, np, seed, report, *, device="cuda", configs=None, prefill=LM_
     return report
 
 
+# ---------------------------------------------------------------------------
+# lm_train: granite-moe-1b-a400m's train_4k cell on the card
+# ---------------------------------------------------------------------------
+
+# train_4k is 256 sequences of 4,096 tokens (configs/common.py LM_SHAPES);
+# the batch is the largest power of two that one card's 80 GB holds with
+# the remat (scripts/lm_train_on_card.py probe=8,16,32; PERF.md section 4):
+# the (B, 4,096, 49,408) f32 logits, their softmax and gradient are ~0.8 GB
+# a sequence each.  B=16 peaks at 82.9 GB in a one-step probe and runs out
+# of memory in this part; B=32 asks for 24.12 GiB more than is free
+LM_TRAIN_SEQ = 4096
+LM_TRAIN_BATCH = 8
+LM_TRAIN_WARM = 1                  # warm-up steps, then the timed ones
+LM_TRAIN_TIMED = 3
+# the first step of the model cut to 2 layers at full width in f32 (TF32
+# off) on the card against the CPU, at the train path's bounds
+LM_TRAIN_CPU = dict(layers=2, batch=1, seq=512)
+# remat on against off: 2 layers at full width, a batch both hold
+LM_REMAT = dict(layers=2, batch=8, seq=LM_TRAIN_SEQ)
+# the restart: 2 layers at full width, 6 steps or 3 + checkpoint + 3
+LM_RESTART = dict(layers=2, batch=2, seq=1024, steps=6)
+
+
+def lm_train_batch_fn(np, seed, cfg, b, s):
+    """Step ``t``'s batch: ``(b, s)`` tokens uniform over ``[0, vocab)``
+    from ``default_rng((seed, 29, t))``, the labels the tokens (the
+    ``train_4k`` cell's smoke batch)."""
+    def batch_fn(t):
+        toks = np.random.default_rng((seed, 29, t)).integers(0, cfg.vocab, size=(b, s))
+        toks = toks.astype(np.int32)
+        return {"tokens": toks, "labels": toks}
+    return batch_fn
+
+
+def on_device(torch, batch, device):
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def lm_init(torch, cfg, seed, device):
+    from repro_torch.models import transformer as tf
+
+    return tf.init_params(torch.Generator(device=device).manual_seed(seed), cfg, device=device)
+
+
+def run_steps(torch, np, step, params, opt, batch_for, n, card, what, *, moments=False):
+    """``n`` steps of ``step`` from batch 0, each synchronised and timed on
+    the host clock: every leaf must move in step 1 (``moments``: its AdamW
+    first moment, for bf16 parameters, where step 1's update of a norm
+    scale of 1 rounds away) and every step's loss and ``grad_norm`` be
+    finite, ``grad_norm > 0``.  Returns the metrics (floats, with ``ms``)
+    of each step."""
+    from repro_torch.convert import param_leaves
+
+    watch = (lambda: opt["m"]) if moments else (lambda: [t for _, t, _ in param_leaves(params)])
+    before = tensor_samples(watch())
+    out = []
+    for t in range(n):
+        batch = batch_for(t)
+        if card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        if card:
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        out.append({**{k: float(v) for k, v in m.items()}, "ms": ms})
+        if t == 0:
+            moved = [not torch.equal(x, y) for x, y in zip(before, tensor_samples(watch()))]
+            check(all(moved), f"{what}: {moved.count(False)} leaves did not move in step 1")
+            del before
+        check(np.isfinite(out[-1]["loss"]) and np.isfinite(out[-1]["grad_norm"])
+              and out[-1]["grad_norm"] > 0, f"{what}: step {t + 1} {out[-1]}")
+    return out
+
+
+def lm_train_full(torch, np, seed, rep, cfg, *, device, batch, seq, warm, timed_steps):
+    """granite-moe's ``train_4k`` cell at ``cfg`` (its full ``CONFIG``: bf16
+    params, f32 AdamW state, the remat) through the cell's step: ``warm``
+    + ``timed_steps`` steps on ``(batch, seq)`` tokens, then one more split
+    into forward, backward and AdamW (CUDA events)."""
+    from repro_torch.configs.common import lm_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import adamw_init
+
+    card = device != "cpu"
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    params, init_s = timed(torch, lambda: lm_init(torch, cfg, seed, device))
+    opt = adamw_init(params)
+    state_bytes = sum(t.numel() * t.element_size() for t in
+                      [*params.parameters(), *opt["m"], *opt["v"]])
+    batch_np = lm_train_batch_fn(np, seed, cfg, batch, seq)
+    steps = run_steps(torch, np, lm_step("train", cfg), params, opt,
+                      lambda t: on_device(torch, batch_np(t), device), warm + timed_steps, card,
+                      f"[lm_train] {LM_MOE}", moments=cfg.dtype != "float32")
+    split = split_step(torch, lambda p, b: tf.loss_fn(p, b, cfg), params, opt,
+                       on_device(torch, batch_np(warm + timed_steps), device), device)
+    peak = torch.cuda.max_memory_allocated() if card else None
+    step_ms = [x["ms"] for x in steps]
+    p50 = statistics.median(step_ms[warm:])
+    rep.update(batch=batch, seq=seq, layers=cfg.n_layers, remat=cfg.remat, init_s=init_s,
+               state_bytes=state_bytes, step_ms=step_ms, p50_ms=p50,
+               tokens_per_s=batch * seq * 1e3 / p50, split=split, peak_bytes=peak,
+               losses=[x["loss"] for x in steps], grad_norms=[x["grad_norm"] for x in steps])
+    log(f"[lm_train] {LM_MOE} train_4k B={batch} S={seq}, {cfg.n_layers} layers: step p50 "
+        f"{p50:.1f} ms ({rep['tokens_per_s']:.0f} tokens/s; steps "
+        f"{', '.join(f'{x:.1f}' for x in step_ms)} ms); one step forward "
+        f"{split['forward_ms']:.1f} / backward {split['backward_ms']:.1f} / AdamW "
+        f"{split['adamw_ms']:.1f} ms; {state_bytes} bytes of params and AdamW state made in "
+        f"{init_s:.2f} s; peak {peak} bytes; losses {rep['losses']}")
+
+
+def lm_train_vs_cpu(torch, np, seed, rep, cfg, *, device, shape):
+    """The model cut to ``shape["layers"]`` layers at full width in f32:
+    step 1 on the card against the CPU on the same params (carried by
+    ``convert``) and batch."""
+    from repro_torch import convert
+    from repro_torch.configs.common import lm_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import adamw_init
+
+    cut = dataclasses.replace(cfg, n_layers=shape["layers"], dtype="float32")
+    params = lm_init(torch, cut, seed, device)
+    host, copy_s = timed(torch, lambda: convert.lm_params_from_numpy(
+        convert.lm_params_to_numpy(params), cut, device="cpu"))
+    batch = lm_train_batch_fn(np, seed + 1, cut, shape["batch"], shape["seq"])(0)
+    first = run_steps(torch, np, lm_step("train", cut), params, adamw_init(params),
+                      lambda t: on_device(torch, batch, device), 1, device != "cpu",
+                      f"[lm_train] {LM_MOE} at {shape['layers']} layers")[0]
+    del params
+    out = first_step_vs_cpu(torch, first, lambda p, b: tf.loss_fn(p, b, cut), host,
+                            on_device(torch, batch, "cpu"),
+                            f"[lm_train] {LM_MOE} at {shape['layers']} layers")
+    rep.update(layers=shape["layers"], batch=shape["batch"], seq=shape["seq"],
+               host_copy_s=copy_s, **out)
+    log(f"[lm_train] {LM_MOE} at {shape['layers']} layers, f32, {shape['batch']} x "
+        f"{shape['seq']} tokens: first step loss {out['loss']:.6f} (CPU {out['cpu_loss']:.6f}, "
+        f"rel {out['loss_rel_err']:.2e}), grad_norm {out['grad_norm']:.6f} (CPU "
+        f"{out['cpu_grad_norm']:.6f}, rel {out['grad_norm_rel_err']:.2e}; CPU step "
+        f"{out['cpu_step_s']:.1f} s)")
+
+
+def lm_remat_peaks(torch, np, seed, rep, cfg, *, device, shape):
+    """One step at ``shape`` with ``remat`` on and off, from the same params
+    and batch: the losses equal, the peak of each (the remat's must be the
+    lower on the card)."""
+    from repro_torch.configs.common import lm_step
+    from repro_torch.train.optimizer import adamw_init
+
+    card = device != "cpu"
+    batch = lm_train_batch_fn(np, seed + 2, cfg, shape["batch"], shape["seq"])(0)
+    out = {}
+    for remat in (True, False):
+        cut = dataclasses.replace(cfg, n_layers=shape["layers"], remat=remat)
+        params = lm_init(torch, cut, seed, device)
+        opt = adamw_init(params)
+        b = on_device(torch, batch, device)
+        gc.collect()
+        if card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        m, ms = timed(torch, lambda: lm_step("train", cut)(params, opt, b)[2])
+        out[remat] = dict(loss=m["loss"], grad_norm=float(m["grad_norm"]), ms=ms * 1e3,
+                          peak_bytes=torch.cuda.max_memory_allocated() if card else None,
+                          base_bytes=base if card else None)
+        del params, opt, b, m
+    on, off = out[True], out[False]
+    check(bool(torch.equal(on["loss"].cpu(), off["loss"].cpu())),
+          f"[lm_train] remat: loss {float(on['loss'])} != {float(off['loss'])} without it")
+    if card:
+        check(on["peak_bytes"] < off["peak_bytes"], f"[lm_train] remat: peak "
+              f"{on['peak_bytes']} bytes not below {off['peak_bytes']} without it")
+    for x in (on, off):
+        x["loss"] = float(x["loss"])
+    rep.update(layers=shape["layers"], batch=shape["batch"], seq=shape["seq"], remat_on=on,
+               remat_off=off, grad_norm_rel_err=rel_err(on["grad_norm"], off["grad_norm"]))
+    log(f"[lm_train] remat at {shape['layers']} layers, B={shape['batch']} S={shape['seq']}: "
+        f"loss {on['loss']:.6f} both ways; peak {on['peak_bytes']} bytes with it, "
+        f"{off['peak_bytes']} without (params and state {on['base_bytes']}); step "
+        f"{on['ms']:.1f} ms against {off['ms']:.1f} ms; grad_norm rel "
+        f"{rep['grad_norm_rel_err']:.2e}")
+
+
+def lm_train_path(torch, np, seed, report, *, device="cuda", cfg=None, batch=LM_TRAIN_BATCH,
+                  seq=LM_TRAIN_SEQ, warm=LM_TRAIN_WARM, timed_steps=LM_TRAIN_TIMED,
+                  cpu=LM_TRAIN_CPU, remat=LM_REMAT, restart=LM_RESTART, ckpt_parent=None):
+    """granite-moe-1b-a400m trained on the card: its ``train_4k`` cell at the
+    full ``CONFIG`` (:func:`lm_train_full`), then at 2 layers and full
+    width the first step against the CPU (:func:`lm_train_vs_cpu`), remat
+    on against off (:func:`lm_remat_peaks`) and a restart
+    (:func:`restart_check`); each model freed before the next.  Small
+    configs and ``device="cpu"`` rehearse it on the CPU."""
+    from repro_torch.configs import granite_moe_1b_a400m
+    from repro_torch.models import transformer as tf
+
+    cfg = cfg or granite_moe_1b_a400m.CONFIG
+    card = device != "cpu"
+
+    def free():
+        gc.collect()
+        if card:
+            torch.cuda.empty_cache()
+
+    report["reduced"] = {
+        f"{LM_MOE}/train_4k": f"batch {batch} of 256, {warm} + {timed_steps} steps",
+        "card_vs_cpu": f"{cpu['layers']} layers, f32, {cpu['batch']} x {cpu['seq']} tokens",
+        "remat": f"{remat['layers']} layers, B={remat['batch']} S={remat['seq']}, one step",
+        "restart": f"{restart['layers']} layers, B={restart['batch']} S={restart['seq']}"}
+    for name, fn, kw in (
+            ("train_4k", lm_train_full, dict(batch=batch, seq=seq, warm=warm,
+                                             timed_steps=timed_steps)),
+            ("card_vs_cpu", lm_train_vs_cpu, dict(shape=cpu)),
+            ("remat", lm_remat_peaks, dict(shape=remat))):
+        t0 = time.perf_counter()
+        report[name] = {}
+        fn(torch, np, seed, report[name], cfg, device=device, **kw)
+        report[name]["seconds"] = time.perf_counter() - t0
+        free()
+    t0 = time.perf_counter()
+    report["restart"] = {}
+    cut = dataclasses.replace(cfg, n_layers=restart["layers"])
+    restart_check(torch, report["restart"], f"[lm_train] {LM_MOE} restart at {cut.n_layers} "
+                  "layers", restart_trainer(
+                      torch, lambda p, b: tf.loss_fn(p, b, cut),
+                      lambda: lm_init(torch, cut, seed, device),
+                      lm_train_batch_fn(np, seed + 3, cut, restart["batch"], restart["seq"]),
+                      device), restart["steps"], ckpt_parent or ROOT / "build")
+    report["restart"]["seconds"] = time.perf_counter() - t0
+    free()
+    return report
+
+
+# ---------------------------------------------------------------------------
+# gnn: gat-cora's four cells in training
+# ---------------------------------------------------------------------------
+
+GNN_ARCH = "gat-cora"
+# the cells in the order the path runs them, each at its published shape
+# (configs/common.py GNN_SHAPES); minibatch_lg samples with fanouts 15-10
+GNN_ORDER = ("full_graph_sm", "molecule", "minibatch_lg", "ogb_products")
+GNN_WARM = 1                       # warm-up steps, then the timed ones
+GNN_TIMED = 3
+# step 1 on the card against the CPU (TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL);
+# ogb_products' CPU step would take minutes and ~60 GB of host memory
+GNN_CPU_CHECK = ("full_graph_sm", "molecule", "minibatch_lg")
+GNN_RESTART = 6                    # minibatch_lg: 6 steps, or 3 + checkpoint + 3
+
+
+def gnn_cell(torch, np, seed, rep, shape, sh, cfg, *, device, stream):
+    """One GAT cell at shape ``sh``: the batch (``minibatch_lg``: batch
+    ``t`` of ``stream``; the others one batch drawn from ``seed`` as the
+    reference's smoke inputs draw it), params from ``seed``, GNN_WARM +
+    GNN_TIMED steps of the cell's step, one more split into forward,
+    backward and AdamW; two no-grad forwards bit-identical."""
+    from repro_torch import convert
+    from repro_torch.configs.common import gnn_batch, gnn_graph_batch, gnn_step
+    from repro_torch.models import gnn
+    from repro_torch.train.optimizer import adamw_init
+
+    card = device != "cpu"
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    if stream is not None:
+        batch_for = lambda t: gnn_graph_batch(stream(t), device)         # noqa: E731
+        b0, batch_s = timed(torch, lambda: batch_for(0))
+    else:
+        b0, batch_s = timed(torch, lambda: gnn_batch(shape, sh, np.random.default_rng(seed),
+                                                     device=device))
+        batch_for = lambda t: b0                                         # noqa: E731
+    params, init_s = timed(torch, lambda: gnn.init_params(
+        torch.Generator(device=device).manual_seed(seed), cfg, device=device))
+    host = None
+    if shape in GNN_CPU_CHECK:
+        host = (convert.gnn_params_from_numpy(convert.gnn_params_to_numpy(params), cfg,
+                                              device="cpu"),
+                {k: v.cpu() for k, v in b0.items()})
+    opt = adamw_init(params)
+    what = f"[gnn] {GNN_ARCH}/{shape}"
+    steps = run_steps(torch, np, gnn_step(cfg), params, opt,
+                      lambda t: b0 if t == 0 else batch_for(t), GNN_WARM + GNN_TIMED, card, what)
+    loss_fn = lambda p, b: gnn.loss_fn(p, b, cfg)                        # noqa: E731
+    split = split_step(torch, loss_fn, params, opt, batch_for(GNN_WARM + GNN_TIMED), device)
+    with torch.no_grad():
+        f1 = gnn.forward(params, b0, cfg)
+        f2 = gnn.forward(params, b0, cfg)
+        same = bool(torch.equal(f1, f2))
+        finite = bool(torch.isfinite(f1).all())
+    check(same, f"{what}: two forwards differ")
+    check(finite and tuple(f1.shape) == (sh.get("n_graphs", b0["features"].shape[0]),
+                                         cfg.n_classes), f"{what}: logits {tuple(f1.shape)}")
+    del f1, f2
+    peak = torch.cuda.max_memory_allocated() if card else None
+    first = None
+    if host is not None:
+        del params, opt
+        first = first_step_vs_cpu(torch, steps[0], loss_fn, host[0], host[1], what)
+    step_ms = [x["ms"] for x in steps]
+    rep.update(nodes=int(b0["features"].shape[0]), edges=int(b0["edge_src"].shape[0]),
+               d_feat=cfg.d_in, classes=cfg.n_classes, batch_s=batch_s, init_s=init_s,
+               step_ms=step_ms, p50_ms=statistics.median(step_ms[GNN_WARM:]), split=split,
+               peak_bytes=peak, first_step=first, forward_bit_identical=same,
+               losses=[x["loss"] for x in steps], accs=[x["acc"] for x in steps],
+               grad_norms=[x["grad_norm"] for x in steps])
+    log(f"{what}: {rep['nodes']} nodes, {rep['edges']} edges, {cfg.d_in} features; step p50 "
+        f"{rep['p50_ms']:.2f} ms (steps {', '.join(f'{x:.2f}' for x in step_ms)} ms); one step "
+        f"forward {split['forward_ms']:.2f} / backward {split['backward_ms']:.2f} / AdamW "
+        f"{split['adamw_ms']:.2f} ms; peak {peak} bytes; batch made in {batch_s:.2f} s; two "
+        f"forwards bit-identical"
+        + (f"; first step loss rel {first['loss_rel_err']:.2e}, grad_norm rel "
+           f"{first['grad_norm_rel_err']:.2e} against the CPU" if first else ""))
+
+
+def gnn_path(torch, np, seed, report, *, device="cuda", shapes=None, fanouts=None,
+             ckpt_parent=None, cells=GNN_ORDER):
+    """gat-cora's four training cells at their published shapes
+    (``shapes``: ``GNN_SHAPES``), each through the cell's step
+    (:func:`gnn_cell`) and freed before the next; ``minibatch_lg`` samples
+    its batches from ``CSRGraph.random`` over its node slots with the
+    fanouts 15-10 (``minibatch_stream``), then restarts from that stream
+    (:func:`restart_check`).  ``cells`` picks some of them.  Small shapes
+    and ``device="cpu"`` rehearse it on the CPU."""
+    from repro_torch.configs import gat_cora
+    from repro_torch.configs.common import GNN_FANOUTS, GNN_SHAPES, gnn_cfg
+    from repro_torch.data.graphs import CSRGraph, minibatch_stream
+    from repro_torch.models import gnn
+
+    shapes = shapes or GNN_SHAPES
+    fanouts = fanouts or GNN_FANOUTS
+    card = device != "cpu"
+    ogb, full = shapes["ogb_products"], GNN_SHAPES["ogb_products"]
+    report["reduced"] = ({"ogb_products": f"{ogb['n_edges']} edges of {full['n_edges']}"}
+                         if ogb["n_nodes"] == full["n_nodes"] and ogb["n_edges"] < full["n_edges"]
+                         else {})
+    samples: dict = {}
+    for shape in cells:
+        sh = shapes[shape]
+        cfg = gnn_cfg(gat_cora.CONFIG, sh)
+        t0 = time.perf_counter()
+        report[shape] = {}
+        stream = None
+        if shape == "minibatch_lg":
+            graph, graph_s = timed(torch, lambda: CSRGraph.random(
+                max(64, sh["n_nodes"]), avg_degree=8, d_feat=sh["d_feat"],
+                n_classes=sh["n_classes"], seed=seed))
+            draw = minibatch_stream(graph, sh["n_targets"], fanouts, seed=seed)
+
+            def stream(t, draw=draw):
+                if t not in samples:                  # each step's batch sampled once
+                    samples[t] = {k: v for k, v in draw(t).items() if k != "node_ids"}
+                return samples[t]
+            report[shape]["graph_s"] = graph_s
+            report[shape]["fanouts"] = list(fanouts)
+        gnn_cell(torch, np, seed, report[shape], shape, sh, cfg, device=device, stream=stream)
+        report[shape]["make_s"] = report[shape].get("graph_s", 0.0) + report[shape]["batch_s"]
+        if shape == "minibatch_lg":
+            report["restart"] = {}
+            restart_check(torch, report["restart"], f"[gnn] {GNN_ARCH}/minibatch_lg restart",
+                          restart_trainer(
+                              torch, lambda p, b, cfg=cfg: gnn.loss_fn(p, b, cfg),
+                              lambda cfg=cfg: gnn.init_params(
+                                  torch.Generator(device=device).manual_seed(seed), cfg,
+                                  device=device),
+                              stream, device), GNN_RESTART, ckpt_parent or ROOT / "build")
+            del graph, draw, stream
+            samples.clear()
+        gc.collect()
+        if card:
+            torch.cuda.empty_cache()
+        report[shape]["seconds"] = time.perf_counter() - t0
+    return report
+
+
+def smoke_time_cuts() -> dict:
+    """The earlier paths' depth and steps cut for the smoke's time budget
+    (PERF.md section 4); a path's cuts by memory stand in its own report."""
+    return {"fp32, int8": f"N={N_BASE} of 1,000,000",
+            "serve": f"async phase {ASYNC_THREADS} x {ASYNC_OPS} operations of 4 x 200",
+            "durable": f"N={DURABLE_N} of the update path's {UPDATE_N}",
+            "sharded": f"{SHARDED_STEPS} request steps of 16, {SHARDED_THREADS} x {SHARDED_OPS} "
+                       "async operations of 4 x 40",
+            "retrieval": f"{RETRIEVAL_N} of retrieval_cand's 1,000,000 candidates; churn "
+                         f"+{RETRIEVAL_ADD} / -{RETRIEVAL_REMOVE} items of +16,384 / -4,096"}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="chip smoke for the PyTorch/CUDA port")
     ap.add_argument("--seed", type=int, default=0)
@@ -4024,7 +4472,7 @@ def main() -> int:
             "bytes of spill stores and loads in all")
 
     report = {"card": card, "kernel_build_s": build_s, "n": N_BASE, "seed": args.seed,
-              "ptxas": ptxas}
+              "ptxas": ptxas, "reduced": smoke_time_cuts()}
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
     phase_resources(torch, gen, report)
@@ -4190,6 +4638,34 @@ def main() -> int:
         f"decode against prefill {dense['decode_vs_prefill_rel_err']:.3e}, peak "
         f"{dense['peak_bytes']}; launches on the path: {got}; {report['lm']['seconds']:.1f} s "
         f"({card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    reset()
+    report["gnn"] = {}
+    t0 = time.perf_counter()
+    gnn_path(torch, np, args.seed, report["gnn"])
+    report["gnn"]["seconds"] = time.perf_counter() - t0
+    got = launched("gnn")
+    gn = report["gnn"]
+    log("[gnn] step p50 ms " + ", ".join(f"{s} {gn[s]['p50_ms']:.2f} (peak {gn[s]['peak_bytes']})"
+                                         for s in GNN_ORDER)
+        + f"; launches on the path: {got}; {gn['seconds']:.1f} s ({card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    reset()
+    report["lm_train"] = {}
+    t0 = time.perf_counter()
+    lm_train_path(torch, np, args.seed, report["lm_train"])
+    report["lm_train"]["seconds"] = time.perf_counter() - t0
+    got = launched("lm_train")
+    lt = report["lm_train"]
+    log(f"[lm_train] {LM_MOE} train_4k: step p50 {lt['train_4k']['p50_ms']:.1f} ms "
+        f"({lt['train_4k']['tokens_per_s']:.0f} tokens/s), peak {lt['train_4k']['peak_bytes']}; "
+        f"remat peak {lt['remat']['remat_on']['peak_bytes']} against "
+        f"{lt['remat']['remat_off']['peak_bytes']}; launches on the path: {got}; "
+        f"{lt['seconds']:.1f} s ({card})")
     for name, n in launches.items():
         results[name]["launches"] = n
     for name in ("l2_topk_tiles", "scan_batched", "scan_batched_topk", "scan_batched_topk_q8"):

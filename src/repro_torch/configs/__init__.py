@@ -2,10 +2,11 @@
 
 ``get_cells(arch)`` returns the (arch × shape) Cell list; ``all_cells()``
 every cell of the ported archs: the five LMs (granite-20b, deepseek-7b,
-qwen1.5-110b, granite-moe-1b-a400m, phi3.5-moe-42b-a6.6b) and the four
-recsys families (two-tower retrieval, DeepFM, BERT4Rec, MIND).  Exact
-configs are in the per-arch modules.  An arch of the reference that is not ported yet raises
-``KeyError`` naming ``ROADMAP.md`` queue 1.
+qwen1.5-110b, granite-moe-1b-a400m, phi3.5-moe-42b-a6.6b), the GAT
+(gat-cora) and the four recsys families (two-tower retrieval, DeepFM,
+BERT4Rec, MIND).  Exact configs are in the per-arch modules.  An arch of
+the reference that is not ported yet raises ``KeyError`` naming
+``ROADMAP.md`` queue 1.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ _ARCH_MODULES = [
     "qwen15_110b",
     "granite_moe_1b_a400m",
     "phi35_moe_42b_a6_6b",
+    "gat_cora",
     "bert4rec",
     "mind",
     "two_tower_retrieval",
@@ -24,7 +26,7 @@ _ARCH_MODULES = [
 ]
 
 # the reference's other archs, and the queue 1 item that ports each
-_NOT_PORTED = {"gat-cora": 9, "spfresh-1b": 10}
+_NOT_PORTED = {"spfresh-1b": 10}
 
 _CELLS: dict[str, list[Cell]] | None = None
 

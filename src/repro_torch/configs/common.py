@@ -1,4 +1,4 @@
-"""Cell registry, the LM and recsys parts: every ported (architecture ×
+"""Cell registry, the LM, GNN and recsys parts: every ported (architecture ×
 input shape) combination becomes a ``Cell`` with a step function and
 smoke-scale inputs — consumed by the smoke tests and the training
 launcher.
@@ -6,8 +6,7 @@ launcher.
 A ``Cell`` keeps the reference's field names for what the port fills.
 The reference's ``input_specs``, ``in_shardings``, ``out_shardings``,
 ``make_for_cfg`` and ``make_mesh_step`` wait for the dry run and the
-sharding rules (``ROADMAP.md`` queue 1 item 10); ``gnn_cells`` waits for
-its model (item 9).
+sharding rules (``ROADMAP.md`` queue 1 item 10).
 
 ``make_smoke_inputs(scfg, rng, device=...)`` makes the parameters from a
 generator seeded 0 on ``device`` (the card unless the caller asks for the
@@ -27,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.types import resolve_device
+from repro_torch.models import gnn
 from repro_torch.models import transformer as tf
 from repro_torch.train.optimizer import AdamWConfig, adamw_init, make_train_step
 
@@ -127,6 +127,119 @@ def lm_cells(arch: str, cfg: tf.LMConfig, smoke: tf.LMConfig) -> list[Cell]:
             skip_reason=LONG_500K_SKIP if shape_name == "long_500k" else None,
             donate_argnums={"train": (0, 1), "prefill": (), "decode": (1,)}[kind],
             smoke_step_fn=lm_step(kind, smoke),
+        ))
+    return cells
+
+
+# ===========================================================================
+# GNN family (gat-cora)
+# ===========================================================================
+
+GNN_SHAPES = {
+    # shape -> (kind, n_nodes, n_edges, d_feat, n_classes, extras)
+    "full_graph_sm": dict(n_nodes=2708, n_edges=10556, d_feat=1433, n_classes=7),
+    "minibatch_lg": dict(
+        n_nodes=1024 + 1024 * 15 + 1024 * 150,
+        n_edges=1024 * 15 + 1024 * 150 * 10 // 10 * 10,  # 15360 + 153600
+        d_feat=602, n_classes=41, n_targets=1024,
+    ),
+    "ogb_products": dict(
+        n_nodes=2_449_029, n_edges=61_859_140, d_feat=100, n_classes=47
+    ),
+    "molecule": dict(
+        n_nodes=30 * 128, n_edges=64 * 128, d_feat=32, n_classes=2,
+        n_graphs=128, readout="mean",
+    ),
+}
+
+GNN_SMOKE_SHAPES = {
+    "full_graph_sm": dict(n_nodes=64, n_edges=256, d_feat=24, n_classes=7),
+    "minibatch_lg": dict(
+        n_nodes=8 + 8 * 3 + 8 * 6, n_edges=8 * 3 + 8 * 6, d_feat=16,
+        n_classes=5, n_targets=8,
+    ),
+    "ogb_products": dict(n_nodes=128, n_edges=512, d_feat=12, n_classes=7),
+    "molecule": dict(
+        n_nodes=5 * 8, n_edges=8 * 8, d_feat=8, n_classes=2, n_graphs=8,
+        readout="mean",
+    ),
+}
+
+# the sampler's fanouts for minibatch_lg: the cell's 15-10, and the smoke
+# shape's (3, 6), chosen by the reference to reproduce its geometry
+GNN_FANOUTS = (15, 10)
+GNN_SMOKE_FANOUTS = (3, 6)
+
+
+def gnn_cfg(base: gnn.GATConfig, sh: dict) -> gnn.GATConfig:
+    """``base`` at a shape's dataset geometry: features, classes, readout."""
+    return dataclasses.replace(base, d_in=sh["d_feat"], n_classes=sh["n_classes"],
+                               readout=sh.get("readout", "none"),
+                               n_graphs=sh.get("n_graphs", 0))
+
+
+def gnn_graph_batch(raw: dict, device) -> dict:
+    """A sampled subgraph (``data.graphs.sample_subgraph``'s arrays) as the
+    GAT's batch on ``device``; ``node_ids`` stays behind."""
+    return {"features": torch.as_tensor(raw["features"]).to(device),
+            "edge_src": _ids(raw["edge_src"], device), "edge_dst": _ids(raw["edge_dst"], device),
+            "labels": _ids(raw["labels"], device)}
+
+
+def gnn_batch(shape_name: str, sh: dict, rng: np.random.Generator, *, device) -> dict:
+    """A GNN cell's batch at shape ``sh``, drawn from ``rng`` as the
+    reference's smoke inputs draw it.  ``minibatch_lg`` is the real fanout
+    sampler: ``CSRGraph.random(max(64, n), avg_degree=8, seed=0)``,
+    ``n_targets`` targets drawn from ``rng``, ``GNN_SMOKE_FANOUTS`` sampled
+    from ``default_rng(1)``.  The others: normal features, uniform edges, and
+    labels on every node (or one a graph, node ``i`` in graph
+    ``i // (n / G)``)."""
+    from repro_torch.data.graphs import CSRGraph, sample_subgraph
+
+    n, e = sh["n_nodes"], sh["n_edges"]
+    if shape_name == "minibatch_lg":
+        g = CSRGraph.random(max(64, n), avg_degree=8, d_feat=sh["d_feat"],
+                            n_classes=sh["n_classes"], seed=0)
+        targets = rng.choice(g.n_nodes, size=sh["n_targets"], replace=False)
+        raw = sample_subgraph(g, targets, GNN_SMOKE_FANOUTS, np.random.default_rng(1))
+        return gnn_graph_batch(raw, device)
+    b = {"features": torch.as_tensor(rng.normal(size=(n, sh["d_feat"])).astype(np.float32)
+                                     ).to(device),
+         "edge_src": _ids(rng.integers(0, n, size=e), device),
+         "edge_dst": _ids(rng.integers(0, n, size=e), device)}
+    if "n_graphs" in sh:
+        g = sh["n_graphs"]
+        b["graph_ids"] = _ids(np.repeat(np.arange(g), n // g), device)
+        b["labels"] = _ids(rng.integers(0, sh["n_classes"], size=g), device)
+    else:
+        labels = rng.integers(0, sh["n_classes"], size=n).astype(np.int32)
+        if "n_targets" in sh:
+            labels[sh["n_targets"]:] = -1
+        b["labels"] = _ids(labels, device)
+    return b
+
+
+def gnn_step(cfg: gnn.GATConfig):
+    """The train step of a GNN cell built for ``cfg``."""
+    return make_train_step(lambda p, b, _cfg=cfg: gnn.loss_fn(p, b, _cfg), OPT)
+
+
+def gnn_cells(arch: str, base: gnn.GATConfig) -> list[Cell]:
+    cells = []
+    for shape_name, sh in GNN_SHAPES.items():
+        ssh = GNN_SMOKE_SHAPES[shape_name]
+
+        def smoke_inputs(scfg, rng, *, device="cuda", ssh=ssh, shape_name=shape_name):
+            dev = resolve_device(device)
+            params = gnn.init_params(torch.Generator(device=dev).manual_seed(0), scfg,
+                                     device=dev)
+            return (params, adamw_init(params), gnn_batch(shape_name, ssh, rng, device=dev))
+
+        cfg, smoke = gnn_cfg(base, sh), gnn_cfg(base, ssh)
+        cells.append(Cell(
+            arch=arch, shape=shape_name, family="gnn", kind="train", model_cfg=cfg,
+            smoke_cfg=smoke, step_fn=gnn_step(cfg), make_smoke_inputs=smoke_inputs,
+            donate_argnums=(0, 1), smoke_step_fn=gnn_step(smoke),
         ))
     return cells
 

@@ -13,7 +13,8 @@ it across in both directions.
 
 The recsys and LM models' params travel as the reference's nested tree
 of numpy arrays (``twotower_params_{from,to}_numpy``, the DeepFM, BERT4Rec
-and MIND pairs, ``lm_params_{from,to}_numpy``), and AdamW's state as the
+and MIND pairs, ``lm_params_{from,to}_numpy``, ``gnn_params_{from,to}_numpy``),
+and AdamW's state as the
 reference's ``{"count", "m", "v"}`` (:func:`adamw_state_from_numpy`,
 :func:`adamw_state_to_numpy`).
 
@@ -289,10 +290,20 @@ def lm_params_from_numpy(tree: dict, cfg, *, device="cuda"):
         for path, a in tree_paths(tree)))
 
 
+def gnn_params_from_numpy(tree: dict, cfg, *, device="cuda"):
+    """The port's ``GAT`` holding the reference's GAT params ``tree``
+    (``{"layers": [{"w", "a_src", "a_dst"}, …], "head"?}``, numpy, in
+    ``cfg.dtype``) on ``device``."""
+    from repro_torch.models.gnn import GAT
+    from repro_torch.models.recsys import torch_dtype
+
+    return GAT(cfg, _tensor_tree(tree, torch_dtype(cfg.dtype), resolve_device(device)))
+
+
 # the inverse of each ``*_params_from_numpy``
 twotower_params_to_numpy = params_to_numpy
 deepfm_params_to_numpy = bert4rec_params_to_numpy = mind_params_to_numpy = params_to_numpy
-lm_params_to_numpy = params_to_numpy
+lm_params_to_numpy = gnn_params_to_numpy = params_to_numpy
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,8 @@ last, resuming from the newest checkpoint under ``--ckpt``:
         --device cpu --ckpt DIR
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-moe-1b-a400m \\
         --steps 2 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gat-cora \\
+        --shape minibatch_lg --device cpu
 
 It runs on the card; ``--device cpu`` runs on the CPU.  An arch that is
 not ported yet exits naming ``ROADMAP.md``.

@@ -1,7 +1,8 @@
 """Layers shared by the models (the reference's ``models/layers.py``):
 the initialisers, ``ParamTree`` (parameters under the reference's tree
-names), the norms, rotary embeddings, GQA attention over KV chunks with an
-online softmax, the SwiGLU MLP and the capacity-dispatched top-k MoE.
+names), a deterministic segment sum, the norms, rotary embeddings, GQA
+attention over KV chunks with an online softmax, the SwiGLU MLP and the
+capacity-dispatched top-k MoE.
 
 Compute follows the reference's dtypes: attention scores, the softmax
 statistics, norms and the router are f32 whatever the parameters' dtype;
@@ -21,6 +22,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.distance import stable_topk
 
@@ -120,6 +122,22 @@ class ParamTree(nn.Module):
 # Norms
 # ---------------------------------------------------------------------------
 
+def segment_sum(x: torch.Tensor, seg: torch.Tensor, n: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``segment_sum(x, seg, num_segments=n)`` and each segment's row count
+    ``(n,)``.  A row whose segment is outside ``[0, n)`` goes to a scratch
+    segment and counts nowhere, as the reference drops it.  The rows are
+    sorted by segment (stably) and each segment's rows summed in row order
+    by ``torch.segment_reduce``: no float atomics, the same bits on every
+    run."""
+    seg = seg.long()
+    seg = torch.where((seg >= 0) & (seg < n), seg, n)               # scratch segment
+    order = torch.sort(seg, stable=True).indices
+    lengths = torch.bincount(seg, minlength=n + 1)
+    sums = torch.segment_reduce(x[order], "sum", lengths=lengths, unsafe=True)
+    return sums[:n], lengths[:n]
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
@@ -199,7 +217,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, caus
     a multiple of ``kv_chunk`` (the padding masked).  Scores and the
     softmax statistics are f32, a masked score ``NEG_INF``, and the sum is
     divided by ``max(l, 1e-30)`` at the end.  Memory: ``O(B·Sq·H·D +
-    B·H·Sq·kv_chunk)``."""
+    B·H·Sq·kv_chunk)``, under autograd too: each chunk's step is
+    checkpointed (:func:`_chunk_step`); without grad it runs as it is."""
     b, sq, h, d = q.shape
     skv, kh = k.shape[1], k.shape[2]
     kv_chunk = min(kv_chunk, skv)
@@ -218,23 +237,38 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, caus
     m = torch.full(qr.shape[:3], NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros(qr.shape[:3], dtype=torch.float32, device=dev)
     acc = torch.zeros(qr.shape, dtype=torch.float32, device=dev)
+    remat = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     for ci in range(nc):
         sl = slice(ci * kv_chunk, (ci + 1) * kv_chunk)
-        kc = k[:, sl].permute(0, 2, 3, 1).to(torch.float32,          # (B, KH, D, C)
-                                              memory_format=torch.contiguous_format)
-        vc = v[:, sl].transpose(1, 2).to(torch.float32,              # (B, KH, C, D)
-                                         memory_format=torch.contiguous_format)
         kv_pos = ci * kv_chunk + torch.arange(kv_chunk, device=dev)
-        s = torch.matmul(qr, kc)                                   # (B, KH, G·Sq, C)
-        s = torch.where(_attention_mask(q_pos, kv_pos, causal, kv_valid_len), s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.matmul(p, vc)
-        m = m_new
+        mask = _attention_mask(q_pos, kv_pos, causal, kv_valid_len)
+        args = (qr, k[:, sl], v[:, sl], mask, m, l, acc)
+        if remat:
+            m, l, acc = checkpoint(_chunk_step, *args, use_reentrant=False)
+        else:
+            m, l, acc = _chunk_step(*args)
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
     return _heads_out(out, sq, q.dtype)
+
+
+def _chunk_step(qr, k, v, mask, m, l, acc):
+    """One KV chunk of the online softmax: the chunk's f32 scores, the mask,
+    the running max, ``exp``, ``l`` and ``acc`` updated.  Under autograd it
+    runs inside ``checkpoint`` (the reference's ``jax.checkpoint(body)``),
+    so the backward recomputes one chunk's score tile at a time instead of
+    keeping every tile."""
+    kc = k.permute(0, 2, 3, 1).to(torch.float32,                   # (B, KH, D, C)
+                                  memory_format=torch.contiguous_format)
+    vc = v.transpose(1, 2).to(torch.float32,                       # (B, KH, C, D)
+                              memory_format=torch.contiguous_format)
+    s = torch.matmul(qr, kc)                                       # (B, KH, G·Sq, C)
+    s = torch.where(mask, s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(dim=-1)
+    acc = acc * corr[..., None] + torch.matmul(p, vc)
+    return m_new, l, acc
 
 
 def full_attention_ref(q, k, v, *, causal: bool, q_offset=0, kv_valid_len=None):

@@ -241,21 +241,15 @@ def embedding_bag_ragged(table: torch.Tensor, flat_ids: torch.Tensor, segment_id
     ``segment_ids (T,)``, ``(n_segments, dim)`` out (the torch EmbeddingBag
     analogue).  An id that is padding or whose segment is outside
     ``[0, n_segments)`` adds nothing, as the reference's scratch segment
-    and ``segment_sum`` drop it.  Rows are sorted by segment (stably) and
-    each segment's rows summed in row order by ``torch.segment_reduce``:
-    no float atomics, the same bits on every run."""
-    flat_ids, segment_ids = flat_ids.long(), segment_ids.long()
+    and ``segment_sum`` drop it (``layers.segment_sum``: no float atomics,
+    the same bits on every run)."""
+    flat_ids = flat_ids.long()
     emb = table[flat_ids.clamp_min(0)]
     valid = flat_ids >= 0
     emb = emb * valid[:, None].to(emb.dtype)
-    seg = torch.where(valid & (segment_ids >= 0) & (segment_ids < n_segments), segment_ids,
-                      n_segments)                           # scratch segment
-    order = torch.sort(seg, stable=True).indices
-    lengths = torch.bincount(seg, minlength=n_segments + 1)
-    out = torch.segment_reduce(emb[order], "sum", lengths=lengths, unsafe=True)[:-1]
+    out, cnt = L.segment_sum(emb, torch.where(valid, segment_ids.long(), -1), n_segments)
     if combiner == "mean":
-        cnt = lengths[:-1].to(emb.dtype)
-        out = out / torch.clamp_min(cnt, 1.0)[:, None]
+        out = out / torch.clamp_min(cnt.to(emb.dtype), 1.0)[:, None]
     elif combiner != "sum":
         raise ValueError(combiner)
     return out

@@ -14,9 +14,16 @@ The parameters are one ``LM`` (a ``layers.ParamTree``) under the
 reference's tree names; its ``layers`` leaves are stacked ``(L, …)``
 tensors, as the reference's ``vmap`` makes them, so a checkpoint and
 ``convert`` see the reference's tree.  The forward loops over the layers'
-slices.  The reference's ``act_constraint`` is a sharding hint for a mesh
-(the identity on one card) and its ``jax.checkpoint`` a training memory
-device; neither has a counterpart here yet.  Logits are the f32 product of
+slices.  The reference's nested remat is here: under autograd each KV
+chunk of ``chunked_attention`` is checkpointed, and with ``cfg.remat``
+``loss_fn`` checkpoints each layer (``torch.utils.checkpoint``, as
+``jax.checkpoint(body)``), so a training step keeps one ``(B, S, d)``
+input a layer and recomputes the rest in its backward.  The recomputation
+is the same arithmetic: the loss and every gradient are the same bits
+with ``remat`` on or off.  Serving (``prefill``, ``decode_step``) runs
+without grad and checkpoints nothing.  The reference's ``act_constraint``
+is a sharding hint for a mesh (the identity on one card) and has no
+counterpart.  Logits are the f32 product of
 the final hidden state and ``lm_head`` (the reference's
 ``preferred_element_type=f32``); columns at or past ``vocab`` are
 ``-1e30``.
@@ -26,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.types import resolve_device
 from repro_torch.models import layers as L
@@ -215,6 +223,13 @@ def _layer_train(x: torch.Tensor, lp: dict, cfg: LMConfig, positions: torch.Tens
     return x + y, aux, k, v
 
 
+def _layer_remat(x: torch.Tensor, lp: dict, cfg: LMConfig, positions: torch.Tensor):
+    """:func:`_layer_train`'s ``(out, aux)``, the body ``loss_fn``
+    checkpoints."""
+    x, aux, _, _ = _layer_train(x, lp, cfg, positions)
+    return x, aux
+
+
 def _mask_pad_vocab(logits: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
     if cfg.vocab_padded == cfg.vocab:
         return logits
@@ -247,8 +262,13 @@ def loss_fn(params, batch: dict, cfg: LMConfig):
     x = params["embed"][tokens]
     positions = torch.arange(s, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
-        x, a, _, _ = _layer_train(x, layer_params(params, i), cfg, positions)
+        lp = layer_params(params, i)
+        if remat:
+            x, a = checkpoint(_layer_remat, x, lp, cfg, positions, use_reentrant=False)
+        else:
+            x, a, _, _ = _layer_train(x, lp, cfg, positions)
         aux = aux + a
     logits = _logits(params, x, cfg)                                  # (B, S, Vp) f32
     mask = (labels >= 0).float()

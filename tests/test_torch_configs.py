@@ -5,7 +5,10 @@ batch (the same draws as the reference's), a smoke step of every cell
 cache in place), every serving cell's step on the reference's params at
 f32 rtol = atol = 1e-5, and one train step of every LM arch's ``train_4k``
 cell against the reference's (loss and ``grad_norm`` rtol 1e-5, the
-updated state at the training tests' rtol 1e-4, atol 1e-5).
+updated state at the training tests' rtol 1e-4, atol 1e-5).  The GAT's
+four cells: the config and shapes exact, each smoke batch the reference's
+draws (the fanout sampler's arrays for ``minibatch_lg``), each smoke step
+finite and moving every leaf.
 """
 import dataclasses
 
@@ -17,7 +20,7 @@ import torch
 from repro.configs import get_cell as ref_cell
 from repro_torch import configs as C
 from repro_torch import convert
-from repro_torch.configs import bert4rec, deepfm, mind, two_tower_retrieval
+from repro_torch.configs import bert4rec, deepfm, gat_cora, mind, two_tower_retrieval
 from repro_torch.convert import param_leaves
 from repro_torch.train.optimizer import adamw_init
 from tests.test_torch_lm import ARCHS as LM_MODULES
@@ -29,12 +32,14 @@ MODULES = {"bert4rec": bert4rec, "mind": mind, "two-tower-retrieval": two_tower_
            "deepfm": deepfm}
 SHAPES = ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand")
 LM_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+GNN_SHAPES = ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule")
 CELLS = [c for c in C.all_cells() if c.family == "recsys"]
 LM_CELLS = [c for c in C.all_cells() if c.family == "lm"]
+GNN_CELLS = [c for c in C.all_cells() if c.family == "gnn"]
 
 
 def test_registry_holds_the_ported_archs():
-    assert set(C.arch_names()) == PORTED | LM_ARCHS
+    assert set(C.arch_names()) == PORTED | LM_ARCHS | {"gat-cora"}
     for arch in PORTED:
         assert [c.shape for c in C.get_cells(arch)] == list(SHAPES)
         assert all(c.family == "recsys" and c.skip_reason is None for c in C.get_cells(arch))
@@ -45,11 +50,15 @@ def test_registry_holds_the_ported_archs():
         assert [c.donate_argnums for c in cells] == [(0, 1), (), (1,), (1,)]
         assert all(c.family == "lm" for c in cells)
         assert [c.skip_reason is None for c in cells] == [True, True, True, False]
+    gnn_cells = C.get_cells("gat-cora")
+    assert [c.shape for c in gnn_cells] == list(GNN_SHAPES)
+    assert all(c.family == "gnn" and c.kind == "train" and c.skip_reason is None
+               and c.donate_argnums == (0, 1) for c in gnn_cells)
     assert len(C.all_cells(include_skipped=False)) == len(C.all_cells()) - len(LM_ARCHS)
     assert C.get_cell("mind", "serve_bulk").kind == "serve"
     assert C.get_cell("deepfm", "train_batch").donate_argnums == (0, 1)
-    with pytest.raises(KeyError, match="ROADMAP.md queue 1 item 9"):
-        C.get_cells("gat-cora")
+    from repro_torch.configs import _NOT_PORTED
+    assert _NOT_PORTED == {"spfresh-1b": 10}
     with pytest.raises(KeyError, match="ROADMAP.md queue 1 item 10"):
         C.get_cell("spfresh-1b", "maintain")
     with pytest.raises(KeyError):
@@ -229,3 +238,52 @@ def test_lm_train_cell_step_matches_the_reference(arch):
         np.testing.assert_allclose(float(tm[key]), float(rm[key]), rtol=1e-5, atol=1e-7,
                                    err_msg=key)
     assert_state_close(jax.tree_util.tree_map(np.asarray, rp), ro, lm, opt_t, STEP)
+
+
+# ---------------------------------------------------------------------------
+# The GNN family (gat-cora)
+# ---------------------------------------------------------------------------
+
+def test_exact_gnn_config_and_shapes():
+    from repro.configs import gat_cora as rg
+    from repro.configs.common import GNN_SHAPES as R_SHAPES, GNN_SMOKE_SHAPES as R_SMOKE
+    from repro_torch.configs.common import GNN_SHAPES as T_SHAPES, GNN_SMOKE_SHAPES as T_SMOKE
+
+    assert dataclasses.asdict(gat_cora.CONFIG) == dataclasses.asdict(rg.CONFIG)
+    assert (T_SHAPES, T_SMOKE) == (R_SHAPES, R_SMOKE)
+    for shape in GNN_SHAPES:
+        r, t = ref_cell("gat-cora", shape), C.get_cell("gat-cora", shape)
+        assert (t.kind, t.family, t.skip_reason, t.donate_argnums) == (
+            r.kind, r.family, r.skip_reason, r.donate_argnums)
+        assert dataclasses.asdict(t.model_cfg) == dataclasses.asdict(r.model_cfg)
+        assert dataclasses.asdict(t.smoke_cfg) == dataclasses.asdict(r.smoke_cfg)
+
+
+@pytest.mark.parametrize("cell", GNN_CELLS, ids=lambda c: c.name)
+def test_gnn_smoke_inputs_are_the_reference_draws(cell):
+    """The batch array for array (``minibatch_lg``: the sampler's), and the
+    parameters' shapes and dtypes the reference's."""
+    r = ref_cell(cell.arch, cell.shape)
+    rp, _, want = r.make_smoke_inputs(r.smoke_cfg, np.random.default_rng(7))
+    params, opt, got = cell.make_smoke_inputs(cell.smoke_cfg, np.random.default_rng(7),
+                                              device="cpu")
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == {"float32": torch.float32, "int32": torch.int32}[
+            str(np.asarray(want[k]).dtype)], k
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
+    shapes = [np.shape(x) for x in jax.tree_util.tree_leaves(rp)]
+    assert [tuple(t.shape) for _, t, _ in param_leaves(params)] == shapes
+    assert int(opt["count"]) == 0 and len(opt["m"]) == len(shapes)
+
+
+@pytest.mark.parametrize("cell", GNN_CELLS, ids=lambda c: c.name)
+def test_gnn_cell_smoke(cell):
+    args = cell.make_smoke_inputs(cell.smoke_cfg, np.random.default_rng(42), device="cpu")
+    before = [t.detach().clone() for _, t, _ in param_leaves(args[0])]
+    params, opt, metrics = cell.smoke_step_fn(*args)
+    assert params is args[0] and opt is args[1] and int(opt["count"]) == 1
+    assert {"loss", "ce", "acc", "grad_norm", "lr"} <= set(metrics)
+    assert all(torch.isfinite(v).all() for v in metrics.values())
+    after = [t for _, t, _ in param_leaves(params)]
+    assert all(not torch.equal(a, b) for a, b in zip(before, after)), cell.name

@@ -16,6 +16,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 from repro_torch.launch import serve
@@ -106,9 +107,25 @@ def test_train_launcher_trains_an_lm_smoke_cell(capsys, arch):
     assert lines[-1] == "done"
 
 
+@pytest.mark.parametrize("shape", ["minibatch_lg", "molecule"])
+def test_train_launcher_trains_a_gat_cora_cell(capsys, shape, tmp_path):
+    """``--arch gat-cora --shape minibatch_lg`` (the reference's usage line):
+    the sampled smoke batch trains a few steps, checkpoints and resumes."""
+    ckpt = str(tmp_path / "ck")
+    train.main(["--arch", "gat-cora", "--shape", shape, "--steps", "3", "--device", "cpu",
+                "--log-every", "1", "--ckpt", ckpt])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == f"training gat-cora/{shape} (smoke-scale config on cpu)"
+    losses = [float(line.split()[3]) for line in lines if line.startswith("step")]
+    assert len(losses) == 3 and all(np.isfinite(losses)) and lines[-1] == "done"
+    train.main(["--arch", "gat-cora", "--shape", shape, "--steps", "4", "--device", "cpu",
+                "--ckpt", ckpt])
+    assert "resumed from step 3" in capsys.readouterr().out.splitlines()
+
+
 def test_train_launcher_refuses_an_arch_not_ported():
     with pytest.raises(SystemExit, match="ROADMAP.md"):
-        train.main(["--arch", "gat-cora", "--device", "cpu"])
+        train.main(["--arch", "spfresh-1b", "--device", "cpu"])
     with pytest.raises(SystemExit, match="no train cell"):
         train.main(["--arch", "mind", "--shape", "serve_p99", "--device", "cpu"])
 
@@ -122,6 +139,6 @@ def test_train_launcher_runs_as_a_module():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.splitlines()[-1] == "done"
     proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch",
-                           "gat-cora", "--device", "cpu"], capture_output=True, text=True,
+                           "spfresh-1b", "--device", "cpu"], capture_output=True, text=True,
                           env=env, timeout=300)
     assert proc.returncode != 0 and "ROADMAP.md queue 1" in proc.stderr

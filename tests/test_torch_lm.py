@@ -10,7 +10,9 @@ packages round every bf16 product and residual add to 8 bits, but JAX's
 CPU matmul and PyTorch's accumulate in another order and round at other
 steps, so two bf16 paths may differ by a few units of 2^-8 at each of the
 two layers; the f32 head then carries that to the logits).  The port's own
-prefill/decode consistency at f32 holds at ``1e-5``.
+prefill/decode consistency at f32 holds at ``1e-5``.  The remat (each
+layer and each KV chunk checkpointed under autograd) changes no bit of
+the loss or a gradient.
 """
 import dataclasses
 
@@ -39,6 +41,16 @@ ARCHS = {"deepseek-7b": (RDS, deepseek_7b), "granite-20b": (RG20, granite_20b),
 # the smoke configs the model tests run: dense MHA, MQA, GQA + QKV bias, two MoEs
 SMOKES = {arch: mods[1].SMOKE for arch, mods in ARCHS.items()}
 _JIT: dict = {}
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for a test of many tiny ops: a pool of threads
+    per op costs more than the op here, the more so beside other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def ref_fn(name):
@@ -191,6 +203,104 @@ def test_loss_and_grads_match_the_reference(arch):
                                    atol=GRAD_RTOL * max(np.abs(r).max(), 1e-30), err_msg=str(path))
 
 
+@pytest.mark.parametrize("arch", ["deepseek-7b", "qwen1.5-110b", "granite-moe-1b-a400m",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_remat_on_and_off_give_the_same_bits(arch):
+    """``loss_fn`` with each layer checkpointed (``remat``) and without:
+    the loss and every gradient bit-identical (the recomputation is the
+    same arithmetic), over several KV chunks with padding; and with the
+    remat still the reference's ``jax.grad`` within the tolerance above."""
+    cfg = SMOKES[arch]
+    tree, _ = model(cfg)
+    toks = tokens(cfg, 2, 2 * cfg.kv_chunk + 5)
+    labels = toks.copy()
+    labels[:, :2] = -1
+    batch = {"tokens": torch.as_tensor(toks), "labels": torch.as_tensor(labels)}
+    out = {}
+    for remat in (True, False):
+        c = dataclasses.replace(cfg, remat=remat)
+        lm = convert.lm_params_from_numpy(tree, c, device="cpu")
+        out[remat] = value_and_grad(lambda p, b, c=c: TT.loss_fn(p, b, c), lm, batch)
+    (l_on, m_on), g_on = out[True]
+    (l_off, m_off), g_off = out[False]
+    assert torch.equal(l_on, l_off) and torch.equal(m_on["aux"], m_off["aux"])
+    assert len(g_on) == len(g_off) and all(torch.equal(a, b) for a, b in zip(g_on, g_off))
+    jb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
+    (want, _), rg = jax.jit(jax.value_and_grad(lambda p, b: RT.loss_fn(p, b, rcfg(cfg)),
+                                                has_aux=True))(tree, jb)
+    np.testing.assert_allclose(float(l_on), float(want), **F32)
+    for g, r in zip(g_on, jax.tree_util.tree_leaves(rg)):
+        r = np.asarray(r)
+        np.testing.assert_allclose(g.numpy(), r, rtol=0,
+                                   atol=GRAD_RTOL * max(np.abs(r).max(), 1e-30))
+
+
+def _saved_bytes(fn):
+    """Bytes of the tensors autograd keeps for the backward while ``fn``
+    runs, outside any checkpointed region (what the step holds)."""
+    seen = []
+
+    def pack(t):
+        seen.append(t.numel() * t.element_size())
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn()
+    return out, sum(seen)
+
+
+def test_the_remat_keeps_less_for_the_backward(monkeypatch, one_thread):
+    """What autograd saves outside the checkpointed regions: a checkpointed
+    layer keeps its input, not its activations; a checkpointed KV chunk
+    keeps its running statistics, not its ``(B, KH, G·Sq, C)`` f32 score
+    tile and softmax, against the same chunks run without the checkpoint."""
+    cfg = dataclasses.replace(SMOKES["deepseek-7b"], n_layers=3)
+    _, lm = model(cfg)
+    toks = torch.as_tensor(tokens(cfg, 2, 4 * cfg.kv_chunk))
+    batch = {"tokens": toks, "labels": toks}
+    kept = {}
+    for remat in (True, False):
+        c = dataclasses.replace(cfg, remat=remat)
+        (loss, _), kept[remat] = _saved_bytes(lambda c=c: TT.loss_fn(lm, batch, c))
+        loss.backward()
+    assert kept[True] < kept[False] / 2, kept
+    b, s, h, d = 2, 256, 4, 8
+    q, k, v = (torch.randn(b, s, h, d, requires_grad=True) for _ in range(3))
+    out, chunked = _saved_bytes(lambda: TL.chunked_attention(q, k, v, causal=True, kv_chunk=64))
+    grads = torch.autograd.grad(out.sum(), (q, k, v))
+    monkeypatch.setattr(TL, "checkpoint", lambda fn, *a, **kw: fn(*a))
+    plain, unchecked = _saved_bytes(lambda: TL.chunked_attention(q, k, v, causal=True,
+                                                                 kv_chunk=64))
+    assert torch.equal(out, plain)
+    assert all(torch.equal(x, y) for x, y in zip(grads, torch.autograd.grad(plain.sum(),
+                                                                            (q, k, v))))
+    tiles = (s // 64) * b * h * s * 64 * 4                # every chunk's f32 score tile
+    assert chunked * 4 < unchecked and chunked < tiles < unchecked, (chunked, tiles, unchecked)
+
+
+def test_serving_checkpoints_nothing(monkeypatch):
+    """``prefill`` and ``decode_step`` run without grad: no chunk or layer
+    goes through ``checkpoint`` (the serving numbers do not move), while a
+    training loss does."""
+    calls = []
+
+    def counting(fn, *args, **kw):
+        calls.append(fn.__name__)
+        return fn(*args)
+
+    monkeypatch.setattr(TL, "checkpoint", counting)
+    monkeypatch.setattr(TT, "checkpoint", counting)
+    cfg = SMOKES["granite-moe-1b-a400m"]
+    _, lm = model(cfg)
+    toks = torch.as_tensor(tokens(cfg, 2, 3 * cfg.kv_chunk))
+    logits, cache = TT.prefill(lm, toks, cfg)
+    TT.decode_step(lm, cache, toks[:, -1], toks.shape[1] - 1, cfg)
+    assert calls == []
+    value_and_grad(lambda p, b: TT.loss_fn(p, b, cfg), lm, {"tokens": toks, "labels": toks})
+    assert calls.count("_layer_remat") == cfg.n_layers
+    assert calls.count("_chunk_step") == 3 * cfg.n_layers
+
+
 @pytest.mark.parametrize("arch", sorted(SMOKES))
 def test_prefill_and_decode_match_the_reference(arch):
     """``prefill`` over 12 tokens (logits and cache), then ``decode_step``
@@ -303,10 +413,11 @@ def test_params_cross_both_ways_and_init_is_seeded():
                                      cfg, device="cpu")
 
 
-def test_the_chip_smoke_lm_path_on_the_cpu():
+def test_the_chip_smoke_lm_path_on_the_cpu(tmp_path, one_thread):
     """``chip_smoke.lm_path`` rehearsed at small widths: its prefill
     bit-identity, decode, consistency and card-vs-CPU checks all run (the
-    card is the CPU here), with the report's fields filled."""
+    card is the CPU here), with the report's fields filled; then its
+    training part, ``chip_smoke.lm_train_path``."""
     import chip_smoke
 
     moe = dataclasses.replace(granite_moe_1b_a400m.CONFIG, n_layers=3, d_model=128, n_heads=4,
@@ -328,3 +439,22 @@ def test_the_chip_smoke_lm_path_on_the_cpu():
     assert set(rep["reduced"]) == {f"{chip_smoke.LM_MOE}/prefill_32k",
                                    f"{chip_smoke.LM_MOE}/decode_32k", chip_smoke.LM_DENSE,
                                    "card_vs_cpu"}
+    # the training part (bf16 as granite-moe's CONFIG): train_4k steps, the
+    # first step against the CPU, remat on against off, the restart
+    # (bit-identical, its root removed)
+    tiny = dataclasses.replace(moe, n_layers=2, d_model=64, d_ff=32, n_experts=4, vocab=256,
+                               kv_chunk=16)
+    train = chip_smoke.lm_train_path(
+        torch, np, 0, {}, device="cpu", cfg=tiny, batch=2, seq=40,
+        cpu=dict(layers=2, batch=1, seq=24), remat=dict(layers=2, batch=2, seq=40),
+        restart=dict(layers=2, batch=2, seq=24, steps=4), ckpt_parent=tmp_path)
+    full = train["train_4k"]
+    assert len(full["step_ms"]) == chip_smoke.LM_TRAIN_WARM + chip_smoke.LM_TRAIN_TIMED
+    assert set(full["split"]) == {"forward_ms", "backward_ms", "adamw_ms"}
+    assert full["tokens_per_s"] > 0 and full["peak_bytes"] is None
+    assert train["card_vs_cpu"]["loss_rel_err"] <= chip_smoke.TRAIN_LOSS_RTOL
+    assert train["remat"]["remat_on"]["loss"] == train["remat"]["remat_off"]["loss"]
+    assert train["restart"]["steps"] == 4 and train["restart"]["checkpoint_bytes"] > 0
+    assert list(tmp_path.iterdir()) == []
+    assert set(train["reduced"]) == {f"{chip_smoke.LM_MOE}/train_4k", "card_vs_cpu", "remat",
+                                     "restart"}

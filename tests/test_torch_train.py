@@ -3,6 +3,9 @@ AdamW, the schedule, the ``train_batch`` cells' steps, the ``Trainer``
 and its checkpoints, on the reference's params carried over by
 ``convert``.
 
+The GAT's four cells take the same five-step and checkpoint tests as
+the recsys families.
+
 Tolerances: one ``adamw_update`` from the same gradients has ``count``
 and ``lr`` exact and the parameters, ``m`` and ``v`` at rtol = atol =
 1e-6; five steps of a cell at rtol 1e-4, atol 1e-5 (the gradients differ
@@ -28,43 +31,55 @@ from repro_torch import convert
 from repro_torch.configs import get_cell as port_cell
 from repro_torch.configs import deepfm as TDF
 from repro_torch.models import recsys as T
+from repro_torch.models import transformer as TT
 from repro_torch.storage import snapshot as TSNAP
 from repro_torch.train.checkpoint import CheckpointStore
 from repro_torch.train.optimizer import (AdamWConfig, adamw_init, adamw_update, global_norm,
                                          schedule, value_and_grad)
 from repro_torch.train.trainer import Trainer, TrainerConfig
 from tests.test_torch_recsys import FAMILIES, _np, family
+from tests.test_torch_lm import one_thread  # noqa: F401  (a fixture)
 
 STEP = dict(rtol=1e-4, atol=1e-5)
 ARCHS = {"deepfm": "deepfm", "two-tower": "two-tower-retrieval", "bert4rec": "bert4rec",
          "mind": "mind"}
+# the GAT's train cells, named ``arch/shape`` (a recsys arch's is its train_batch)
+GNN_CELLS = ["gat-cora/full_graph_sm", "gat-cora/minibatch_lg", "gat-cora/ogb_products",
+             "gat-cora/molecule"]
 _REF_STEP: dict = {}
+
+
+def _cell(name):
+    """``(arch, shape)`` of a cell named ``arch`` or ``arch/shape``."""
+    arch, _, shape = name.partition("/")
+    return arch, shape or "train_batch"
 
 
 def ref_step(arch):
     """The reference cell's ``smoke_step_fn``, compiled once."""
     if arch not in _REF_STEP:
-        _REF_STEP[arch] = jax.jit(ref_cell(arch, "train_batch").smoke_step_fn)
+        _REF_STEP[arch] = jax.jit(ref_cell(*_cell(arch)).smoke_step_fn)
     return _REF_STEP[arch]
 
 
 def ref_inputs(arch, seed=0):
     """The reference cell's smoke inputs (numpy leaves) and the port's
     over the same params: ``(ref params, ref opt, port params, port opt)``."""
-    cell = ref_cell(arch, "train_batch")
+    cell = ref_cell(*_cell(arch))
     params, opt, _ = cell.make_smoke_inputs(cell.smoke_cfg, np.random.default_rng(seed))
-    pc = port_cell(arch, "train_batch")
+    pc = port_cell(*_cell(arch))
     from_np = {"deepfm": convert.deepfm_params_from_numpy,
                "two-tower-retrieval": convert.twotower_params_from_numpy,
                "bert4rec": convert.bert4rec_params_from_numpy,
-               "mind": convert.mind_params_from_numpy}[arch]
+               "mind": convert.mind_params_from_numpy,
+               "gat-cora": convert.gnn_params_from_numpy}[pc.arch]
     model = from_np(_np(params), pc.smoke_cfg, device="cpu")
     return params, opt, model, adamw_init(model)
 
 
 def batches(arch, step):
     """Step ``step``'s smoke batch from both packages (the same draws)."""
-    rc, pc = ref_cell(arch, "train_batch"), port_cell(arch, "train_batch")
+    rc, pc = ref_cell(*_cell(arch)), port_cell(*_cell(arch))
     rb = rc.make_smoke_inputs(rc.smoke_cfg, np.random.default_rng(step))[-1]
     tb = pc.make_smoke_inputs(pc.smoke_cfg, np.random.default_rng(step), device="cpu")[-1]
     return rb, tb
@@ -176,10 +191,10 @@ def test_value_and_grad_gives_zeros_for_an_unreached_leaf():
 # The train_batch cells, five steps against the reference's
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", list(ARCHS.values()))
+@pytest.mark.parametrize("arch", list(ARCHS.values()) + GNN_CELLS)
 def test_five_cell_steps_match_the_reference(arch):
     rp, ro, model, opt = ref_inputs(arch)
-    step = port_cell(arch, "train_batch").smoke_step_fn
+    step = port_cell(*_cell(arch)).smoke_step_fn
     for s in range(5):
         rb, tb = batches(arch, s)
         for k in rb:
@@ -194,7 +209,7 @@ def test_five_cell_steps_match_the_reference(arch):
 
 
 # ---------------------------------------------------------------------------
-# The Trainer (twins of tests/test_trainer.py on DeepFM)
+# The Trainer (twins of tests/test_trainer.py on DeepFM and its tiny LM)
 # ---------------------------------------------------------------------------
 
 def deepfm_batch_fn(b=64):
@@ -209,13 +224,38 @@ def deepfm_batch_fn(b=64):
     return batch_fn
 
 
-def make_trainer(ckpt_dir, total=30):
-    cfg = TDF.SMOKE
+def tiny_lm():
+    """The reference trainer test's tiny LM (with the remat, the default)."""
+    return TT.LMConfig(name="tiny", vocab=64, n_layers=2, d_model=32, n_heads=2, n_kv_heads=2,
+                       d_ff=64, dtype="float32", kv_chunk=16)
+
+
+def lm_batch_fn(cfg, batch=4, seq=16):
+    """The reference's: the second half of each sequence repeats the first."""
+    def batch_fn(step):
+        toks = np.random.default_rng(step).integers(0, cfg.vocab, size=(batch, seq))
+        toks[:, seq // 2:] = toks[:, : seq - seq // 2]
+        toks = toks.astype(np.int32)
+        return {"tokens": toks, "labels": toks}
+    return batch_fn
+
+
+TRAINER_FAMILIES = {
+    "deepfm": (lambda: (lambda p, b: T.deepfm_loss(p, b, TDF.SMOKE)),
+               lambda: T.deepfm_init(torch.Generator().manual_seed(0), TDF.SMOKE, device="cpu"),
+               deepfm_batch_fn, "bce"),
+    "lm": (lambda: (lambda p, b: TT.loss_fn(p, b, tiny_lm())),
+           lambda: TT.init_params(torch.Generator().manual_seed(0), tiny_lm(), device="cpu"),
+           lambda: lm_batch_fn(tiny_lm()), "ce"),
+}
+
+
+def make_trainer(ckpt_dir, total=30, family="deepfm"):
+    loss, init, batch_fn, _ = TRAINER_FAMILIES[family]
     return Trainer(
-        loss_fn=lambda p, b: T.deepfm_loss(p, b, cfg),
-        init_params_fn=lambda: T.deepfm_init(torch.Generator().manual_seed(0), cfg,
-                                             device="cpu"),
-        batch_fn=deepfm_batch_fn(),
+        loss_fn=loss(),
+        init_params_fn=init,
+        batch_fn=batch_fn(),
         opt_cfg=AdamWConfig(lr=1e-2, warmup_steps=5, decay_steps=total),
         trainer_cfg=TrainerConfig(total_steps=total, checkpoint_every=10, log_every=5),
         ckpt_dir=ckpt_dir,
@@ -223,22 +263,24 @@ def make_trainer(ckpt_dir, total=30):
     )
 
 
-def test_loss_decreases(tmp_path):
-    t = make_trainer(str(tmp_path / "ck"))
+@pytest.mark.parametrize("family", sorted(TRAINER_FAMILIES))
+def test_loss_decreases(tmp_path, family, one_thread):
+    t = make_trainer(str(tmp_path / "ck"), family=family)
     res = t.run()
     assert res["final_step"] == 30
     assert [h["step"] for h in t.history] == [5, 10, 15, 20, 25, 30]
     assert res["final_loss"] < t.history[0]["loss"] * 0.9
-    assert {"loss", "grad_norm", "lr", "bce", "dt"} <= set(t.history[0])
+    assert {"loss", "grad_norm", "lr", TRAINER_FAMILIES[family][3], "dt"} <= set(t.history[0])
 
 
-def test_restart_resumes_bit_for_bit(tmp_path):
-    t1 = make_trainer(str(tmp_path / "a"))
+@pytest.mark.parametrize("family", sorted(TRAINER_FAMILIES))
+def test_restart_resumes_bit_for_bit(tmp_path, family, one_thread):
+    t1 = make_trainer(str(tmp_path / "a"), family=family)
     res1 = t1.run()
-    t2 = make_trainer(str(tmp_path / "b"))
+    t2 = make_trainer(str(tmp_path / "b"), family=family)
     t2.run(steps=20)
     assert CheckpointStore(str(tmp_path / "b")).steps() == [10, 20]
-    t3 = make_trainer(str(tmp_path / "b"))
+    t3 = make_trainer(str(tmp_path / "b"), family=family)
     res3 = t3.run()
     assert res3["final_step"] == 30 and res3["final_loss"] == res1["final_loss"]
     a = convert.train_state_leaves(t1.params, t1.opt_state)
@@ -255,7 +297,7 @@ def test_restart_resumes_bit_for_bit(tmp_path):
 # Checkpoints across the packages
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["two-tower-retrieval", "bert4rec"])
+@pytest.mark.parametrize("arch", ["two-tower-retrieval", "bert4rec", "gat-cora/minibatch_lg"])
 def test_a_reference_checkpoint_restores_in_the_port_and_continues(arch, tmp_path):
     """The reference trains N=3 steps and checkpoints; the port restores
     leaf for leaf bit-equal, then both go on M=2 steps and agree."""
@@ -267,7 +309,7 @@ def test_a_reference_checkpoint_restores_in_the_port_and_continues(arch, tmp_pat
     (model, opt), step, extra = CheckpointStore(str(tmp_path)).restore_latest((model, opt))
     assert step == 3 and extra == {"by": "reference"}
     assert_state_close(_np(rp), ro, model, opt, None, exact=True)
-    tstep = port_cell(arch, "train_batch").smoke_step_fn
+    tstep = port_cell(*_cell(arch)).smoke_step_fn
     for s in range(3, 5):
         rb, tb = batches(arch, s)
         rp, ro, _ = ref_step(arch)(rp, ro, rb)
@@ -275,10 +317,10 @@ def test_a_reference_checkpoint_restores_in_the_port_and_continues(arch, tmp_pat
     assert_state_close(_np(rp), ro, model, opt, STEP)
 
 
-@pytest.mark.parametrize("arch", ["two-tower-retrieval", "mind"])
+@pytest.mark.parametrize("arch", ["two-tower-retrieval", "mind", "gat-cora/molecule"])
 def test_a_port_checkpoint_restores_in_the_reference(arch, tmp_path):
     _, _, model, opt = ref_inputs(arch)
-    tstep = port_cell(arch, "train_batch").smoke_step_fn
+    tstep = port_cell(*_cell(arch)).smoke_step_fn
     for s in range(3):
         model, opt, _ = tstep(model, opt, batches(arch, s)[1])
     CheckpointStore(str(tmp_path)).save(3, (model, opt), extra={"by": "port"})
