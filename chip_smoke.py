@@ -182,6 +182,23 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
    The launch counts are reset before each path and read after it, and
    every kernel of the path must have launched (the ``lm``, ``gnn`` and
    ``lm_train`` paths none).
+   The index cells: each of the six index cells' ``step_fn`` (spfresh-1b's
+   five and two-tower's ``retrieval_cand_ann``, taken through
+   ``configs.get_cell``) runs once on one shard, on a state a path already
+   holds: ``serve_search``, ``serve_search_paged`` and ``serve_update`` on
+   the ``fp32`` path's final state, ``maintain`` on the ``update`` path's
+   (under deterministic algorithms), ``serve_search_grouped`` on the
+   ``grouped`` path's 512 × 256 group index, ``retrieval_cand_ann`` on one
+   user in the ``retrieval`` path.  Each output tensor must equal the call
+   the step wraps bit for bit (``lire.search``, ``lire.insert_batch``,
+   ``lire.maintenance_round``, ``search_grouped``, the retriever's tower
+   and ``IndexedRetriever.retrieve``; a one-shard handle is the vid), and
+   each cell's launches are counted (``serve_search_paged`` must launch
+   #6).  After the last part an empty ``CONFIG`` state is allocated on the
+   card: its ``memory_allocated`` delta must equal the dry run's ``meta``
+   count of one shard's state (each leaf in 512-byte allocator blocks), and
+   the dry run's ``card`` records of the six cells are printed on one
+   ``dryrun:`` line.
 4. Prints the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
 
@@ -1473,11 +1490,16 @@ def check_exact(np, data, queries, d, v, what):
     return float(err[live].max())
 
 
-def main_path(torch, np, seed, report, *, cell="fp32", cfg=None, device="cuda"):
+def main_path(torch, np, seed, report, *, cell="fp32", cfg=None, device="cuda",
+              index_cells=None):
     """Build from ``N_BASE`` vectors, search, insert, delete, search, through
     ``SPFreshIndex``, in the codec ``cell`` (``CELLS``).  ``cfg`` defaults
     to :func:`path_config`; a smaller ``cfg``, ``N_BASE`` and
-    ``device="cpu"`` rehearse the path without a card."""
+    ``device="cpu"`` rehearse the path without a card.  Given a dict
+    ``index_cells``, the final state also runs spfresh-1b's
+    ``serve_search``, ``serve_search_paged`` and ``serve_update`` cells
+    (:func:`fp32_index_cells`; the update batch is the path's first
+    ``UPDATE_B`` fresh rows, inserted again under new vids)."""
     from repro_torch.configs.spfresh import SEARCH_Q, UPDATE_B
     from repro_torch.core import lire
     from repro_torch.core.index import SPFreshIndex
@@ -1610,6 +1632,9 @@ def main_path(torch, np, seed, report, *, cell="fp32", cfg=None, device="cuda"):
     check(self_frac >= 0.95, f"[{cell}] only {self_frac} of the inserts find themselves")
     ins_rate = n_ins / sum(ins_s)
     del_rate = UPDATE_B / del_s
+    if index_cells is not None:
+        vecs = torch.as_tensor(np.asarray(fresh[:UPDATE_B], np.float32), device=device)
+        fp32_index_cells(torch, index_cells, idx.state, q_t, vecs, device=device)
     report.update(recall_at_10=recall, recall_floor=floor, oracle_overlap=ov,
                   navigate_overlap=nav_overlap, search_p50_ms=p50,
                   kernels_inside_one_search=in_search, insert_rows_per_s=ins_rate,
@@ -2263,13 +2288,15 @@ def serve_path(torch, np, seed, report, carry, *, device="cuda", steps=SERVE_STE
 
 
 def grouped_path(torch, np, seed, report, carry, ids, rows, *, device="cuda",
-                 grouped=GROUPED, floor=None):
+                 grouped=GROUPED, floor=None, index_cells=None):
     """Two-level routing on the serve path's final state: a group index of
     ``grouped``'s geometry; ``navigate_grouped`` over every group against
     the flat ``navigate`` (#1) on 64 queries (distances within 1e-4
     relative, probe overlap > 0.9, the reference test's criteria); then
     ``search_grouped`` at ``gprobe`` on the path's queries, recall@10 at
-    least ``floor``."""
+    least ``floor``.  Given a dict ``index_cells``, spfresh-1b's
+    ``serve_search_grouped`` cell then runs on the state and the group
+    index (at the cell's gprobe, 32)."""
     from repro_torch.core import grouping, lire
     from repro_torch.kernels.l2_topk import kernel as LK
 
@@ -2307,6 +2334,14 @@ def grouped_path(torch, np, seed, report, carry, ids, rows, *, device="cuda",
         f"{grouped['gprobe']} on {len(queries)} queries in {search_s * 1e3:.1f} ms: recall@10 "
         f"{recall} (floor {floor})")
     check(recall >= floor, f"[grouped] recall@10 {recall} below {floor}")
+    if index_cells is not None:
+        from repro_torch.configs.spfresh import GPROBE
+
+        alive = torch.ones(1, dtype=torch.bool, device=device)
+        check_index_cell(torch, index_cells, "spfresh-1b", "serve_search_grouped",
+                         ([state], q_t, alive, [gidx]),
+                         lambda: grouping.search_grouped(state, gidx, q_t, k=k, nprobe=nprobe,
+                                                         gprobe=GPROBE), device=device)
     report.update(build_s=build_s, full_gprobe_rel_err=err, full_gprobe_overlap=ov,
                   search_ms=search_s * 1e3, recall_at_10=recall, recall_floor=floor,
                   geometry=grouped)
@@ -3115,7 +3150,7 @@ def retrieval_path(torch, np, seed, report, *, device="cuda", model_cfg=None, n=
                    floor_n=None, floor_cfg=None, floor=None, users_n=RETRIEVAL_USERS,
                    lookups=RETRIEVAL_LOOKUPS, n_add=RETRIEVAL_ADD, n_remove=RETRIEVAL_REMOVE,
                    bursts=RETRIEVAL_BURSTS, engine_add=RETRIEVAL_ENGINE_ADD,
-                   engine_remove=RETRIEVAL_ENGINE_REMOVE):
+                   engine_remove=RETRIEVAL_ENGINE_REMOVE, index_cells=None):
     """Two-tower retrieval through ``IndexedRetriever`` at ``model_cfg``
     (``SERVE_CONFIG``: bf16, the published widths), its params made on the
     device from ``seed`` (``twotower_init_counter``).
@@ -3139,7 +3174,9 @@ def retrieval_path(torch, np, seed, report, *, device="cuda", model_cfg=None, n=
     ``bursts`` bursts of ``users_n`` users, churn after the middle one
     (``engine_add`` items in, ``engine_remove`` out), ``drain()``,
     ``report()``.  The defaults are the card's sizes; a small
-    ``model_cfg`` and configs rehearse the path on the CPU."""
+    ``model_cfg`` and configs rehearse the path on the CPU.  Given a dict
+    ``index_cells``, the ``retrieval_cand_ann`` cell runs on one user
+    against the path's index (:func:`ann_index_cell`)."""
     from repro_torch import api
     from repro_torch.configs.two_tower_retrieval import SERVE_CONFIG
     from repro_torch.models.recsys import twotower_init_counter
@@ -3231,6 +3268,8 @@ def retrieval_path(torch, np, seed, report, *, device="cuda", model_cfg=None, n=
                 str(users_n): p50(lambda: retr.retrieve(users, k=k), 5)}
 
     ann_p50 = schedules(retr, lookup_p50)
+    if index_cells is not None:
+        ann_index_cell(torch, np, index_cells, retr, params, users[:1], device=device)
     retr.retrieve_bruteforce(users[:1], k=k)
     bf_p50 = {"1": p50(lambda: retr.retrieve_bruteforce(users[:1], k=k), 5),
               str(users_n): p50(lambda: retr.retrieve_bruteforce(users, k=k), 3)}
@@ -4412,6 +4451,201 @@ def gnn_path(torch, np, seed, report, *, device="cuda", shapes=None, fanouts=Non
     return report
 
 
+# ---------------------------------------------------------------------------
+# the index cells: spfresh-1b's five and retrieval_cand_ann, on the paths'
+# states, and their dry-run records
+# ---------------------------------------------------------------------------
+
+# the path whose state each index cell's step runs on
+INDEX_CELLS = {
+    ("spfresh-1b", "serve_search"): "fp32",
+    ("spfresh-1b", "serve_search_paged"): "fp32",
+    ("spfresh-1b", "serve_update"): "fp32",
+    ("spfresh-1b", "maintain"): "update",
+    ("spfresh-1b", "serve_search_grouped"): "grouped",
+    ("two-tower-retrieval", "retrieval_cand_ann"): "retrieval",
+}
+# the kernels each index cell must launch on its path's state (the round
+# may find no job on the drained update state, and then launches none)
+INDEX_CELL_KERNELS = {
+    "serve_search": ("l2_topk_tiles", "scan_batched_topk"),
+    "serve_search_paged": ("l2_topk_tiles", "scan_batched_topk"),
+    "serve_update": ("l2_topk_tiles",),
+    "maintain": (),
+    "serve_search_grouped": ("scan_batched_topk",),
+    "retrieval_cand_ann": ("l2_topk_tiles", "scan_per_query_topk"),
+}
+ALLOC_BLOCK = 512       # the CUDA caching allocator rounds each tensor up to this
+
+
+def launch_counts() -> dict:
+    from repro_torch.kernels.l2_topk import kernel as LK
+    from repro_torch.kernels.posting_scan import kernel as SK
+
+    return {**LK.LAUNCHES, **SK.LAUNCHES}
+
+
+def output_tensors(out, name="out"):
+    """``[(name, tensor)]`` of a step's outputs: tensors, tuples and lists
+    of them, index states by leaf."""
+    import torch
+
+    from repro_torch.utils.tree import tensor_leaves
+
+    if isinstance(out, torch.Tensor):
+        return [(name, out)]
+    if isinstance(out, (list, tuple)):
+        return [e for i, x in enumerate(out) for e in output_tensors(x, f"{name}[{i}]")]
+    return [(f"{name}.{k}", t) for k, t in tensor_leaves(out).items()]
+
+
+def check_index_cell(torch, out, arch, shape, args, direct, *, device="cuda", kwargs=None,
+                     deterministic=False):
+    """Run the cell's ``step_fn`` once on ``args`` (through ``get_cell``)
+    and hold every output tensor bit for bit against ``direct()``, the call
+    it wraps; count the kernels the step launched and require the cell's
+    ``INDEX_CELL_KERNELS``.  ``deterministic`` runs both under
+    ``torch.use_deterministic_algorithms``."""
+    from repro_torch.configs import get_cell
+
+    t0 = time.perf_counter()
+    step = get_cell(arch, shape).step_fn
+    with deterministic_algorithms(torch) if deterministic else contextlib.nullcontext():
+        before = launch_counts()
+        got, s = timed(torch, lambda: step(*args, **(kwargs or {})))
+        launches = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+        want = direct()
+    got_t, want_t = output_tensors(got), output_tensors(want)
+    check([n for n, _ in got_t] == [n for n, _ in want_t],
+          f"[{shape}] outputs {[n for n, _ in got_t]} against {[n for n, _ in want_t]}")
+    for (name, a), (_, b) in zip(got_t, want_t):
+        check(a.dtype == b.dtype and bool(torch.equal(a, b)),
+              f"[{shape}] {name} differs from the call the step wraps")
+    if device == "cuda":
+        for name in INDEX_CELL_KERNELS[shape]:
+            check(launches.get(name, 0) > 0, f"[{shape}] the step launched no {name}: {launches}")
+    out[shape] = dict(path=INDEX_CELLS[(arch, shape)], step_ms=s * 1e3, launches=launches,
+                      outputs=len(got_t), seconds=time.perf_counter() - t0)
+    log(f"[index cells] {arch}/{shape} on the {INDEX_CELLS[(arch, shape)]} path's state: "
+        f"{len(got_t)} output tensors bit for bit against the call it wraps; step "
+        f"{s * 1e3:.2f} ms; launches {launches}")
+    return got
+
+
+def insert_one_shard(torch, st, vecs, valid):
+    """What ``serve_update`` wraps on one shard: every valid row is the
+    shard's, its slot ``next_vid`` + its rank, then ``lire.insert_batch``;
+    a landed row's handle is its slot (shard 0's handles are its vids)."""
+    from repro_torch.core import lire
+
+    order = torch.cumsum(valid.to(torch.int32), 0) - 1
+    slots = torch.where(valid, st.next_vid + order, -1).to(torch.int32)
+    mine = valid & (slots < st.cfg.num_vectors_cap)
+    st = st.replace(next_vid=st.next_vid + mine.sum().to(torch.int32))
+    st, landed = lire.insert_batch(st, vecs, torch.clamp(slots, min=0), mine)
+    return [st], torch.where(mine & landed, slots, -1).to(torch.int32)
+
+
+def fp32_index_cells(torch, out, state, q_t, vecs, *, device="cuda"):
+    """``serve_search``, ``serve_search_paged`` and ``serve_update`` on the
+    fp32 path's final state (one shard, alive)."""
+    from repro_torch.core import lire
+
+    alive = torch.ones(1, dtype=torch.bool, device=device)
+    k, nprobe = 10, state.cfg.nprobe
+    check_index_cell(torch, out, "spfresh-1b", "serve_search", ([state], q_t, alive),
+                     lambda: lire.search(state, q_t, k=k, nprobe=nprobe), device=device)
+    check_index_cell(torch, out, "spfresh-1b", "serve_search_paged", ([state], q_t, alive),
+                     lambda: lire.search(state, q_t, k=k, nprobe=nprobe, use_pallas_scan=True,
+                                         scan_schedule="batched"), device=device)
+    valid = torch.ones(vecs.shape[0], dtype=torch.bool, device=device)
+    check_index_cell(torch, out, "spfresh-1b", "serve_update", ([state], vecs, valid),
+                     lambda: insert_one_shard(torch, state, vecs, valid), device=device)
+
+
+def maintain_index_cell(torch, out, state, *, device="cuda"):
+    """``maintain`` on the update path's state against ``lire.maintenance_round``
+    at ``jobs_per_round``, both under deterministic algorithms."""
+    from repro_torch.core import lire
+
+    def direct():
+        st, did = lire.maintenance_round(state, state.cfg.jobs_per_round)
+        return [st], did.to(torch.int32)
+
+    got = check_index_cell(torch, out, "spfresh-1b", "maintain", ([state],), direct,
+                           device=device, deterministic=True)
+    out["maintain"]["jobs"] = int(got[1])
+
+
+def ann_index_cell(torch, np, out, retr, params, user, *, device="cuda"):
+    """``retrieval_cand_ann`` on one user against the retriever's index (one
+    shard), held against ``lire.search`` at nprobe 16 on the retriever's own
+    user tower; its handles mapped through the retriever's id map must be
+    ``retrieve``'s ids, and ``1 - d / 2`` its scores."""
+    from repro_torch.configs.two_tower_retrieval import ANN_NPROBE
+    from repro_torch.core import lire
+
+    state = retr.index.state
+    alive = torch.ones(1, dtype=torch.bool, device=device)
+    got = check_index_cell(
+        torch, out, "two-tower-retrieval", "retrieval_cand_ann",
+        (params, torch.as_tensor(user, device=device), [state], alive),
+        lambda: lire.search(state, retr._users(user), k=10, nprobe=ANN_NPROBE), device=device)
+    scores, ids = retr.retrieve(user, k=10, nprobe=ANN_NPROBE)
+    d, v = (x.cpu().numpy() for x in got)
+    check(bool(np.array_equal(np.where(v >= 0, retr._id_map[np.maximum(v, 0)], -1), ids)),
+          "[retrieval_cand_ann] the step's items are not IndexedRetriever.retrieve's")
+    check(bool(np.array_equal(np.where(v >= 0, 1.0 - d / 2.0, -np.inf), scores)),
+          "[retrieval_cand_ann] the step's scores are not IndexedRetriever.retrieve's")
+    log("[index cells] retrieval_cand_ann: items and scores equal IndexedRetriever.retrieve's")
+
+
+def index_cells_records(torch, out, *, device="cuda"):
+    """The dry run's ``card`` records of the six index cells, and an empty
+    ``CONFIG`` state allocated on the card: its ``memory_allocated`` delta
+    must be the dry run's ``meta`` count of one shard's state, each leaf
+    rounded up to the allocator's 512-byte blocks."""
+    from repro_torch.configs.spfresh import CONFIG
+    from repro_torch.core.types import make_empty_state
+    from repro_torch.launch import dryrun
+    from repro_torch.utils.tree import tensor_leaves
+
+    recs = {f"{a}/{s}": dryrun.run_cell(a, s, "card") for a, s in INDEX_CELLS}
+    for name, r in recs.items():
+        check(r["status"] == "ok", f"[index cells] dry run of {name}: {r['status']}")
+    leaves = list(tensor_leaves(make_empty_state(CONFIG, device="meta")).values())
+    raw = sum(t.numel() * t.element_size() for t in leaves)
+    blocks = sum(-(-t.numel() * t.element_size() // ALLOC_BLOCK) * ALLOC_BLOCK for t in leaves)
+    counted = recs["spfresh-1b/serve_update"]["memory_analysis"]["argument_bytes_each"][0]
+    check(raw == counted, f"[index cells] meta state {raw} bytes, the dry run counts {counted}")
+    delta = None
+    if device == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        st = make_empty_state(CONFIG, device=device)
+        torch.cuda.synchronize()
+        delta = torch.cuda.memory_allocated() - m0
+        del st
+        check(delta == blocks, f"[index cells] an empty CONFIG state took {delta} bytes on the "
+              f"card; the dry run's meta count is {raw} ({blocks} in 512-byte blocks)")
+    out["empty_config_state"] = dict(meta_bytes=raw, meta_bytes_in_blocks=blocks,
+                                     card_delta=delta, leaves=len(leaves))
+    log(f"[index cells] empty CONFIG state: dry-run meta count {raw} bytes over {len(leaves)} "
+        f"leaves, {blocks} in 512-byte allocator blocks; memory_allocated delta on the card "
+        f"{delta}")
+    keep = ("arch", "shape", "status", "card_run", "count_s", "fits_80gb")
+    return {name: {**{k: r[k] for k in keep},
+                   "argument_bytes": r["memory_analysis"]["argument_bytes"],
+                   "output_bytes": r["memory_analysis"]["output_bytes"],
+                   "flops": r["cost_analysis"]["flops"],
+                   "bytes_accessed": r["cost_analysis"]["bytes_accessed"],
+                   "kernel_work": r["cost_analysis"]["kernel_work"],
+                   "compute_s": r["roofline"]["compute_s"], "memory_s": r["roofline"]["memory_s"],
+                   "dominant": r["roofline"]["dominant"]} for name, r in recs.items()}
+
+
 def smoke_time_cuts() -> dict:
     """The earlier paths' depth and steps cut for the smoke's time budget
     (PERF.md section 4); a path's cuts by memory stand in its own report."""
@@ -4428,6 +4662,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="chip smoke for the PyTorch/CUDA port")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     # cuBLAS is deterministic under torch.use_deterministic_algorithms only
     # with a fixed workspace, read when CUDA starts (the update path's
@@ -4506,11 +4741,13 @@ def main() -> int:
         report[path]["launches"] = got
         return got
 
+    cells_rep = report["index_cells"] = {}
     for cell in CELLS:
         reset()
         report[cell] = {}
         t0 = time.perf_counter()
-        p50, ins_rate, del_rate = main_path(torch, np, args.seed, report[cell], cell=cell)
+        p50, ins_rate, del_rate = main_path(torch, np, args.seed, report[cell], cell=cell,
+                                            index_cells=cells_rep if cell == "fp32" else None)
         report[cell]["seconds"] = time.perf_counter() - t0
         got = launched(cell)
         log(f"[{cell}] search p50 ms at Q={SEARCH_Q}: {p50}; insert rows/s {ins_rate:.0f}; "
@@ -4524,6 +4761,7 @@ def main() -> int:
     carry = {}
     t0 = time.perf_counter()
     drains, ms_round = update_path(torch, np, args.seed, report["update"], carry=carry)
+    maintain_index_cell(torch, cells_rep, carry["idx"].state)
     report["update"]["seconds"] = time.perf_counter() - t0
     got = launched("update")
     log(f"[update] {drains['rounds']} drain rounds at {ms_round:.2f} ms; launches on the "
@@ -4554,7 +4792,8 @@ def main() -> int:
     reset()
     report["grouped"] = {}
     t0 = time.perf_counter()
-    grouped_path(torch, np, args.seed, report["grouped"], carry, ids, rows)
+    grouped_path(torch, np, args.seed, report["grouped"], carry, ids, rows,
+                 index_cells=cells_rep)
     report["grouped"]["seconds"] = time.perf_counter() - t0
     got = launched("grouped")
     log(f"[grouped] launches on the path: {got}; {report['grouped']['seconds']:.1f} s ({card})")
@@ -4600,7 +4839,7 @@ def main() -> int:
     reset()
     report["retrieval"] = {}
     t0 = time.perf_counter()
-    retrieval_path(torch, np, args.seed, report["retrieval"])
+    retrieval_path(torch, np, args.seed, report["retrieval"], index_cells=cells_rep)
     report["retrieval"]["seconds"] = time.perf_counter() - t0
     got = launched("retrieval")
     rt = report["retrieval"]
@@ -4666,6 +4905,19 @@ def main() -> int:
         f"remat peak {lt['remat']['remat_on']['peak_bytes']} against "
         f"{lt['remat']['remat_off']['peak_bytes']}; launches on the path: {got}; "
         f"{lt['seconds']:.1f} s ({card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    records = index_cells_records(torch, cells_rep)
+    done = {shape for _, shape in INDEX_CELLS}
+    check(done <= set(cells_rep), f"index cells not run: {sorted(done - set(cells_rep))}")
+    cells_rep["records_s"] = time.perf_counter() - t0
+    cells_rep["seconds"] = cells_rep["records_s"] + sum(cells_rep[c]["seconds"] for c in done)
+    log(f"[index cells] six cells held bit for bit; serve_search_paged launched "
+        f"{cells_rep['serve_search_paged']['launches']}; the checks and records took "
+        f"{cells_rep['seconds']:.1f} s ({card})")
+    print("dryrun: " + json.dumps(records))
     for name, n in launches.items():
         results[name]["launches"] = n
     for name in ("l2_topk_tiles", "scan_batched", "scan_batched_topk", "scan_batched_topk_q8"):
@@ -4680,6 +4932,9 @@ def main() -> int:
              "main_mix", "d256")                              # where a kernel has them
     kernels = [{**{k: results[n][k] for k in keys},
                 **{k: results[n][k] for k in extra if k in results[n]}} for n in KERNEL_ORDER]
+    report["smoke_s"] = time.perf_counter() - t_start
+    log(f"smoke: {report['smoke_s']:.1f} s from start to the report, the kernels' build "
+        f"included ({card})")
     print("report: " + json.dumps(report, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)

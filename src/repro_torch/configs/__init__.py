@@ -1,12 +1,12 @@
 """Architecture registry of the port.
 
 ``get_cells(arch)`` returns the (arch × shape) Cell list; ``all_cells()``
-every cell of the ported archs: the five LMs (granite-20b, deepseek-7b,
-qwen1.5-110b, granite-moe-1b-a400m, phi3.5-moe-42b-a6.6b), the GAT
-(gat-cora) and the four recsys families (two-tower retrieval, DeepFM,
-BERT4Rec, MIND).  Exact configs are in the per-arch modules.  An arch of
-the reference that is not ported yet raises ``KeyError`` naming
-``ROADMAP.md`` queue 1.
+every cell, 46 in all, the reference's: the five LMs (granite-20b,
+deepseek-7b, qwen1.5-110b, granite-moe-1b-a400m, phi3.5-moe-42b-a6.6b; 20
+cells, five skipped), the GAT (gat-cora; 4), the four recsys families
+(two-tower retrieval with its index-served ``retrieval_cand_ann``,
+DeepFM, BERT4Rec, MIND; 17) and the paper's own spfresh-1b (5).  Exact
+configs are in the per-arch modules.
 """
 from __future__ import annotations
 
@@ -23,10 +23,8 @@ _ARCH_MODULES = [
     "mind",
     "two_tower_retrieval",
     "deepfm",
+    "spfresh",
 ]
-
-# the reference's other archs, and the queue 1 item that ports each
-_NOT_PORTED = {"spfresh-1b": 10}
 
 _CELLS: dict[str, list[Cell]] | None = None
 
@@ -51,12 +49,7 @@ def arch_names() -> list[str]:
 
 
 def get_cells(arch: str) -> list[Cell]:
-    cells = _load()
-    if arch in cells:
-        return cells[arch]
-    if arch in _NOT_PORTED:
-        raise KeyError(f"{arch} is not ported yet: ROADMAP.md queue 1 item {_NOT_PORTED[arch]}")
-    raise KeyError(arch)
+    return _load()[arch]
 
 
 def get_cell(arch: str, shape: str) -> Cell:

@@ -92,6 +92,7 @@ def cells() -> list[Cell]:
         out.append(_recsys_cell(
             "bert4rec", shape_name, CONFIG, SMOKE, kind, make_step,
             R.bert4rec_init,
+            lambda cfg, s, _k=kind, _n=shape_name: _batch_struct(cfg, s, _k, _n),
             lambda cfg, s, rng, dev, _k=kind, _n=shape_name: _make_batch(cfg, s, rng, _k, _n, dev),
             donate=donate,
         ))

@@ -1,12 +1,22 @@
-"""Cell registry, the LM, GNN and recsys parts: every ported (architecture ×
-input shape) combination becomes a ``Cell`` with a step function and
-smoke-scale inputs — consumed by the smoke tests and the training
-launcher.
+"""Cell registry, the LM, GNN and recsys parts: every (architecture × input
+shape) combination becomes a ``Cell`` with a step function, its inputs'
+shapes on the ``meta`` device, its spec rules on a mesh and smoke-scale
+inputs — consumed by the smoke tests, the training launcher and the dry
+run (``launch/dryrun.py``).
 
-A ``Cell`` keeps the reference's field names for what the port fills.
-The reference's ``input_specs``, ``in_shardings``, ``out_shardings``,
-``make_for_cfg`` and ``make_mesh_step`` wait for the dry run and the
-sharding rules (``ROADMAP.md`` queue 1 item 10).
+A ``Cell`` keeps the reference's field names.  ``input_specs()`` gives the
+step's arguments as ``meta`` tensors (the reference's
+``ShapeDtypeStruct``s): the parameters, the AdamW state, the batch, the
+cache.  ``in_shardings(multi_pod)`` and ``out_shardings(multi_pod)`` give
+their specs under ``distributed/sharding.py``'s rules, in the arguments'
+structure: a model's specs keyed by its leaves' paths, the AdamW state's
+as lists in the leaves' order.  A mesh-coupled cell (the index: one LIRE
+shard a device) has ``make_mesh_step(mesh, multi_pod) -> (step, args,
+specs)``: the program one device runs and its ``meta`` arguments, as the
+reference's ``shard_map`` body sees them.  The reference's
+``make_for_cfg`` serves its dry run's L=2 / L=4 correction for a
+``lax.scan`` body that XLA counts once; the port has no layer scan and
+counts every layer, so it has none.
 
 ``make_smoke_inputs(scfg, rng, device=...)`` makes the parameters from a
 generator seeded 0 on ``device`` (the card unless the caller asks for the
@@ -26,9 +36,13 @@ import numpy as np
 import torch
 
 from repro_torch.core.types import resolve_device
+from repro_torch.distributed import sharding as shard_rules
 from repro_torch.models import gnn
 from repro_torch.models import transformer as tf
 from repro_torch.train.optimizer import AdamWConfig, adamw_init, make_train_step
+
+I32 = torch.int32
+F32 = torch.float32
 
 
 @dataclasses.dataclass
@@ -39,11 +53,16 @@ class Cell:
     kind: str                        # train | prefill | decode | serve
     model_cfg: Any
     step_fn: Callable                # fn(*inputs)
+    input_specs: Callable[[], tuple] | None = None        # () -> meta args
+    in_shardings: Callable[[bool], tuple] | None = None   # multi_pod -> specs
     make_smoke_inputs: Callable[..., tuple] | None = None
     smoke_cfg: Any = None
     skip_reason: str | None = None
     donate_argnums: tuple = ()
+    out_shardings: Callable[[bool], tuple] | None = None  # multi_pod -> specs
     smoke_step_fn: Callable | None = None   # step built against smoke_cfg
+    # mesh-coupled cells: (mesh, multi_pod) -> (step, meta args, specs)
+    make_mesh_step: Callable | None = None
 
     @property
     def name(self) -> str:
@@ -116,6 +135,39 @@ def _lm_smoke_inputs(kind: str, ssh: dict):
     return smoke_inputs
 
 
+def _lm_input_specs(kind: str, cfg: tf.LMConfig, sh: dict):
+    """The step's arguments on ``meta``: ``(params, opt_state, batch)``,
+    ``(params, tokens)`` or ``(params, cache, tokens, pos)``."""
+    def specs():
+        p = tf.param_specs(cfg)
+        b, s = sh["batch"], sh["seq"]
+        if kind == "train":
+            return (p, adamw_init(p), {"tokens": _sds((b, s), I32), "labels": _sds((b, s), I32)})
+        if kind == "prefill":
+            return (p, _sds((b, s), I32))
+        return (p, tf.init_cache(cfg, b, s, device="meta"), _sds((b,), I32), _sds((), I32))
+    return specs
+
+
+def _lm_shardings(kind: str, cfg: tf.LMConfig):
+    def shardings(multi_pod):
+        ps = shard_rules.lm_param_specs(cfg, multi_pod=multi_pod)
+        da = shard_rules.data_entry(multi_pod)
+        if kind == "train":
+            return (ps, shard_rules.opt_state_specs(ps),
+                    shard_rules.lm_batch_specs("train", multi_pod=multi_pod))
+        if kind == "prefill":
+            return (ps, (da, None))
+        return (ps, shard_rules.lm_cache_specs(multi_pod), (da,), ())
+    return shardings
+
+
+def _lm_outs(multi_pod):
+    """A prefill's or a decode's ``(logits (B, Vp), cache)``."""
+    da = shard_rules.data_entry(multi_pod)
+    return ((da, "model"), shard_rules.lm_cache_specs(multi_pod))
+
+
 def lm_cells(arch: str, cfg: tf.LMConfig, smoke: tf.LMConfig) -> list[Cell]:
     cells = []
     for shape_name, sh in LM_SHAPES.items():
@@ -123,9 +175,11 @@ def lm_cells(arch: str, cfg: tf.LMConfig, smoke: tf.LMConfig) -> list[Cell]:
         cells.append(Cell(
             arch=arch, shape=shape_name, family="lm", kind=kind, model_cfg=cfg,
             smoke_cfg=smoke, step_fn=lm_step(kind, cfg),
+            input_specs=_lm_input_specs(kind, cfg, sh), in_shardings=_lm_shardings(kind, cfg),
             make_smoke_inputs=_lm_smoke_inputs(kind, LM_SMOKE_SHAPES[shape_name]),
             skip_reason=LONG_500K_SKIP if shape_name == "long_500k" else None,
             donate_argnums={"train": (0, 1), "prefill": (), "decode": (1,)}[kind],
+            out_shardings=None if kind == "train" else _lm_outs,
             smoke_step_fn=lm_step(kind, smoke),
         ))
     return cells
@@ -224,6 +278,36 @@ def gnn_step(cfg: gnn.GATConfig):
     return make_train_step(lambda p, b, _cfg=cfg: gnn.loss_fn(p, b, _cfg), OPT)
 
 
+def gnn_batch_struct(sh: dict) -> dict:
+    """A GNN cell's batch on ``meta``, the edge list padded to a multiple
+    of 512 so that it shards over the full multi-pod mesh (padded edges
+    carry ``-1`` ends and are ignored)."""
+    n, e = sh["n_nodes"], ((sh["n_edges"] + 511) // 512) * 512
+    b = {"features": _sds((n, sh["d_feat"]), F32), "edge_src": _sds((e,), I32),
+         "edge_dst": _sds((e,), I32)}
+    if "n_graphs" in sh:
+        b["graph_ids"] = _sds((n,), I32)
+        b["labels"] = _sds((sh["n_graphs"],), I32)
+    else:
+        b["labels"] = _sds((n,), I32)
+    return b
+
+
+def _gnn_input_specs(cfg: gnn.GATConfig, sh: dict):
+    def specs():
+        p = gnn.param_specs(cfg)
+        return (p, adamw_init(p), gnn_batch_struct(sh))
+    return specs
+
+
+def _gnn_shardings(cfg: gnn.GATConfig, sh: dict):
+    def shardings(multi_pod):
+        ps = shard_rules.gnn_param_specs(gnn.param_specs(cfg))
+        return (ps, shard_rules.opt_state_specs(ps),
+                shard_rules.gnn_batch_specs(gnn_batch_struct(sh), multi_pod=multi_pod))
+    return shardings
+
+
 def gnn_cells(arch: str, base: gnn.GATConfig) -> list[Cell]:
     cells = []
     for shape_name, sh in GNN_SHAPES.items():
@@ -238,7 +322,8 @@ def gnn_cells(arch: str, base: gnn.GATConfig) -> list[Cell]:
         cfg, smoke = gnn_cfg(base, sh), gnn_cfg(base, ssh)
         cells.append(Cell(
             arch=arch, shape=shape_name, family="gnn", kind="train", model_cfg=cfg,
-            smoke_cfg=smoke, step_fn=gnn_step(cfg), make_smoke_inputs=smoke_inputs,
+            smoke_cfg=smoke, step_fn=gnn_step(cfg), input_specs=_gnn_input_specs(cfg, sh),
+            in_shardings=_gnn_shardings(cfg, sh), make_smoke_inputs=smoke_inputs,
             donate_argnums=(0, 1), smoke_step_fn=gnn_step(smoke),
         ))
     return cells
@@ -271,9 +356,24 @@ def _recsys_cell(
     kind: str,
     make_step,          # cfg -> step_fn
     init_fn,            # (gen, cfg, device=) -> params
+    batch_struct_fn,    # (cfg, shape) -> batch on meta
     make_batch_fn,      # (cfg, shape, rng, device) -> batch
     donate=(),
 ) -> Cell:
+    def params_meta():
+        return init_fn(None, cfg, device="meta")
+
+    def specs():
+        p = params_meta()
+        b = batch_struct_fn(cfg, RECSYS_SHAPES[shape_name])
+        return (p, adamw_init(p), b) if kind == "train" else (p, b)
+
+    def shardings(multi_pod):
+        ps = shard_rules.recsys_param_specs(params_meta(), multi_pod=multi_pod)
+        bs = shard_rules.recsys_batch_specs(batch_struct_fn(cfg, RECSYS_SHAPES[shape_name]),
+                                            multi_pod=multi_pod)
+        return (ps, shard_rules.opt_state_specs(ps), bs) if kind == "train" else (ps, bs)
+
     def smoke_inputs(scfg, rng, *, device="cuda"):
         dev = resolve_device(device)
         params = init_fn(torch.Generator(device=dev).manual_seed(0), scfg, device=dev)
@@ -284,8 +384,8 @@ def _recsys_cell(
 
     return Cell(
         arch=arch, shape=shape_name, family="recsys", kind=kind,
-        model_cfg=cfg, smoke_cfg=smoke_cfg, step_fn=make_step(cfg),
-        make_smoke_inputs=smoke_inputs, donate_argnums=donate,
+        model_cfg=cfg, smoke_cfg=smoke_cfg, step_fn=make_step(cfg), input_specs=specs,
+        in_shardings=shardings, make_smoke_inputs=smoke_inputs, donate_argnums=donate,
         smoke_step_fn=make_step(smoke_cfg),
     )
 

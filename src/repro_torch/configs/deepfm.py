@@ -48,6 +48,7 @@ def cells() -> list[Cell]:
         out.append(_recsys_cell(
             "deepfm", shape_name, CONFIG, SMOKE, kind, make_step,
             R.deepfm_init,
+            lambda cfg, s, _k=kind: _batch_struct(cfg, {**s, "kind": _k}),
             lambda cfg, s, rng, dev, _k=kind: _make_batch(cfg, {**s, "kind": _k}, rng, dev),
             donate=donate,
         ))

@@ -72,6 +72,7 @@ def cells() -> list[Cell]:
         out.append(_recsys_cell(
             "mind", shape_name, CONFIG, SMOKE, kind, make_step,
             R.mind_init,
+            lambda cfg, s, _k=kind, _n=shape_name: _batch_struct(cfg, s, _k, _n),
             lambda cfg, s, rng, dev, _k=kind, _n=shape_name: _make_batch(cfg, s, rng, _k, _n, dev),
             donate=donate,
         ))

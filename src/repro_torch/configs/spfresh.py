@@ -1,16 +1,41 @@
-"""spfresh-1b per-shard geometry — the paper's SPACEV1B regime.
+"""spfresh-1b — the paper's own architecture at billion scale.
 
-One LIRE shard holds ~2M live vectors (≈8M replica slots) with int8
-payloads.  The reference's shard-mesh dry-run cells are not ported; this
-module carries the per-shard configs, the serving step shapes and the
-service spec (whose ``n_shards`` / ``n_replicas`` open a sharded and
-replicated service).
+Document-sharded SPFresh: one LIRE shard per device (256 on the
+single-pod 16×16 mesh, 512 on the 2×16×16 multi-pod mesh).  One shard holds
+~2M live vectors (≈8M replica slots) with int8 payloads: 256 shards ≈ 0.5B,
+512 ≈ 1.1B vectors.  This module carries the per-shard configs, the service
+spec (whose ``n_shards`` / ``n_replicas`` open a sharded and replicated
+service) and the five cells, the paper's §5 serving steps over the
+distributed layer's steps on a list of per-shard states:
+
+  * ``serve_search`` — Q=1,024 queries, k=10, nprobe=64, at ``CONFIG``;
+  * ``serve_search_paged`` — the same at ``CONFIG_PAGED`` (the batched
+    page-dedup kernel scan, a 32,768-page budget);
+  * ``serve_search_grouped`` — the two-level router: 512 groups of at most
+    256 centroids a shard, the 32 nearest groups probed;
+  * ``serve_update`` — B=4,096 inserts routed to their owner shard;
+  * ``maintain`` — one Local-Rebuilder round (``jobs_per_round`` splits and
+    merges) on every shard.
+
+Each step reads its geometry from the states it is given (``nprobe``,
+``jobs_per_round``, the scan flags of the search cells that take none),
+so a smaller config runs the same step.  A step returns what the call it
+wraps returns and changes no input: the search cells ``(dists (Q, k),
+handles (Q, k))``, ``serve_update`` ``(states, handles (B,))``,
+``maintain`` ``(states, jobs done)``; a handle is ``shard ·
+num_vectors_cap + vid``.  ``maintain``'s step takes the round's ``draw=``
+as ``sharded_maintenance_round`` does.  ``make_mesh_step`` gives the
+program of one device: its one shard's state and the replicated queries
+or update batch.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.core.types import LireConfig
+import torch
+
+from repro_torch.configs.common import F32, Cell, _sds
+from repro_torch.core.types import LireConfig, make_empty_state
 
 CONFIG = LireConfig(
     dim=100,                      # SPACEV byte vectors
@@ -92,3 +117,88 @@ def service_spec(*, paged: bool = True, smoke: bool = False,
         durability=api.DurabilitySpec(root=durable_root),
         shards=api.ShardSpec(n_shards=n_shards, n_replicas=n_replicas),
     )
+
+
+# ---------------------------------------------------------------------------
+# Cells
+# ---------------------------------------------------------------------------
+
+# two-level router geometry: 512 groups of <= 256 centroids per shard;
+# queries probe the 32 nearest groups
+N_GROUPS = 512
+GROUP_CAP = 256
+GPROBE = 32
+
+SHAPES = ("serve_search", "serve_search_paged", "serve_search_grouped", "serve_update",
+          "maintain")
+
+
+def _search_step(**kw):
+    def step(states, queries, shard_alive, group_indexes=None):
+        from repro_torch.distributed.sharded_index import sharded_search
+
+        with torch.no_grad():
+            return sharded_search(states, queries, shard_alive, k=10, probe_chunk=PROBE_CHUNK,
+                                  group_indexes=group_indexes, **kw)
+    return step
+
+
+def _update_step(states, vecs, valid):
+    from repro_torch.distributed.sharded_index import sharded_insert
+
+    with torch.no_grad():
+        return sharded_insert(states, vecs, valid)
+
+
+def _maintain_step(states, *, draw=None):
+    from repro_torch.distributed.sharded_index import sharded_maintenance_round
+
+    with torch.no_grad():
+        return sharded_maintenance_round(states, states[0].cfg.jobs_per_round, draw=draw)
+
+
+STEPS = {
+    "serve_search": _search_step(),
+    "serve_search_paged": _search_step(use_pallas_scan=True, scan_schedule="batched"),
+    "serve_search_grouped": _search_step(gprobe=GPROBE),
+    "serve_update": _update_step,
+    "maintain": _maintain_step,
+}
+
+
+def _group_index_specs(cfg: LireConfig):
+    """One shard's group index on ``meta``: ``N_GROUPS`` groups of
+    ``GROUP_CAP`` member slots."""
+    from repro_torch.core.grouping import GroupIndex
+
+    return GroupIndex(group_centroids=_sds((N_GROUPS, cfg.dim), F32),
+                      group_sqn=_sds((N_GROUPS,), F32),
+                      members=_sds((N_GROUPS, GROUP_CAP), torch.int32),
+                      member_valid=_sds((N_GROUPS, GROUP_CAP), torch.bool))
+
+
+def _make_mesh_step(shape: str):
+    def make(mesh, multi_pod: bool):
+        """One device's program: its shard's state (``CONFIG``, or
+        ``CONFIG_PAGED`` for the paged cell) as a one-shard list, the
+        queries or the update batch replicated.  Every argument is the
+        device's own, so each spec is ``None``."""
+        cfg = CONFIG_PAGED if shape == "serve_search_paged" else CONFIG
+        states = [make_empty_state(cfg, device="meta")]
+        alive = _sds((1,), torch.bool)
+        if shape == "serve_update":
+            args = (states, _sds((UPDATE_B, cfg.dim), F32), _sds((UPDATE_B,), torch.bool))
+        elif shape == "maintain":
+            args = (states,)
+        else:
+            args = (states, _sds((SEARCH_Q, cfg.dim), F32), alive)
+            if shape == "serve_search_grouped":
+                args = (*args, [_group_index_specs(cfg)])
+        return STEPS[shape], args, (None,) * len(args)
+    return make
+
+
+def cells() -> list[Cell]:
+    return [Cell(arch="spfresh-1b", shape=shape, family="index", kind="serve", model_cfg=CONFIG,
+                 smoke_cfg=SMOKE, step_fn=STEPS[shape], make_mesh_step=_make_mesh_step(shape))
+            for shape in SHAPES]

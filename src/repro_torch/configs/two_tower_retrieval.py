@@ -5,9 +5,13 @@ The flagship of the reference: ``retrieval_cand`` is the ANN query the
 SPFresh index serves (``repro_torch.serve.retrieval``).  ``SERVE_CONFIG``
 is the bf16 checkpoint the serving cells read; ``ann_index_cfg`` the
 index over the item tower's embeddings.  ``cells()`` gives
-``train_batch``, ``serve_p99``, ``serve_bulk`` and ``retrieval_cand``; the
-reference's mesh cell ``retrieval_cand_ann`` waits for the dry run
-(``ROADMAP.md`` queue 1 item 10).
+``retrieval_cand_ann`` first, then ``train_batch``, ``serve_p99``,
+``serve_bulk`` and ``retrieval_cand``.  ``retrieval_cand_ann`` serves
+``retrieval_cand`` from the index instead of the brute-force GEMM over
+the candidates: the user tower on ``SERVE_CONFIG``, then a sharded search
+at ``ann_index_cfg()`` with nprobe 16 over a document-sharded corpus, one
+shard a device.  Its step is ``(params, user_fields, states, shard_alive)
+-> (dists (B, 10), handles (B, 10))``.
 """
 import dataclasses
 
@@ -77,8 +81,36 @@ def _make_batch(cfg, sh, rng, kind, shape_name, device):
     return out
 
 
+ANN_NPROBE = 16
+
+
+@torch.no_grad()
+def ann_step(params, user_fields, states, shard_alive):
+    """``retrieval_cand_ann``: the user tower, then the sharded search."""
+    from repro_torch.distributed.sharded_index import sharded_search
+
+    u = R.user_tower(params, user_fields)
+    return sharded_search(states, u.float(), shard_alive, k=10, nprobe=ANN_NPROBE)
+
+
+def _ann_make_mesh_step(mesh, multi_pod: bool):
+    """One device's program: the bf16 serving params under the recsys
+    rules (the tables row-sharded over ``model``), one user replicated,
+    its shard's state at ``ann_index_cfg()``."""
+    from repro_torch.core.types import make_empty_state
+    from repro_torch.distributed.sharding import recsys_param_specs
+
+    params = R.twotower_init(None, SERVE_CONFIG, device="meta")
+    args = (params, _sds((1, CONFIG.n_user_fields), torch.int32),
+            [make_empty_state(ann_index_cfg(), device="meta")], _sds((1,), torch.bool))
+    specs = (recsys_param_specs(params, multi_pod=multi_pod), None, None, None)
+    return ann_step, args, specs
+
+
 def cells() -> list[Cell]:
-    out = []
+    out = [Cell(arch="two-tower-retrieval", shape="retrieval_cand_ann", family="recsys",
+                kind="serve", model_cfg=CONFIG, smoke_cfg=SMOKE, step_fn=ann_step,
+                make_mesh_step=_ann_make_mesh_step)]
     for shape_name, sh in RECSYS_SHAPES.items():
         kind = sh["kind"]
         if kind == "train":
@@ -94,6 +126,7 @@ def cells() -> list[Cell]:
         out.append(_recsys_cell(
             "two-tower-retrieval", shape_name, cell_cfg, SMOKE, kind, make_step,
             R.twotower_init,
+            lambda cfg, s, _k=kind, _n=shape_name: _batch_struct(cfg, s, _k, _n),
             lambda cfg, s, rng, dev, _k=kind, _n=shape_name: _make_batch(cfg, s, rng, _k, _n, dev),
             donate=donate,
         ))

@@ -4,11 +4,15 @@ plain PyTorch version.
 Replaces the TPU kernel ``l2_topk_tiles`` (``repro/kernels/l2_topk/
 kernel.py``).  The kernel itself is ``kernels/csrc/l2_topk.cu``.  For a
 tensor on the CPU the wrapper runs :func:`l2_topk_tiles_plain`; for a
-CUDA tensor it launches the kernel or raises.
+CUDA tensor it launches the kernel or raises; for a ``meta`` tensor (the
+dry run) it returns the outputs' shapes and counts the kernel's work
+(``kernels/work.py``).
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels import work
 
 BIG = 3.0e38
 
@@ -58,15 +62,18 @@ def l2_topk_tiles(queries, centroids, c_sqn, *, k: int, block_p: int = 512):
     _check(queries, centroids, c_sqn, k, block_p)
     if queries.device.type == "cpu":
         return l2_topk_tiles_plain(queries, centroids, c_sqn, k=k, block_p=block_p)
-    if queries.device.type != "cuda":
+    if queries.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {queries.device}")
-    from repro_torch.kernels.build import check, library
-
     q_n, dim = queries.shape
     p_n = centroids.shape[0]
     t = p_n // block_p
     out_d = torch.empty((q_n, t * k), dtype=torch.float32, device=queries.device)
     out_i = torch.empty((q_n, t * k), dtype=torch.int32, device=queries.device)
+    if queries.device.type == "meta":
+        work.add("l2_topk_tiles", *work.l2_topk_tiles(q_n, p_n, dim, k, block_p))
+        return out_d, out_i
+    from repro_torch.kernels.build import check, library
+
     lib = library("l2_topk")
     stream = torch.cuda.current_stream(queries.device).cuda_stream
     rc = lib.l2_topk_tiles_f32(

@@ -22,12 +22,16 @@ memory (float32 at ``BS = 32``: ``d`` above about 1,750).  Block ids must
 lie in ``[0, B)``; the callers clamp absent pages to 0 and mask them by
 bias, except for ``scan_batched``, which takes -1 for a padding page and
 writes its rows as ``BIG`` itself.
+
+For ``meta`` tensors (the dry run) a wrapper launches nothing: it returns
+its outputs' shapes and counts the kernel's work (``kernels/work.py``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.distance import stable_topk
+from repro_torch.kernels import work
 
 BIG = 3.0e38
 
@@ -140,14 +144,19 @@ def _check(ids, queries, blocks, k: int = 1, *, q8: bool = False, **f32):
 
 
 def _on_cpu(blocks) -> bool:
-    if blocks.device.type not in ("cpu", "cuda"):
+    if blocks.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {blocks.device}")
     return blocks.device.type == "cpu"
 
 
-def _launch(fn_name, blocks, *args, lib="posting_scan"):
+def _launch(fn_name, blocks, *args, cost, lib="posting_scan"):
     """Call the C entry ``fn_name`` of library ``lib`` (tensors by pointer)
-    on the current stream, raise on its CUDA error code, count the launch."""
+    on the current stream, raise on its CUDA error code, count the launch.
+    On ``meta`` add ``cost`` (``(flops, bytes)``) to the open work counts
+    instead."""
+    if blocks.device.type == "meta":
+        work.add(fn_name, *cost)
+        return
     from repro_torch.kernels.build import check, library
 
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
@@ -180,7 +189,8 @@ def scan_per_query(block_table, queries, blocks):
     _, bs, dim = blocks.shape
     out_d = _outputs((q_n, nb, bs), blocks, with_idx=False)
     _launch("scan_per_query", blocks, block_table, queries, blocks,
-            _DTYPE_CODE[blocks.dtype], out_d, q_n, nb, bs, dim)
+            _DTYPE_CODE[blocks.dtype], out_d, q_n, nb, bs, dim,
+            cost=work.scan_per_query(q_n, nb, bs, dim, blocks.element_size()))
     return out_d
 
 
@@ -195,7 +205,8 @@ def scan_batched(unique_blocks, queries, blocks):
     _, bs, dim = blocks.shape
     out_d = _outputs((nb, q_n, bs), blocks, with_idx=False)
     _launch("scan_batched", blocks, unique_blocks, queries, blocks,
-            _DTYPE_CODE[blocks.dtype], out_d, nb, q_n, bs, dim, lib="scan_batched_topk")
+            _DTYPE_CODE[blocks.dtype], out_d, nb, q_n, bs, dim, lib="scan_batched_topk",
+            cost=work.scan_batched(nb, q_n, bs, dim, blocks.element_size()))
     return out_d
 
 
@@ -214,7 +225,8 @@ def scan_per_query_topk(block_table, queries, blocks, slot_bias, *, k: int):
         return scan_per_query_topk_plain(block_table, queries, blocks, slot_bias, k=k)
     out_d, out_i = _outputs((q_n, nb, k), blocks)
     _launch("scan_per_query_topk", blocks, block_table, queries, blocks,
-            _DTYPE_CODE[blocks.dtype], slot_bias, out_d, out_i, q_n, nb, bs, dim, k)
+            _DTYPE_CODE[blocks.dtype], slot_bias, out_d, out_i, q_n, nb, bs, dim, k,
+            cost=work.scan_per_query(q_n, nb, bs, dim, blocks.element_size(), k=k))
     return out_d, out_i
 
 
@@ -233,7 +245,8 @@ def scan_batched_topk(unique_blocks, queries, blocks, slot_bias, *, k: int):
     out_d, out_i = _outputs((nb, q_n, k), blocks)
     _launch("scan_batched_topk", blocks, unique_blocks, queries, blocks,
             _DTYPE_CODE[blocks.dtype], slot_bias, out_d, out_i, nb, q_n, bs, dim, k,
-            lib="scan_batched_topk")
+            lib="scan_batched_topk", cost=work.scan_batched(nb, q_n, bs, dim,
+                                                            blocks.element_size(), k=k))
     return out_d, out_i
 
 
@@ -251,7 +264,8 @@ def scan_per_query_topk_q8(block_table, queries, codes, slot_bias, page_sz, *, k
         return scan_per_query_topk_q8_plain(block_table, queries, codes, slot_bias, page_sz, k=k)
     out_d, out_i = _outputs((q_n, nb, k), codes)
     _launch("scan_per_query_topk_q8", codes, block_table, queries, codes, slot_bias,
-            page_sz, out_d, out_i, q_n, nb, bs, dim, k)
+            page_sz, out_d, out_i, q_n, nb, bs, dim, k,
+            cost=work.scan_per_query(q_n, nb, bs, dim, 1, k=k, q8=True))
     return out_d, out_i
 
 
@@ -269,5 +283,6 @@ def scan_batched_topk_q8(unique_blocks, queries, codes, slot_bias, page_sz, *, k
         return scan_batched_topk_q8_plain(unique_blocks, queries, codes, slot_bias, page_sz, k=k)
     out_d, out_i = _outputs((nb, q_n, k), codes)
     _launch("scan_batched_topk_q8", codes, unique_blocks, queries, codes, slot_bias,
-            page_sz, out_d, out_i, nb, q_n, bs, dim, k, lib="scan_batched_topk")
+            page_sz, out_d, out_i, nb, q_n, bs, dim, k, lib="scan_batched_topk",
+            cost=work.scan_batched(nb, q_n, bs, dim, 1, k=k, q8=True))
     return out_d, out_i

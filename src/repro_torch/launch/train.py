@@ -11,8 +11,8 @@ last, resuming from the newest checkpoint under ``--ckpt``:
     PYTHONPATH=src python -m repro_torch.launch.train --arch gat-cora \\
         --shape minibatch_lg --device cpu
 
-It runs on the card; ``--device cpu`` runs on the CPU.  An arch that is
-not ported yet exits naming ``ROADMAP.md``.
+It runs on the card; ``--device cpu`` runs on the CPU.  An unknown arch,
+or one without a train cell (spfresh-1b), exits saying so.
 """
 from __future__ import annotations
 

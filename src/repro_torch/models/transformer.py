@@ -157,6 +157,8 @@ def init_params(gen: torch.Generator | None, cfg: LMConfig, *, device="cuda") ->
         lp = _init_layer(gen, cfg, device=dev)
         if layers is None:
             layers = _stacked_like(lp, cfg.n_layers)
+        if dev.type == "meta":
+            break                       # shapes only: nothing to draw or store
         _store_layer(layers, lp, i)
         del lp
     return LM(cfg, {

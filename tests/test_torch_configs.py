@@ -33,15 +33,17 @@ MODULES = {"bert4rec": bert4rec, "mind": mind, "two-tower-retrieval": two_tower_
 SHAPES = ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand")
 LM_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 GNN_SHAPES = ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule")
-CELLS = [c for c in C.all_cells() if c.family == "recsys"]
+# the recsys cells with smoke inputs (not the index-served retrieval_cand_ann)
+CELLS = [c for c in C.all_cells() if c.family == "recsys" and c.make_mesh_step is None]
 LM_CELLS = [c for c in C.all_cells() if c.family == "lm"]
 GNN_CELLS = [c for c in C.all_cells() if c.family == "gnn"]
 
 
 def test_registry_holds_the_ported_archs():
-    assert set(C.arch_names()) == PORTED | LM_ARCHS | {"gat-cora"}
+    assert set(C.arch_names()) == PORTED | LM_ARCHS | {"gat-cora", "spfresh-1b"}
     for arch in PORTED:
-        assert [c.shape for c in C.get_cells(arch)] == list(SHAPES)
+        extra = ["retrieval_cand_ann"] if arch == "two-tower-retrieval" else []
+        assert [c.shape for c in C.get_cells(arch)] == extra + list(SHAPES)
         assert all(c.family == "recsys" and c.skip_reason is None for c in C.get_cells(arch))
     for arch in LM_ARCHS:
         cells = C.get_cells(arch)
@@ -57,10 +59,12 @@ def test_registry_holds_the_ported_archs():
     assert len(C.all_cells(include_skipped=False)) == len(C.all_cells()) - len(LM_ARCHS)
     assert C.get_cell("mind", "serve_bulk").kind == "serve"
     assert C.get_cell("deepfm", "train_batch").donate_argnums == (0, 1)
-    from repro_torch.configs import _NOT_PORTED
-    assert _NOT_PORTED == {"spfresh-1b": 10}
-    with pytest.raises(KeyError, match="ROADMAP.md queue 1 item 10"):
-        C.get_cell("spfresh-1b", "maintain")
+    import repro_torch.configs as registry
+    assert not hasattr(registry, "_NOT_PORTED")
+    assert [c.shape for c in C.get_cells("spfresh-1b")] == [
+        "serve_search", "serve_search_paged", "serve_search_grouped", "serve_update", "maintain"]
+    assert C.get_cell("spfresh-1b", "maintain").family == "index"
+    assert len(C.all_cells()) == 46
     with pytest.raises(KeyError):
         C.get_cells("no-such-arch")
 

@@ -1191,3 +1191,29 @@ def test_lm_path_on_the_card_at_small_widths(card):
                              consist=dict(batch=2, seq=40), cpu=dict(layers=2, batch=1, seq=24))
     assert rep[chip_smoke.LM_MOE]["decode"]["sync_free"]
     assert sum(LK.LAUNCHES.values()) + sum(SK.LAUNCHES.values()) == before
+
+
+def test_index_cells_on_the_card_equal_the_calls_they_wrap(card):
+    """The smoke's index-cell checks at the smoke geometry with the kernels
+    on: spfresh-1b's searches, update and round through ``get_cell``, bit
+    for bit against the calls they wrap (``serve_search_paged`` launches
+    #6), and an empty ``CONFIG`` state's bytes on the card equal to the dry
+    run's ``meta`` count in 512-byte allocator blocks."""
+    import chip_smoke
+    from repro_torch.configs.spfresh import SMOKE
+    from repro_torch.core.index import build_state
+
+    cfg = dataclasses.replace(SMOKE, use_pallas_nav=True, use_pallas_scan=True,
+                              scan_schedule="batched", scan_page_budget=512)
+    rng = np.random.default_rng(0)
+    base = (rng.normal(size=(12, 16))[rng.integers(0, 12, 1500)]
+            + 0.05 * rng.normal(size=(1500, 16))).astype(np.float32)
+    state = build_state(cfg, base, seed=0, device="cuda")
+    out = {}
+    chip_smoke.fp32_index_cells(torch, out, state, torch.as_tensor(base[:64] + 0.01, device=card),
+                                torch.as_tensor(base[:96], device=card))
+    chip_smoke.maintain_index_cell(torch, out, state)
+    assert out["serve_search_paged"]["launches"]["scan_batched_topk"] >= 1
+    recs = chip_smoke.index_cells_records(torch, out)
+    assert out["empty_config_state"]["card_delta"] == out["empty_config_state"]["meta_bytes_in_blocks"]
+    assert all(r["status"] == "ok" for r in recs.values()) and len(recs) == 6
