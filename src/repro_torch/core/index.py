@@ -41,6 +41,7 @@ from repro_torch.core.types import (
 from repro_torch.storage import codec as pcodec
 from repro_torch.storage.snapshot import load_snapshot, save_snapshot, snapshot_exists
 from repro_torch.storage.wal import WriteAheadLog, iter_wal
+from repro_torch.utils import trace
 
 _INSERT_CHUNK = 256
 _QUERY_CHUNK = 64
@@ -394,10 +395,12 @@ class SPFreshIndex:
         jobs = jobs or self.state.cfg.jobs_per_round
         if access is None:
             access = np.zeros((self.state.cfg.num_postings_cap,), np.int32)
-        self.state, did = fused_maintenance_round(jobs)(
-            self.state, self._t(access, torch.int32), inplace=True
-        )
-        return int(did)
+        with trace.span("round"):
+            self.state, did = fused_maintenance_round(jobs)(
+                self.state, self._t(access, torch.int32), inplace=True
+            )
+            with trace.span("round.readback"):
+                return int(did)
 
     # the reference's earlier name for the one-dispatch maintenance slot
     maintain_fused = maintain_round
@@ -434,11 +437,10 @@ class SPFreshIndex:
         reads it back later (the serving engine's deferred readback)."""
         step = search_step(k, nprobe, probe_chunk, use_pallas_scan,
                            scan_schedule, with_access)
-        q = self._t(queries, torch.float32)
-        if qvalid is None:
-            out = step(self.state, q)
-        else:
-            out = step(self.state, q, qvalid=self._t(qvalid, torch.bool))
+        with trace.span("search.upload"):
+            q = self._t(queries, torch.float32)
+            kw = {} if qvalid is None else {"qvalid": self._t(qvalid, torch.bool)}
+        out = step(self.state, q, **kw)
         if as_tensor:
             return tuple(out)
         return tuple(x.cpu().numpy() for x in out)
@@ -446,16 +448,19 @@ class SPFreshIndex:
     def insert_padded(self, vecs, vids, valid) -> np.ndarray:
         """One insert dispatch (the pool written in place); returns the
         landed mask."""
-        self.state, landed = insert_step()(
-            self.state, self._t(vecs, torch.float32), self._t(vids, torch.int32),
-            self._t(valid, torch.bool), inplace=True,
-        )
-        return landed.cpu().numpy()
+        with trace.span("insert"):
+            self.state, landed = insert_step()(
+                self.state, self._t(vecs, torch.float32), self._t(vids, torch.int32),
+                self._t(valid, torch.bool), inplace=True,
+            )
+            with trace.span("insert.readback"):
+                return landed.cpu().numpy()
 
     def delete_padded(self, vids, valid) -> None:
-        self.state = delete_step()(
-            self.state, self._t(vids, torch.int32), self._t(valid, torch.bool)
-        )
+        with trace.span("delete"):
+            self.state = delete_step()(
+                self.state, self._t(vids, torch.int32), self._t(valid, torch.bool)
+            )
 
     # ------------------------- Crash recovery --------------------------
     def snapshot(self, path: str) -> None:

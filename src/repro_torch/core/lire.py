@@ -38,6 +38,7 @@ from repro_torch.core.types import (
 from repro_torch.kernels.posting_scan import ops as scan_ops
 from repro_torch.storage import blockpool as bp
 from repro_torch.storage import versionmap as vm
+from repro_torch.utils import trace
 from repro_torch.utils.scatter import masked_set_
 
 
@@ -156,7 +157,8 @@ def insert_batch(state: IndexState, vecs, vids, valid, *, inplace: bool = False)
     versions[idx] = cleared
     state = state.replace(versions=versions)
 
-    pids, _, replica_ok = route(state, vecs, r)
+    with trace.span("insert.route"):
+        pids, _, replica_ok = route(state, vecs, r)
     enable = valid[:, None] & replica_ok                # (B, R)
     flat_pids = pids.reshape(-1)
     flat_enable = enable.reshape(-1)
@@ -164,12 +166,13 @@ def insert_batch(state: IndexState, vecs, vids, valid, *, inplace: bool = False)
     flat_vids = torch.repeat_interleave(vids, r)
     flat_vers = torch.repeat_interleave(cleared, r)
     want = flat_enable & (flat_pids >= 0)
-    pool, oks = bp.append_batch(
-        state.pool, torch.clamp(flat_pids, min=0), flat_vecs, flat_vids,
-        flat_vers, want, inplace=inplace,
-    )
-    landed = oks.reshape(-1, r)[:, 0] | ~valid
-    telemetry = _bump_append_telemetry(state, flat_pids, flat_vecs, oks)
+    with trace.span("insert.append"):
+        pool, oks = bp.append_batch(
+            state.pool, torch.clamp(flat_pids, min=0), flat_vecs, flat_vids,
+            flat_vers, want, inplace=inplace,
+        )
+        landed = oks.reshape(-1, r)[:, 0] | ~valid
+        telemetry = _bump_append_telemetry(state, flat_pids, flat_vecs, oks)
     stats = state.stats
     stats = bump_stat(stats, "n_inserts", valid.sum())
     stats = bump_stat(stats, "n_appends", oks.sum())
@@ -265,46 +268,57 @@ def _pallas_scan_candidates(state: IndexState, queries, pids, probe_valid, *,
     bs = pool.block_size
     kpage = min(k, bs)
     quant = pool.codec == "int8"
-    flat = _page_table(state, pids, probe_valid)        # (Q, NB)
-    if quant:
-        # posting owning each page row: pages j of probe i are i*MB..i*MB+MB-1
-        safe_pp = torch.clamp(torch.repeat_interleave(pids, mb, dim=1), min=0).long()
+    if schedule not in ("per_query", "batched"):
+        raise ValueError(
+            f"scan_schedule must be 'per_query' or 'batched', got {schedule!r}"
+        )
+    with trace.span("search.pages"):
+        flat = _page_table(state, pids, probe_valid)    # (Q, NB)
+        if quant:
+            # posting owning each page row: pages j of probe i are i*MB..i*MB+MB-1
+            safe_pp = torch.clamp(torch.repeat_interleave(pids, mb, dim=1), min=0).long()
+        if schedule == "per_query":
+            pvids, live = _page_slot_live(state, flat)  # (Q, NB, BS)
+        else:
+            budget = cfg.scan_page_budget or min(q * nprobe * mb, cfg.num_blocks)
+            uniq, member_pos, _, _ = scan_ops.dedup_pages(
+                flat.reshape(-1), budget=budget, num_blocks=cfg.num_blocks
+            )
+            pvids, live = _page_slot_live(state, uniq)  # (budget, BS)
+            if quant:
+                # invert the dedup: every probe writes its posting's (scale,
+                # zero) onto its unique-page row; dropped probes write the
+                # spare row ``budget``, which is cut.  One posting owns each
+                # block, so writers that collide carry equal values.
+                tgt = torch.where(member_pos >= 0, member_pos, budget).long()
+                u_scale = torch.ones(budget + 1, dtype=torch.float32, device=queries.device)
+                u_zero = torch.zeros(budget + 1, dtype=torch.float32, device=queries.device)
+                u_scale[tgt] = pool.post_scale[safe_pp].reshape(-1)
+                u_zero[tgt] = pool.post_zero[safe_pp].reshape(-1)
 
     if schedule == "per_query":
-        pvids, live = _page_slot_live(state, flat)      # (Q, NB, BS)
+        with trace.span("search.scan"):
+            if quant:
+                d, slots = scan_ops.scan_posting_blocks_topk_q8(
+                    queries, flat, live, pool.blocks,
+                    pool.post_scale[safe_pp], pool.post_zero[safe_pp], k=kpage,
+                )                                       # (Q, NB, kpage)
+            else:
+                d, slots = scan_ops.scan_posting_blocks_topk(
+                    queries, flat, live, pool.blocks, k=kpage
+                )                                       # (Q, NB, kpage)
+        with trace.span("search.gather"):
+            slots = slots.long()
+            cand_v = torch.gather(pvids, 2, slots)
+            cand_p = torch.where(
+                (flat >= 0)[:, :, None], flat[:, :, None].long() * bs + slots, -1
+            )
+            cand_d = d.reshape(q, -1)
+            cand_v = cand_v.reshape(q, -1)
+            cand_p = cand_p.reshape(q, -1)
+            return cand_d, cand_v, cand_p.to(torch.int32), cand_d < MASK_DISTANCE / 2
+    with trace.span("search.scan"):
         if quant:
-            d, slots = scan_ops.scan_posting_blocks_topk_q8(
-                queries, flat, live, pool.blocks,
-                pool.post_scale[safe_pp], pool.post_zero[safe_pp], k=kpage,
-            )                                           # (Q, NB, kpage)
-        else:
-            d, slots = scan_ops.scan_posting_blocks_topk(
-                queries, flat, live, pool.blocks, k=kpage
-            )                                           # (Q, NB, kpage)
-        slots = slots.long()
-        cand_v = torch.gather(pvids, 2, slots)
-        cand_p = torch.where(
-            (flat >= 0)[:, :, None], flat[:, :, None].long() * bs + slots, -1
-        )
-        cand_d = d.reshape(q, -1)
-        cand_v = cand_v.reshape(q, -1)
-        cand_p = cand_p.reshape(q, -1)
-    elif schedule == "batched":
-        budget = cfg.scan_page_budget or min(q * nprobe * mb, cfg.num_blocks)
-        uniq, member_pos, _, _ = scan_ops.dedup_pages(
-            flat.reshape(-1), budget=budget, num_blocks=cfg.num_blocks
-        )
-        pvids, live = _page_slot_live(state, uniq)      # (budget, BS)
-        if quant:
-            # invert the dedup: every probe writes its posting's (scale,
-            # zero) onto its unique-page row; dropped probes write the
-            # spare row ``budget``, which is cut.  One posting owns each
-            # block, so writers that collide carry equal values.
-            tgt = torch.where(member_pos >= 0, member_pos, budget).long()
-            u_scale = torch.ones(budget + 1, dtype=torch.float32, device=queries.device)
-            u_zero = torch.zeros(budget + 1, dtype=torch.float32, device=queries.device)
-            u_scale[tgt] = pool.post_scale[safe_pp].reshape(-1)
-            u_zero[tgt] = pool.post_zero[safe_pp].reshape(-1)
             d, slots = scan_ops.scan_unique_blocks_topk_q8(
                 queries, uniq, live, pool.blocks, u_scale[:budget], u_zero[:budget],
                 k=kpage,
@@ -313,6 +327,7 @@ def _pallas_scan_candidates(state: IndexState, queries, pids, probe_valid, *,
             d, slots = scan_ops.scan_unique_blocks_topk(
                 queries, uniq, live, pool.blocks, k=kpage
             )                                           # (budget, Q, kpage)
+    with trace.span("search.gather"):
         mp = member_pos.reshape(q, -1).long()           # (Q, NB)
         safe_mp = torch.clamp(mp, min=0)
         qi = torch.arange(q, device=queries.device)[:, None]
@@ -322,11 +337,7 @@ def _pallas_scan_candidates(state: IndexState, queries, pids, probe_valid, *,
         cand_v = torch.gather(pvids[safe_mp], 2, sl).reshape(q, -1)
         page = uniq[safe_mp].long()[:, :, None]
         cand_p = torch.where(hit & (page >= 0), page * bs + sl, -1).reshape(q, -1)
-    else:
-        raise ValueError(
-            f"scan_schedule must be 'per_query' or 'batched', got {schedule!r}"
-        )
-    return cand_d, cand_v, cand_p.to(torch.int32), cand_d < MASK_DISTANCE / 2
+        return cand_d, cand_v, cand_p.to(torch.int32), cand_d < MASK_DISTANCE / 2
 
 
 def scan_page_stats(state: IndexState, queries, *, nprobe=None,
@@ -419,13 +430,15 @@ def scan_and_reduce(state: IndexState, queries, pids, probe_valid, *, k: int,
     def reduce_and_rerank(cand_d, cand_v, cand_p, live):
         n = cand_d.shape[1]
         kk = min(kq, n) if rerank else k
-        d, v, oi = _dedup_topk_1d_full(cand_d, cand_v, live, kk,
-                                       _dedup_prefilter(cfg, kk, n))
+        with trace.span("search.topk"):
+            d, v, oi = _dedup_topk_1d_full(cand_d, cand_v, live, kk,
+                                           _dedup_prefilter(cfg, kk, n))
         if not rerank:
             return d, v
-        pos = torch.gather(cand_p, 1, torch.clamp(oi, min=0).long())
-        pos = torch.where(oi >= 0, pos, -1)
-        return _rerank_exact(state, queries, d, v, pos, k)
+        with trace.span("search.rerank"):
+            pos = torch.gather(cand_p, 1, torch.clamp(oi, min=0).long())
+            pos = torch.where(oi >= 0, pos, -1)
+            return _rerank_exact(state, queries, d, v, pos, k)
 
     if pallas:
         cand_d, cand_v, cand_p, live = _pallas_scan_candidates(
@@ -434,21 +447,25 @@ def scan_and_reduce(state: IndexState, queries, pids, probe_valid, *, k: int,
         return reduce_and_rerank(cand_d, cand_v, cand_p, live)
 
     if probe_chunk <= 0 or nprobe % probe_chunk != 0 or nprobe == probe_chunk:
-        return reduce_and_rerank(*_scan_probe_chunk(state, queries, pids, probe_valid))
+        with trace.span("search.scan"):
+            cand = _scan_probe_chunk(state, queries, pids, probe_valid)
+        return reduce_and_rerank(*cand)
 
     keep = min(max(4 * kq, 64), probe_chunk * cap)
-    best_d = torch.full((q, keep), MASK_DISTANCE, dtype=torch.float32, device=queries.device)
-    best_v = torch.full((q, keep), -1, dtype=torch.int32, device=queries.device)
-    best_p = torch.full((q, keep), -1, dtype=torch.int32, device=queries.device)
-    for s in range(0, nprobe, probe_chunk):
-        d, v, p, live = _scan_probe_chunk(
-            state, queries, pids[:, s:s + probe_chunk],
-            probe_valid[:, s:s + probe_chunk],
-        )
-        d = torch.where(live, d, MASK_DISTANCE)
-        best_d, sel = stable_topk(torch.cat([best_d, d], dim=1), keep)
-        best_v = torch.gather(torch.cat([best_v, v], dim=1), 1, sel)
-        best_p = torch.gather(torch.cat([best_p, p], dim=1), 1, sel)
+    with trace.span("search.scan"):
+        best_d = torch.full((q, keep), MASK_DISTANCE, dtype=torch.float32,
+                            device=queries.device)
+        best_v = torch.full((q, keep), -1, dtype=torch.int32, device=queries.device)
+        best_p = torch.full((q, keep), -1, dtype=torch.int32, device=queries.device)
+        for s in range(0, nprobe, probe_chunk):
+            d, v, p, live = _scan_probe_chunk(
+                state, queries, pids[:, s:s + probe_chunk],
+                probe_valid[:, s:s + probe_chunk],
+            )
+            d = torch.where(live, d, MASK_DISTANCE)
+            best_d, sel = stable_topk(torch.cat([best_d, d], dim=1), keep)
+            best_v = torch.gather(torch.cat([best_v, v], dim=1), 1, sel)
+            best_p = torch.gather(torch.cat([best_p, p], dim=1), 1, sel)
     return reduce_and_rerank(best_d, best_v, best_p, best_d < MASK_DISTANCE / 2)
 
 
@@ -462,8 +479,9 @@ def search(state: IndexState, queries, *, k: int, nprobe=None,
     histogram (``qvalid`` masks padded query rows out of it only)."""
     cfg = state.cfg
     nprobe = cfg.nprobe if nprobe is None else nprobe
-    nav_d, pids = navigate(state, queries, nprobe)
-    probe_valid = nav_d < MASK_DISTANCE / 2
+    with trace.span("search.navigate"):
+        nav_d, pids = navigate(state, queries, nprobe)
+        probe_valid = nav_d < MASK_DISTANCE / 2
     d, v = scan_and_reduce(
         state, queries, pids, probe_valid, k=k, probe_chunk=probe_chunk,
         use_pallas_scan=use_pallas_scan, scan_schedule=scan_schedule,
@@ -948,24 +966,28 @@ def maintenance_round(state: IndexState, jobs_per_round: int | None = None,
         state = state.replace(telemetry=tel.replace(
             access_count=tel.access_count + access.to(torch.int32)))
 
-    split_pids, split_enable, merge_pids, merge_enable = _select_jobs(state, k)
-    if not cfg.enable_merge:
-        merge_enable = torch.zeros_like(merge_enable)
-    state, split_acted, s_cand = _split_jobs(
-        state, split_pids, split_enable, draw=draw, inplace=inplace
-    )
+    with trace.span("round.select"):
+        split_pids, split_enable, merge_pids, merge_enable = _select_jobs(state, k)
+        if not cfg.enable_merge:
+            merge_enable = torch.zeros_like(merge_enable)
+    with trace.span("round.split"):
+        state, split_acted, s_cand = _split_jobs(
+            state, split_pids, split_enable, draw=draw, inplace=inplace
+        )
     # merges run after the splits (freed split pids are invalid targets);
     # every ENABLED merge source is barred as a target of every job
-    state, merge_acted, m_cand = _merge_jobs(
-        state, merge_pids, merge_enable, torch.where(merge_enable, merge_pids, -1),
-        inplace=inplace,
-    )
-    if cfg.enable_reassign:
-        cand = tuple(torch.cat([a, b]) for a, b in zip(s_cand, m_cand))
-        state = _execute_reassigns(
-            state, *cand, budget=max(cfg.reassign_budget, k * cfg.reassign_budget // 2),
+    with trace.span("round.merge"):
+        state, merge_acted, m_cand = _merge_jobs(
+            state, merge_pids, merge_enable, torch.where(merge_enable, merge_pids, -1),
             inplace=inplace,
         )
+    if cfg.enable_reassign:
+        with trace.span("round.reassign"):
+            cand = tuple(torch.cat([a, b]) for a, b in zip(s_cand, m_cand))
+            state = _execute_reassigns(
+                state, *cand, budget=max(cfg.reassign_budget, k * cfg.reassign_budget // 2),
+                inplace=inplace,
+            )
     return state, split_acted.sum() + merge_acted.sum()
 
 
@@ -986,10 +1008,12 @@ def rebuild_drain(state: IndexState, max_steps: int | None = None,
     cap_jobs = max_steps if max_steps is not None else 2 * cfg.num_postings_cap
     done = rounds = 0
     while done < cap_jobs:
-        state, did = maintenance_round(state, jobs, access, inplace=donate)
+        with trace.span("round"):
+            state, did = maintenance_round(state, jobs, access, inplace=donate)
+            with trace.span("round.readback"):
+                d = int(did)            # the round's one device → host read
         access = None
         rounds += 1
-        d = int(did)                    # the round's one device → host read
         done += d
         if d == 0:
             break

@@ -65,6 +65,7 @@ from repro_torch.serve.queue import (
     DELETE, INSERT, SEARCH, MicroBatch, RequestQueue, Ticket, default_buckets,
 )
 from repro_torch.storage.durability import DurableBackend
+from repro_torch.utils import trace
 from repro_torch.utils.tree import clone_state
 
 log = logging.getLogger("repro_torch.serve")
@@ -182,17 +183,20 @@ class LocalBackend(DurableBackend):
         for them; ``finalize`` waits on the copy's event.  Access
         telemetry is folded into ``_pending_access`` at finalize time,
         always before the next maintenance dispatch drains it."""
-        out = self.index.search_padded(
-            queries, k, nprobe=nprobe, probe_chunk=self.probe_chunk,
-            use_pallas_scan=self.use_pallas_scan,
-            scan_schedule=self.scan_schedule, with_access=self.track_access,
-            qvalid=valid if self.track_access else None, as_tensor=True,
-        )
-        host, done = _read_back_later(out)
+        with trace.span("search"):
+            out = self.index.search_padded(
+                queries, k, nprobe=nprobe, probe_chunk=self.probe_chunk,
+                use_pallas_scan=self.use_pallas_scan,
+                scan_schedule=self.scan_schedule, with_access=self.track_access,
+                qvalid=valid if self.track_access else None, as_tensor=True,
+            )
+            with trace.span("search.readback_enqueue"):
+                host, done = _read_back_later(out)
 
         def finalize():
             if done is not None:
-                done.synchronize()
+                with trace.span("engine.readback"):
+                    done.synchronize()
             arrs = [h.numpy() for h in host]
             if self.track_access:
                 self._pending_access += arrs[2]
@@ -594,7 +598,8 @@ class ServeEngine:
                     # may hold the batch-formation window (max_wait_ms);
                     # deliberately outside _work so external callers are
                     # not blocked behind the window
-                    batch = self.queue.pop_batch()
+                    with trace.span("engine.form"):
+                        batch = self.queue.pop_batch()
                     if batch is not None:
                         with self._work:
                             self._process_async(batch)
@@ -608,7 +613,8 @@ class ServeEngine:
                     if self._idle_maintenance():
                         continue
                 self._busy = False
-                self.queue.wait_nonempty(0.05)
+                with trace.span("engine.wait"):
+                    self.queue.wait_nonempty(0.05)
             # shutdown drain: nothing may be stranded behind the stop
             with self._work:
                 while True:
@@ -710,7 +716,8 @@ class ServeEngine:
             return 0
         n = 0
         while max_batches is None or n < max_batches:
-            batch = self.queue.pop_batch()
+            with trace.span("engine.form"):
+                batch = self.queue.pop_batch()
             if batch is None:
                 break
             # Cooperative pumping can race with another caller thread's
@@ -756,6 +763,11 @@ class ServeEngine:
 
     @holds_work
     def _process(self, batch: MicroBatch) -> None:
+        with trace.span("engine.dispatch", batch=batch.id, tag=batch.op):
+            self._dispatch(batch)
+
+    @holds_work
+    def _dispatch(self, batch: MicroBatch) -> None:
         if batch.op == SEARCH:
             if self.replicas is not None and self.replicas.route(batch):
                 # served on a replica worker thread (which stamps, scatters,
@@ -780,7 +792,8 @@ class ServeEngine:
             d, v = self.backend.search(
                 batch.arrays["queries"], k, nprobe, batch.valid
             )
-            batch.scatter({"dists": d, "ids": v})
+            with trace.span("engine.scatter"):
+                batch.scatter({"dists": d, "ids": v})
         elif batch.op == INSERT:
             self._process_insert(batch)
             self._stamp(batch)
@@ -825,23 +838,26 @@ class ServeEngine:
         update ticket (latency includes the fsync wait)."""
         if not self._unacked:
             return
-        self.backend.wal_sync()
-        now = time.perf_counter()
-        for t in self._unacked:
-            t.t_done = now
-            self.metrics.note_ticket(t)
-            t._signal()
-        self._unacked.clear()
+        with trace.span("engine.ack"):
+            self.backend.wal_sync()
+            now = time.perf_counter()
+            for t in self._unacked:
+                t.t_done = now
+                self.metrics.note_ticket(t)
+                t._signal()
+            self._unacked.clear()
 
     @holds_work
     def _finish_one_inflight(self) -> None:
         batch, finalize = self._inflight.popleft()
-        d, v = finalize()
-        batch.scatter({"dists": d, "ids": v})
-        for part in batch.parts:
-            if part.ticket.done:
-                self.metrics.note_ticket(part.ticket)
-                part.ticket._signal()
+        with trace.span("engine.land", batch=batch.id, tag=batch.op):
+            d, v = finalize()
+            with trace.span("engine.scatter"):
+                batch.scatter({"dists": d, "ids": v})
+                for part in batch.parts:
+                    if part.ticket.done:
+                        self.metrics.note_ticket(part.ticket)
+                        part.ticket._signal()
 
     @holds_work
     def _drain_inflight(self) -> None:
@@ -866,10 +882,11 @@ class ServeEngine:
             if not pending.any():
                 break
             if attempt > 0:
-                t0 = time.perf_counter()
-                self._run_maintenance()      # backpressure slot
-                # stall: serve-path time burned waiting on the rebuilder
-                self.metrics.insert_stall_s += time.perf_counter() - t0
+                # stall: serve-path time burned waiting on the rebuilder,
+                # the in-flight searches landed before its slot included
+                with trace.timed("engine.stall") as stall:
+                    self._run_maintenance("backpressure")
+                self.metrics.insert_stall_s += stall.seconds
                 self.metrics.insert_retries += 1
             got_ids, landed = self.backend.insert(vecs, vids, pending)
             newly = pending & landed
@@ -907,9 +924,9 @@ class ServeEngine:
             if self._maint_due >= max(1, self.cfg.maint_pressure):
                 self._maint_due -= 1
                 self.metrics.maint_forced += 1
-                self._run_maintenance()
+                self._run_maintenance("forced")
         else:
-            self._run_maintenance()
+            self._run_maintenance("inline")
 
     @holds_work
     def _idle_maintenance(self) -> bool:
@@ -918,22 +935,23 @@ class ServeEngine:
         if self._maint_due <= 0:
             return False
         self._maint_due -= 1
-        self._run_maintenance(idle=True)
+        self._run_maintenance("idle")
         return True
 
     @holds_work
-    def _run_maintenance(self, idle: bool = False) -> int:
+    def _run_maintenance(self, kind: str) -> int:
         """One maintenance slot = ONE fused round of ``policy.budget`` jobs
-        (a single dispatch; the host reads back one did-work scalar)."""
+        (a single dispatch; the host reads back one did-work scalar).
+        ``kind`` says why it runs: ``idle`` (a queue-idle gap), ``forced``
+        (deferred slots piled up), ``backpressure`` (an insert's retry) or
+        ``inline`` (cooperative mode)."""
         # deferred search readbacks fold access telemetry at finalize —
         # land them before the maintain dispatch drains that buffer
         self._drain_inflight()
-        t0 = time.perf_counter()
-        jobs = self.backend.maintain(self.policy.budget)
+        with trace.timed("engine.maintain", tag=kind) as slot:
+            jobs = self.backend.maintain(self.policy.budget)
         self.policy.note_maintenance(jobs)
-        self.metrics.note_maintenance(
-            jobs, time.perf_counter() - t0, idle=idle
-        )
+        self.metrics.note_maintenance(jobs, slot.seconds, idle=kind == "idle")
         return jobs
 
     def drain(self) -> int:
@@ -943,11 +961,9 @@ class ServeEngine:
         with self._work:
             self._drain_inflight()
             self._maint_due = 0    # quiescence supersedes deferred slots
-            t0 = time.perf_counter()
-            jobs, rounds = self.backend.drain()
-            self.metrics.note_maintenance(
-                jobs, time.perf_counter() - t0, rounds=rounds
-            )
+            with trace.timed("engine.drain") as span:
+                jobs, rounds = self.backend.drain()
+            self.metrics.note_maintenance(jobs, span.seconds, rounds=rounds)
         return jobs
 
     # ------------------------- sync conveniences ------------------------

@@ -42,6 +42,8 @@ from typing import Any
 
 import numpy as np
 
+from repro_torch.utils import trace
+
 SEARCH, INSERT, DELETE = "search", "insert", "delete"
 _PAD_FILL = {"queries": 0.0, "vecs": 0.0, "vids": -1}
 
@@ -151,7 +153,7 @@ class _Part:
     arrays: dict[str, np.ndarray]   # unpadded row arrays for this part
     start: int                      # row offset inside the ticket
     n: int
-    t_enq: float = 0.0              # enqueue time (batch-formation window)
+    t_enq: float = 0.0              # enqueue time, perf_counter (formation window)
 
 
 @dataclasses.dataclass
@@ -164,6 +166,7 @@ class MicroBatch:
     arrays: dict[str, np.ndarray]   # padded to ``bucket`` rows
     n_valid: int
     bucket: int
+    id: int = 0                     # the queue's count of batches at formation
 
     @property
     def valid(self) -> np.ndarray:
@@ -219,7 +222,7 @@ class RequestQueue:
         n = ticket.n
         assert n >= 1, "empty request"
         parts = []
-        now = time.monotonic()
+        now = time.perf_counter()
         for start in range(0, n, self.max_batch):
             stop = min(start + self.max_batch, n)
             parts.append(_Part(
@@ -303,7 +306,7 @@ class RequestQueue:
         held until the window since its first part's enqueue expires —
         ``force=True`` skips the hold (flush/shutdown)."""
         deadline = (
-            time.monotonic() + timeout
+            time.perf_counter() + timeout
             if (block and timeout is not None) else None
         )
         with self._cond:
@@ -315,7 +318,7 @@ class RequestQueue:
                     window_end = (
                         self._fifo[0].t_enq + self.max_wait_ms / 1e3
                     )
-                    wait = window_end - time.monotonic()
+                    wait = window_end - time.perf_counter()
                     if wait <= 0:
                         return self._form_batch()
                     self.window_waits += 1
@@ -326,7 +329,7 @@ class RequestQueue:
                 if deadline is None:
                     self._cond.wait()
                 else:
-                    remaining = deadline - time.monotonic()
+                    remaining = deadline - time.perf_counter()
                     if remaining <= 0:
                         return None
                     self._cond.wait(remaining)
@@ -353,6 +356,13 @@ class RequestQueue:
         self.real_rows += rows
         self.padded_rows += bucket - rows
         self.batches += 1
+        bid = self.batches
+        if trace.ON:
+            # each part waited from its enqueue to this formation
+            formed = time.perf_counter_ns()
+            for p in parts:
+                trace.record("queue.wait", round(p.t_enq * 1e9), formed, batch=bid, tag=op)
+            trace.set_batch(bid)
 
         arrays: dict[str, np.ndarray] = {}
         if not self.reuse_staging:
@@ -369,7 +379,7 @@ class RequestQueue:
                 arrays[name] = cat
             return MicroBatch(
                 op=op, key=key, parts=parts, arrays=arrays,
-                n_valid=rows, bucket=bucket,
+                n_valid=rows, bucket=bucket, id=bid,
             )
         staging = self._staging.setdefault((op, key, bucket), {})
         for name in parts[0].arrays:
@@ -388,7 +398,7 @@ class RequestQueue:
             arrays[name] = buf
         return MicroBatch(
             op=op, key=key, parts=parts, arrays=arrays,
-            n_valid=rows, bucket=bucket,
+            n_valid=rows, bucket=bucket, id=bid,
         )
 
     # ------------------------------------------------------------ metrics
