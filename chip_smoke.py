@@ -27,7 +27,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
    and #6, #7 and #3 held at d=256 for every payload; #6 and #7 are also timed on
    the main path's page mix (10,393 live rows of the 32,768-row budget,
    the rest padding), and #7 is held on a tie-heavy input at k = BS
-   (exact slot order).  #3 takes -1 padding ids and is held with them at
+   (exact slot order).  The search's pairs form of #6 and #7 is held bit
+   for bit against the full form gathered through ``member_pos`` and timed
+   beside it, on the main path's mix and at the search cells' 27,700 live
+   pages, with its selected share and ``page_positions``' time.  #3 takes -1 padding ids and is held with them at
    the ragged shapes (every padding row exactly BIG); its wrapper
    ``ops.scan_unique_blocks`` is held and timed on the batched mix, with
    the masking pass it no longer takes timed beside it.  The per-query
@@ -543,6 +546,12 @@ BATCHED_NB = 32_768
 # distinct pages one Q=1024 search probes on the main path (PERF.md §4):
 # the rest of the batched budget is padding
 MAIN_PATH_PAGES = 10_393
+# ... and in a 1,024-row batch of the spacev.search_sat cells at N=250,000
+# (the benchmark's unique_pages.sat on an H100, PERF.md)
+SEARCH_SAT_PAGES = 27_700
+# share of a query's NB = 256 probe rows that hold a page (postings of
+# fewer than MB blocks leave the rest -1)
+PROBE_ROWS_HELD = 0.7
 PLAIN_STEP = 2048      # pages per chunk of a batched plain version
 
 
@@ -705,6 +714,9 @@ def phase_scan_batched(torch, gen, results, blocks):
                                            plain_ms, lib_ms, b, source="scan_batched_topk.cu")
     results["scan_batched_topk"]["tensor_core_bound_ms"] = tc[0]
     results["scan_batched_topk"]["main_mix"] = _batched_main_mix(torch, gen, blocks, q, k)
+    results["scan_batched_topk"]["pairs"] = {
+        str(n): _batched_pairs_mix(torch, gen, blocks, q, k, n)
+        for n in (MAIN_PATH_PAGES, SEARCH_SAT_PAGES)}
 
 
 def _batched_main_mix(torch, gen, blocks, q, k, *, q8=False):
@@ -750,6 +762,80 @@ def _batched_main_mix(torch, gen, blocks, q, k, *, q8=False):
         f"({tc[1]}, {passes} TF32 passes); padding rows exactly (BIG, slots 0..{k - 1})")
     return dict(live_pages=live_n, ms=ms, max_abs_err=err, bound_ms=b[0], bound_by=b[1],
                 tensor_core_bound_ms=tc[0], tensor_core_bound_by=tc[1])
+
+
+def _batched_pairs_mix(torch, gen, blocks, q, k, live_n, *, q8=False):
+    """#6 (or #7) in its pairs form beside the full form, on a budget of
+    ``BATCHED_NB`` rows holding ``live_n`` real pages: each query's NB = 256
+    probe rows name distinct pages of them, ``PROBE_ROWS_HELD`` of the rows
+    held (the rest -1), as the search's ``member_pos``.  The pairs form must
+    equal the full form gathered through ``member_pos`` bit for bit, and on
+    the last ``PLAIN_STEP`` live pages the plain version gathered the same
+    way; both forms are timed (the pairs form with its output fill), and
+    the inverse map ``page_positions``.  The pairs form's bound counts the live pages once, the product over them,
+    the int16 ``page_pos`` read and one store of the ``(Q, NB, k)``
+    output.  The selected share is the probed pairs over ``live_n x Q``."""
+    from repro_torch.kernels.posting_scan import kernel as K
+    from repro_torch.kernels.posting_scan import ops, ref
+
+    name = "scan_batched_topk_q8" if q8 else "scan_batched_topk"
+    full_fn, pairs_fn = getattr(K, name), getattr(K, name + "_pairs")
+    plain = getattr(K, name + "_plain")
+    nb, bs, nbq, q_n = BATCHED_NB, PQ["bs"], PQ["nb"], q.shape[0]
+    real = torch.sort(torch.randperm(blocks.shape[0], device="cuda", generator=gen)[:live_n]).values
+    uniq = torch.full((nb,), -1, dtype=torch.int32, device="cuda")
+    uniq[:live_n] = real.to(torch.int32)
+    slot_live = torch.rand(nb, bs, device="cuda", generator=gen) >= 0.2
+    ids, bias = ops._clamped(uniq), ops._batched_bias(uniq, slot_live)
+    sz = (_page_sz(torch, gen, (nb,)),) if q8 else ()
+    keys = torch.rand(q_n, live_n, device="cuda", generator=gen)
+    member_pos = torch.topk(keys, nbq, dim=1).indices.to(torch.int32)   # distinct a row
+    member_pos[torch.rand(q_n, nbq, device="cuda", generator=gen) >= PROBE_ROWS_HELD] = -1
+    del keys
+    page_pos = ops.page_positions(member_pos, nb)
+    got = pairs_fn(ids, q, blocks, bias, *sz, page_pos, nbq=nbq, k=k)
+    want = ref.gather_pairs(*full_fn(ids, q, blocks, bias, *sz, k=k), member_pos)
+    check(bool(torch.equal(got[0], want[0])) and bool(torch.equal(got[1], want[1])),
+          f"{name}_pairs differs from {name} gathered through member_pos ({live_n} live pages)")
+    del want
+    s = live_n - PLAIN_STEP                               # the last live pages
+    cut = slice(s, s + PLAIN_STEP)
+    in_cut = (member_pos >= s) & (member_pos < s + PLAIN_STEP)
+    mp_cut = torch.where(in_cut, member_pos - s, -1)
+    args = (ids[cut], q, blocks, bias[cut], *(x[cut] for x in sz))
+    kd, ki = got[0][in_cut], got[1][in_cut]
+    pd, pi = ref.gather_pairs(*plain(*args, k=k), mp_cut)
+    err, _ = compare_kmin(kd, ki, pd[in_cut], pi[in_cut], atol=1e-2)
+    # every kept slot carries its own distance (a tie swap cannot hide a wrong slot)
+    ad, ai = plain(*args, k=bs)
+    by_slot = ref.gather_pairs(torch.empty_like(ad).scatter_(2, ai.long(), ad), ai, mp_cut)[0]
+    own = torch.gather(by_slot[in_cut], 1, ki.long().clamp(min=0))
+    kept = kd < 3.0e38 / 2
+    check(bool(((own - kd).abs() <= 1e-2 + RTOL * kd.abs())[kept].all()),
+          f"{name}_pairs: a kept slot's distance is not its own ({live_n} live pages)")
+    n_pairs, n_cut = int((member_pos >= 0).sum()), int(in_cut.sum())
+    del got, kd, ki, pd, pi, ad, ai, by_slot, own
+    full_ms = cuda_ms(lambda: full_fn(ids, q, blocks, bias, *sz, k=k), reps=5)
+    pairs_ms = cuda_ms(lambda: pairs_fn(ids, q, blocks, bias, *sz, page_pos, nbq=nbq, k=k),
+                       reps=5)
+    pos_ms = cuda_ms(lambda: ops.page_positions(member_pos, nb), reps=5)
+    d = q.shape[1]
+    by = (live_n * bs * d + 4 * (nb + q.numel() + bias.numel() + sum(x.numel() for x in sz))
+          + 2 * page_pos.numel() + 8 * q_n * nbq * k)
+    flops = 2.0 * live_n * q_n * bs * d
+    b = bound(by, flops)
+    passes = tf32_passes(blocks.dtype)
+    tc = bound(by, passes * flops, TF32_FLOP_PER_S)
+    share = n_pairs / (live_n * q_n)
+    log(f"{name}_pairs ({live_n} live of {nb} rows, Q={q_n}, NB={nbq}, k={k}): "
+        f"pairs ms={pairs_ms:.4f} against full ms={full_ms:.4f} ({full_ms / pairs_ms:.2f}x); "
+        f"bound_ms={b[0]:.4f} ({b[1]}) tensor_core_bound_ms={tc[0]:.4f} ({tc[1]}, {passes} "
+        f"TF32 passes); page_positions ms={pos_ms:.4f}; {n_pairs} probed pairs, selected share "
+        f"{100 * share:.3f}% of live pages x Q; bit-equal to the full form gathered; "
+        f"max_abs_err={err:.3g} against plain on {n_cut} pairs of {PLAIN_STEP} pages")
+    return dict(live_pages=live_n, n_pairs=n_pairs, selected_share=share, pairs_ms=pairs_ms,
+                full_ms=full_ms, page_positions_ms=pos_ms, max_abs_err=err, bound_ms=b[0],
+                bound_by=b[1], tensor_core_bound_ms=tc[0], tensor_core_bound_by=tc[1])
 
 
 def _q8_tie_swaps(torch, gen, q_n, bs, d):
@@ -1021,6 +1107,9 @@ def phase_scan_q8(torch, gen, results, blocks):
     results["scan_batched_topk_q8"]["store_floor_ms"] = store_ms
     results["scan_batched_topk_q8"]["main_mix"] = _batched_main_mix(torch, gen, blocks, q, k,
                                                                     q8=True)
+    results["scan_batched_topk_q8"]["pairs"] = {
+        str(n): _batched_pairs_mix(torch, gen, blocks, q, k, n, q8=True)
+        for n in (MAIN_PATH_PAGES, SEARCH_SAT_PAGES)}
 
 
 # The retrieval path's scan geometry at 524,288 items (configs/
@@ -1419,8 +1508,8 @@ def kernel_ms_in(torch, fn):
     from repro_torch.kernels.posting_scan import kernel as SK
 
     sites = ((l2_ops, "l2_topk_tiles"), (SK, "scan_per_query_topk"),
-             (SK, "scan_batched_topk"), (SK, "scan_per_query_topk_q8"),
-             (SK, "scan_batched_topk_q8"))
+             (SK, "scan_batched_topk_pairs"), (SK, "scan_per_query_topk_q8"),
+             (SK, "scan_batched_topk_q8_pairs"))
     events = {name: [] for _, name in sites}
 
     def wrap(name, f):
@@ -1454,14 +1543,14 @@ CELLS = {"fp32": {}, "int8": {"codec": "int8", "rerank_factor": 4}}
 INSERT_BATCHES = {"fp32": 4, "int8": 1}
 # the kernels each path must launch
 PATH_KERNELS = {
-    "fp32": ("l2_topk_tiles", "scan_per_query_topk", "scan_batched_topk"),
-    "update": ("l2_topk_tiles", "scan_per_query_topk", "scan_batched_topk"),
-    "int8": ("l2_topk_tiles", "scan_per_query_topk_q8", "scan_batched_topk_q8"),
-    "serve": ("l2_topk_tiles", "scan_batched_topk", "scan_per_query_topk"),
-    "grouped": ("scan_batched_topk",),
-    "durable": ("l2_topk_tiles", "scan_batched_topk", "scan_per_query_topk"),
-    "sharded": ("l2_topk_tiles", "scan_batched_topk", "scan_per_query_topk"),
-    "retrieval": ("l2_topk_tiles", "scan_per_query_topk", "scan_batched_topk"),
+    "fp32": ("l2_topk_tiles", "scan_per_query_topk", "scan_batched_topk_pairs"),
+    "update": ("l2_topk_tiles", "scan_per_query_topk", "scan_batched_topk_pairs"),
+    "int8": ("l2_topk_tiles", "scan_per_query_topk_q8", "scan_batched_topk_q8_pairs"),
+    "serve": ("l2_topk_tiles", "scan_batched_topk_pairs", "scan_per_query_topk"),
+    "grouped": ("scan_batched_topk_pairs",),
+    "durable": ("l2_topk_tiles", "scan_batched_topk_pairs", "scan_per_query_topk"),
+    "sharded": ("l2_topk_tiles", "scan_batched_topk_pairs", "scan_per_query_topk"),
+    "retrieval": ("l2_topk_tiles", "scan_per_query_topk", "scan_batched_topk_pairs"),
     "train": ("l2_topk_tiles", "scan_per_query_topk"),
     "lm": (),                       # the LM path reaches no kernel of the table
     "lm_train": (),                 # nor LM training
@@ -4468,11 +4557,11 @@ INDEX_CELLS = {
 # the kernels each index cell must launch on its path's state (the round
 # may find no job on the drained update state, and then launches none)
 INDEX_CELL_KERNELS = {
-    "serve_search": ("l2_topk_tiles", "scan_batched_topk"),
-    "serve_search_paged": ("l2_topk_tiles", "scan_batched_topk"),
+    "serve_search": ("l2_topk_tiles", "scan_batched_topk_pairs"),
+    "serve_search_paged": ("l2_topk_tiles", "scan_batched_topk_pairs"),
     "serve_update": ("l2_topk_tiles",),
     "maintain": (),
-    "serve_search_grouped": ("scan_batched_topk",),
+    "serve_search_grouped": ("scan_batched_topk_pairs",),
     "retrieval_cand_ann": ("l2_topk_tiles", "scan_per_query_topk"),
 }
 ALLOC_BLOCK = 512       # the CUDA caching allocator rounds each tensor up to this
@@ -4919,7 +5008,12 @@ def main() -> int:
         f"{cells_rep['seconds']:.1f} s ({card})")
     print("dryrun: " + json.dumps(records))
     for name, n in launches.items():
-        results[name]["launches"] = n
+        if name.endswith("_pairs"):            # #6 and #7's pairs form
+            results[name.removesuffix("_pairs")]["pairs_launches"] = n
+        else:
+            results[name]["launches"] = n
+    for name in ("scan_batched_topk", "scan_batched_topk_q8"):
+        report[f"{name}_pairs"] = results[name]["pairs"]
     for name in ("l2_topk_tiles", "scan_batched", "scan_batched_topk", "scan_batched_topk_q8"):
         report[f"{name}_tensor_core_bound_ms"] = results[name]["tensor_core_bound_ms"]
     for name in ("scan_batched", "scan_per_query_topk", "scan_per_query_topk_q8",
@@ -4929,7 +5023,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("tensor_core_bound_ms", "f32_bound_ms", "store_floor_ms", "per_probe_bound_ms",
-             "main_mix", "d256")                              # where a kernel has them
+             "main_mix", "d256", "pairs", "pairs_launches")  # where a kernel has them
     kernels = [{**{k: results[n][k] for k in keys},
                 **{k: results[n][k] for k in extra if k in results[n]}} for n in KERNEL_ORDER]
     report["smoke_s"] = time.perf_counter() - t_start

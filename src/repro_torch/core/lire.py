@@ -258,7 +258,9 @@ def _pallas_scan_candidates(state: IndexState, queries, pids, probe_valid, *,
     ``per_query`` scores every probed page against its own query;
     ``batched`` dedups the micro-batch's pages to ``scan_page_budget``
     (overflow drops the highest-numbered pages) and scores each unique page
-    against all queries, then gathers each query's own pages back out.
+    against all queries, keeping candidates only where a query probed the
+    page, straight in its probe order (the kernels' pairs form, through
+    the inverse of the dedup).
     With the ``int8`` codec the ``_q8`` kernels run: each page carries its
     posting's ``(scale, zero)`` and is dequantised inside the kernel."""
     cfg = state.cfg
@@ -284,7 +286,9 @@ def _pallas_scan_candidates(state: IndexState, queries, pids, probe_valid, *,
             uniq, member_pos, _, _ = scan_ops.dedup_pages(
                 flat.reshape(-1), budget=budget, num_blocks=cfg.num_blocks
             )
-            pvids, live = _page_slot_live(state, uniq)  # (budget, BS)
+            mp = member_pos.reshape(q, -1)              # (Q, NB)
+            page_pos = scan_ops.page_positions(mp, budget)  # (budget, Q)
+            _, live = _page_slot_live(state, uniq)      # (budget, BS)
             if quant:
                 # invert the dedup: every probe writes its posting's (scale,
                 # zero) onto its unique-page row; dropped probes write the
@@ -317,33 +321,35 @@ def _pallas_scan_candidates(state: IndexState, queries, pids, probe_valid, *,
             cand_v = cand_v.reshape(q, -1)
             cand_p = cand_p.reshape(q, -1)
             return cand_d, cand_v, cand_p.to(torch.int32), cand_d < MASK_DISTANCE / 2
+    nbq = mp.shape[1]
     with trace.span("search.scan"):
         if quant:
-            d, slots = scan_ops.scan_unique_blocks_topk_q8(
+            d, slots = scan_ops.scan_unique_blocks_topk_q8_pairs(
                 queries, uniq, live, pool.blocks, u_scale[:budget], u_zero[:budget],
-                k=kpage,
-            )                                           # (budget, Q, kpage)
+                page_pos, nbq=nbq, k=kpage,
+            )                                           # (Q, NB, kpage)
         else:
-            d, slots = scan_ops.scan_unique_blocks_topk(
-                queries, uniq, live, pool.blocks, k=kpage
-            )                                           # (budget, Q, kpage)
+            d, slots = scan_ops.scan_unique_blocks_topk_pairs(
+                queries, uniq, live, pool.blocks, page_pos, nbq=nbq, k=kpage
+            )                                           # (Q, NB, kpage)
     with trace.span("search.gather"):
-        mp = member_pos.reshape(q, -1).long()           # (Q, NB)
-        safe_mp = torch.clamp(mp, min=0)
-        qi = torch.arange(q, device=queries.device)[:, None]
-        sl = slots[safe_mp, qi].long()                  # (Q, NB, kpage)
+        # a probe whose page was not kept reads (MASK_DISTANCE, slot -1):
+        # not live, position -1, vid -1
         hit = (mp >= 0)[:, :, None]
-        cand_d = torch.where(hit, d[safe_mp, qi], MASK_DISTANCE).reshape(q, -1)
-        cand_v = torch.gather(pvids[safe_mp], 2, sl).reshape(q, -1)
-        page = uniq[safe_mp].long()[:, :, None]
-        cand_p = torch.where(hit & (page >= 0), page * bs + sl, -1).reshape(q, -1)
+        page = uniq[torch.clamp(mp, min=0).long()].long()[:, :, None]
+        cand_p = torch.where(hit, page * bs + slots, -1).reshape(q, -1)
+        cand_v = torch.where(cand_p >= 0,
+                             pool.block_vid.reshape(-1)[torch.clamp(cand_p, min=0)], -1)
+        cand_d = d.reshape(q, -1)
         return cand_d, cand_v, cand_p.to(torch.int32), cand_d < MASK_DISTANCE / 2
 
 
 def scan_page_stats(state: IndexState, queries, *, nprobe=None,
                     scan_page_budget=None) -> dict:
     """Batched-schedule page accounting for a query micro-batch:
-    ``{"n_pages", "n_unique", "overflow"}`` (0-d tensors)."""
+    ``{"n_pages", "n_unique", "overflow", "n_pairs"}`` (0-d tensors);
+    ``n_pairs`` counts the (page, query) pairs the scan selects and stores
+    (a probe whose page was kept)."""
     cfg = state.cfg
     nprobe = cfg.nprobe if nprobe is None else nprobe
     budget = cfg.scan_page_budget if scan_page_budget is None else scan_page_budget
@@ -352,10 +358,11 @@ def scan_page_stats(state: IndexState, queries, *, nprobe=None,
     )
     nav_d, pids = navigate(state, queries, nprobe)
     flat = _page_table(state, pids, nav_d < MASK_DISTANCE / 2)
-    _, _, n_unique, overflow = scan_ops.dedup_pages(
+    _, member_pos, n_unique, overflow = scan_ops.dedup_pages(
         flat.reshape(-1), budget=budget, num_blocks=cfg.num_blocks
     )
-    return {"n_pages": (flat >= 0).sum(), "n_unique": n_unique, "overflow": overflow}
+    return {"n_pages": (flat >= 0).sum(), "n_unique": n_unique, "overflow": overflow,
+            "n_pairs": (member_pos >= 0).sum()}
 
 
 def _posting_positions(pool, flat_pids):

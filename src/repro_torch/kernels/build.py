@@ -54,10 +54,10 @@ SIGNATURES = {
     "scan_batched_topk": {
         # ids, q, blocks, dtype, out_d, NB, Q, BS, d, stream
         "scan_batched": [_P, _P, _P, _C, _P, _C, _C, _C, _C, _P],
-        # ids, q, blocks, dtype, bias, out_d, out_i, NB, Q, BS, d, k, stream
-        "scan_batched_topk": [_P, _P, _P, _C, _P, _P, _P, _C, _C, _C, _C, _C, _P],
-        # ids, q, codes, bias, sz, out_d, out_i, NB, Q, BS, d, k, stream
-        "scan_batched_topk_q8": [_P, _P, _P, _P, _P, _P, _P, _C, _C, _C, _C, _C, _P],
+        # ids, q, blocks, dtype, bias, out_d, out_i, NB, Q, BS, d, k, pos, nbq, stream
+        "scan_batched_topk": [_P, _P, _P, _C, _P, _P, _P, _C, _C, _C, _C, _C, _P, _C, _P],
+        # ids, q, codes, bias, sz, out_d, out_i, NB, Q, BS, d, k, pos, nbq, stream
+        "scan_batched_topk_q8": [_P, _P, _P, _P, _P, _P, _P, _C, _C, _C, _C, _C, _P, _C, _P],
         # dtype, BS, d, shape / dtype, BS, d, k, shape / BS, d, k, shape
         "scan_batched_smem_bytes": [_C, _C, _C, _S],
         "scan_batched_topk_smem_bytes": [_C, _C, _C, _C, _S],

@@ -124,11 +124,31 @@
 //     read its pages from L2 after the first (the 4.3 GB of stores would
 //     evict them before the grid came back to the run), and the block's
 //     set-up is paid once per 256 pages.
-// What bounds it now (PERF.md section 6, chip_smoke.py): #6 and #7 the
-// live pages' instruction issue (the select, the copy-out through the
-// staging tile, the product's operand loads and splits); at k = 32 the
-// candidate stores overlap it only in part, over the full budget and on
-// the main path's mix, where the padding rows are stores alone.  #3 the
+// The pairs form of #6 and #7, chosen at run time (so the kernels' names
+// stay as they are): the search reads only the (page, query) pairs that
+// a query probed, under 1% of the live pages x Q (0.65% at 27,700 live
+// pages, Q = 1,024, 256 probe rows a query).  Given pos (NB, Q) int16, the
+// row of each query's probe list that holds page i (-1: not probed; a
+// page sits at most once in a row), read a step ahead:
+//   * the product still runs over every live page and every query tile;
+//   * a warp none of whose 32 queries probed its page skips the staging
+//     tile, the select and the stores (about 4 warps in 5);
+//   * a probing warp stages its tile, then sorts each probing query's row
+//     with the whole warp, a bitonic network over the 32 lanes on (value
+//     bits, slot), and lanes 0..k-1 store the k candidates at (query, row)
+//     of a (Q, nbq, k) output.  The lane-per-query selects would hold the
+//     block's barrier for the one probing lane of most such warps (1.5 ms
+//     more at 27,700 pages, k = 10; PERF.md section 6);
+//   * a dead page writes (BIG, slot j) at its probed pairs only; the
+//     caller fills the output with (BIG, -1) first.
+// What bounds it now (PERF.md section 6, chip_smoke.py): the pairs form
+// the product's issue over every live page (its operand loads and splits,
+// the block's step barriers): 3.1 ms at 27,700 live pages with no pair
+// probed, 3.4-3.5 ms as the search probes them.  The full form the live
+// pages' instruction issue (the select, the copy-out through the staging
+// tile, the product); at k = 32 the candidate stores overlap it only in
+// part, over the full budget and on the main path's mix, where the
+// padding rows are stores alone.  #3 the
 // tensor pipe and the block's step structure: its product alone is 1.5 ms
 // at the measured `mma.sync` rate, its page staging, barriers and stores
 // without a product 1.9 ms, and the two overlap only in part (about
@@ -269,11 +289,13 @@ scan_batched_topk_tc(const int* __restrict__ ids, const float* __restrict__ q,
                      const T* __restrict__ blocks, const float* __restrict__ bias,
                      const float* __restrict__ sz,
                      float* __restrict__ out_d, int* __restrict__ out_i,
+                     const int16_t* __restrict__ pos, int nbq,
                      int nb, int n_q, int bs, int d, int k, int kpad, int stride,
                      int vec16, int vec_out) {
   static_assert(!kQ8 || sizeof(T) == 1, "the q8 form reads int8 codes");
   constexpr bool kSplitB = sizeof(T) == 4;  // f32 payloads need a lo part
   constexpr bool kAll = KMAX == 0;          // #3: store every slot
+  const bool pairs = !kAll && pos != nullptr;  // the probed pairs' form
   using S = Shape<T, kWide>;
   constexpr int kWarps = S::warps, kThreads = S::threads, kStep = S::step, kRing = S::ring;
   extern __shared__ float4 smem4[];
@@ -301,26 +323,37 @@ scan_batched_topk_tc(const int* __restrict__ ids, const float* __restrict__ q,
   const int page_bytes = bs * d * (int)sizeof(T);
   const int n_steps = (min(run, nb - run0) + kStep - 1) / kStep;
 
-  // Warps 0..kStep-1 each read one page's bias (#3: its id), decide
-  // whether it is live, and start copying a live page's payload into the
-  // ring.
+  // Warps 0..kStep-1 each stage one page a step: its id and bias are read
+  // into registers a step ahead (so no global load's latency falls between
+  // two barriers); then they decide whether it is live (#3: id >= 0) and
+  // start copying a live page's payload, and (q8) its (scale, zero), into
+  // the ring.
+  int pre_id = -1;
+  float pre_b = kBig;
+  auto prefetch = [&](int s) {
+    const int page = run0 + s * kStep + warp;
+    pre_id = warp < kStep && s < n_steps && page < nb ? ids[page] : -1;
+    if constexpr (!kAll)
+      pre_b = pre_id != -1 && lane < bs ? bias[(size_t)page * bs + lane] : kBig;
+  };
   auto load_step = [&](int s, int buf) {
     if (warp < kStep) {
       const int page = run0 + s * kStep + warp;
+      const int id = pre_id;
       bool live;
       if constexpr (kAll) {
-        live = page < nb && ids[page] >= 0;
+        live = id >= 0;
       } else {
-        float b = kBig;
-        if (page < nb && lane < bs) b = bias[(size_t)page * bs + lane];
-        pbias[(buf * kStep + warp) * 32 + lane] = b;
-        live = __any_sync(kFull, b < 0.5f * kBig);
+        pbias[(buf * kStep + warp) * 32 + lane] = pre_b;
+        live = __any_sync(kFull, pre_b < 0.5f * kBig);
       }
+      prefetch(s + 1);
       if (lane == 0) plive[buf * kStep + warp] = live;
       if (live) {
-        if (kQ8 && lane < 2) psz[(buf * kStep + warp) * 2 + lane] = sz[(size_t)page * 2 + lane];
+        if (kQ8 && lane < 2)
+          cp_async4(psz + (buf * kStep + warp) * 2 + lane, sz + (size_t)page * 2 + lane);
         const unsigned char* src =
-            reinterpret_cast<const unsigned char*>(blocks) + (size_t)ids[page] * page_bytes;
+            reinterpret_cast<const unsigned char*>(blocks) + (size_t)id * page_bytes;
         unsigned char* dst = pages + (buf * kStep + warp) * L.page_stride;
         if (vec16) {
           for (int e = lane * 16; e < page_bytes; e += 32 * 16) cp_async16(dst + e, src + e);
@@ -331,6 +364,7 @@ scan_batched_topk_tc(const int* __restrict__ ids, const float* __restrict__ q,
     }
     cp_async_commit();
   };
+  prefetch(0);
   load_step(0, 0);
 
   // the query tile (zero past d and past Q); #3 stores it split, q_hi in
@@ -400,6 +434,17 @@ scan_batched_topk_tc(const int* __restrict__ ids, const float* __restrict__ q,
   const float* ap = qs + (half * 32 + g) * stride + 4 * t4;
   // #3 stores its accumulators as float2 pairs of slots where BS is even
   const bool pair_out = (k & 1) == 0 && reinterpret_cast<uintptr_t>(out_d) % 8 == 0;
+  // The pairs form: lane j's query holds the warp's page of a step at row
+  // jp of its probe list (-1: it did not probe the page), read a step ahead;
+  // only such pairs are selected and stored, at (query, jp) of the (Q, nbq,
+  // k) output.
+  int jp_next = -1;
+  auto fetch_jp = [&](int s) {
+    const int page = run0 + s * kStep + wp;
+    jp_next = pairs && s < n_steps && page < nb && lane < n_valid
+                  ? pos[(size_t)page * n_q + q0 + lane] : -1;
+  };
+  fetch_jp(0);
 
   for (int s = 0; s < n_steps; ++s) {
     const int buf = kRing == 2 ? s & 1 : 0;
@@ -411,10 +456,21 @@ scan_batched_topk_tc(const int* __restrict__ ids, const float* __restrict__ q,
     __syncthreads();  // step s's pages landed; step s-1 is consumed
     if (kRing == 2 && s + 1 < n_steps) load_step(s + 1, buf ^ 1);
 
+    const int jp = jp_next;
+    fetch_jp(s + 1);
     const int page = run0 + s * kStep + wp;
     if (page >= nb || n_valid <= 0) continue;  // warp-uniform
     const size_t out0 = ((size_t)page * n_q + q0) * k;
     if (!plive[buf * kStep + wp]) {  // (#3: k = BS, no slots written)
+      if (pairs) {
+        const size_t o = ((size_t)(q0 + lane) * nbq + jp) * k;
+        if (jp >= 0)
+          for (int c = 0; c < k; ++c) {
+            out_d[o + c] = kBig;
+            out_i[o + c] = c;
+          }
+        continue;
+      }
       if (vec_out) {  // k % 4 == 0: 16-byte stores, four slots each
         float4* od = reinterpret_cast<float4*>(out_d + out0);
         int4* oi = reinterpret_cast<int4*>(out_i + out0);
@@ -574,6 +630,9 @@ scan_batched_topk_tc(const int* __restrict__ ids, const float* __restrict__ q,
         }
       }
     }
+    // the product ran over every query of the tile; the select and the
+    // stores only where a query of the warp probed the page
+    if (pairs && !__any_sync(kFull, jp >= 0)) continue;
 #pragma unroll
     for (int n = 0; n < 4; ++n) {        // the quad's partials: slot 8n + g
       bq[n] += __shfl_xor_sync(kFull, bq[n], 1);
@@ -636,6 +695,43 @@ scan_batched_topk_tc(const int* __restrict__ ids, const float* __restrict__ q,
             }
         }
       __syncwarp();
+
+      if (pairs) {
+        // The whole warp sorts each probing query's row in turn (most
+        // probing warps hold one): lane c holds slot c's value as its bits
+        // (the values are >= +0, so they order as unsigned integers; slots
+        // past BS sort last) and a bitonic network over the 32 lanes sorts
+        // by (value, slot), the order of the lane-per-query selects below.
+        // Lanes 0..k-1 then hold the k candidates and store them as a row.
+        unsigned todo = __ballot_sync(kFull, jp >= 0);
+        while (todo) {
+          const int r = __ffs(todo) - 1;
+          todo &= todo - 1;
+          const int row = __shfl_sync(kFull, jp, r);
+          unsigned key = lane < bs ? __float_as_uint(st[r * 32 + (lane ^ swz(r))]) : ~0u;
+          int slot = lane;
+#pragma unroll
+          for (int size = 2; size <= 32; size <<= 1)
+#pragma unroll
+            for (int stride = size / 2; stride > 0; stride >>= 1) {
+              const unsigned ok = __shfl_xor_sync(kFull, key, stride);
+              const int os = __shfl_xor_sync(kFull, slot, stride);
+              const bool less = ok < key || (ok == key && os < slot);
+              // the lower lane of a pair keeps the lesser in an ascending
+              // run, the greater in a descending one
+              if (less == (((lane & stride) == 0) == ((lane & size) == 0))) {
+                key = ok;
+                slot = os;
+              }
+            }
+          const size_t o = ((size_t)(q0 + r) * nbq + row) * k;
+          if (lane < k) {
+            out_d[o + lane] = __uint_as_float(key);
+            out_i[o + lane] = slot;
+          }
+        }
+        continue;
+      }
 
       const float* mine = st + lane * 32;
       const int sw = swz(lane);
@@ -776,8 +872,8 @@ cudaError_t prepare(int smem) {
 
 template <typename T, int KMAX, bool kQ8, bool kWide>
 int launch_as(const int* ids, const float* q, const void* blocks, const float* bias,
-              const float* sz, float* out_d, int* out_i, int nb, int n_q, int bs, int d,
-              int k, int kpad, int stride, cudaStream_t stream) {
+              const float* sz, float* out_d, int* out_i, const int16_t* pos, int nbq, int nb,
+              int n_q, int bs, int d, int k, int kpad, int stride, cudaStream_t stream) {
   const auto L = layout_of<T, KMAX, kWide>(bs, d, stride);
   const int vec16 = (bs * d * (int)sizeof(T)) % 16 == 0;
   const int vec_out = k % 4 == 0 && reinterpret_cast<uintptr_t>(out_d) % 16 == 0 &&
@@ -789,8 +885,8 @@ int launch_as(const int* ids, const float* q, const void* blocks, const float* b
   const dim3 grid = KMAX == 0 ? dim3(qtiles, runs) : dim3(runs, qtiles);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   scan_batched_topk_tc<T, KMAX, kQ8, kWide><<<grid, Shape<T, kWide>::threads, L.total, stream>>>(
-      ids, q, static_cast<const T*>(blocks), bias, sz, out_d, out_i, nb, n_q, bs, d, k, kpad,
-      stride, vec16, vec_out);
+      ids, q, static_cast<const T*>(blocks), bias, sz, out_d, out_i, pos, nbq, nb, n_q, bs, d, k,
+      kpad, stride, vec16, vec_out);
   return (int)cudaGetLastError();
 }
 
@@ -815,21 +911,21 @@ int shape_of(int bs, int d, int stride, int* bytes) {
 
 template <typename T, int KMAX, bool kQ8>
 int launch(const int* ids, const float* q, const void* blocks, const float* bias,
-           const float* sz, float* out_d, int* out_i, int nb, int n_q, int bs, int d,
-           int k, cudaStream_t stream) {
+           const float* sz, float* out_d, int* out_i, const int16_t* pos, int nbq, int nb,
+           int n_q, int bs, int d, int k, cudaStream_t stream) {
   const int kpad = kpad_of(d), stride = stride_of(kpad);
   int bytes;
   const int shape = shape_of<T, KMAX>(bs, d, stride, &bytes);
   if (shape < 0) return (int)cudaErrorInvalidValue;  // d too large
   if constexpr (sizeof(T) == 1)
-    return launch_as<T, KMAX, kQ8, false>(ids, q, blocks, bias, sz, out_d, out_i, nb, n_q, bs,
-                                          d, k, kpad, stride, stream);
+    return launch_as<T, KMAX, kQ8, false>(ids, q, blocks, bias, sz, out_d, out_i, pos, nbq,
+                                          nb, n_q, bs, d, k, kpad, stride, stream);
   else if (shape == 0)
-    return launch_as<T, KMAX, kQ8, false>(ids, q, blocks, bias, sz, out_d, out_i, nb, n_q, bs,
-                                          d, k, kpad, stride, stream);
+    return launch_as<T, KMAX, kQ8, false>(ids, q, blocks, bias, sz, out_d, out_i, pos, nbq,
+                                          nb, n_q, bs, d, k, kpad, stride, stream);
   else
-    return launch_as<T, KMAX, kQ8, true>(ids, q, blocks, bias, sz, out_d, out_i, nb, n_q, bs,
-                                         d, k, kpad, stride, stream);
+    return launch_as<T, KMAX, kQ8, true>(ids, q, blocks, bias, sz, out_d, out_i, pos, nbq,
+                                         nb, n_q, bs, d, k, kpad, stride, stream);
 }
 
 // Blocks an SM of one instantiation at `smem` bytes, by the occupancy
@@ -876,12 +972,15 @@ int query_k(int bs, int d, int k, int* shape) {
 
 template <typename T, bool kQ8>
 int dispatch_k(const int* ids, const float* q, const void* blocks, const float* bias,
-               const float* sz, float* out_d, int* out_i, int nb, int n_q, int bs, int d,
-               int k, cudaStream_t s) {
-  if (k <= 4) return launch<T, 4, kQ8>(ids, q, blocks, bias, sz, out_d, out_i, nb, n_q, bs, d, k, s);
-  if (k <= 10) return launch<T, 10, kQ8>(ids, q, blocks, bias, sz, out_d, out_i, nb, n_q, bs, d, k, s);
-  if (k <= 16) return launch<T, 16, kQ8>(ids, q, blocks, bias, sz, out_d, out_i, nb, n_q, bs, d, k, s);
-  return launch<T, 32, kQ8>(ids, q, blocks, bias, sz, out_d, out_i, nb, n_q, bs, d, k, s);
+               const float* sz, float* out_d, int* out_i, const int16_t* pos, int nbq, int nb,
+               int n_q, int bs, int d, int k, cudaStream_t s) {
+  if (k <= 4)
+    return launch<T, 4, kQ8>(ids, q, blocks, bias, sz, out_d, out_i, pos, nbq, nb, n_q, bs, d, k, s);
+  if (k <= 10)
+    return launch<T, 10, kQ8>(ids, q, blocks, bias, sz, out_d, out_i, pos, nbq, nb, n_q, bs, d, k, s);
+  if (k <= 16)
+    return launch<T, 16, kQ8>(ids, q, blocks, bias, sz, out_d, out_i, pos, nbq, nb, n_q, bs, d, k, s);
+  return launch<T, 32, kQ8>(ids, q, blocks, bias, sz, out_d, out_i, pos, nbq, nb, n_q, bs, d, k, s);
 }
 
 bool bad_shape(int bs, int d, int k) {
@@ -901,48 +1000,54 @@ extern "C" int scan_batched(const int* ids, const float* q, const void* blocks,
   cudaStream_t s = (cudaStream_t)stream;
   switch (dtype) {
     case 0:
-      return launch<float, 0, false>(ids, q, blocks, nullptr, nullptr, out_d, nullptr, nb, n_q,
-                                     bs, d, bs, s);
+      return launch<float, 0, false>(ids, q, blocks, nullptr, nullptr, out_d, nullptr, nullptr, 0,
+                                     nb, n_q, bs, d, bs, s);
     case 1:
       return launch<__nv_bfloat16, 0, false>(ids, q, blocks, nullptr, nullptr, out_d, nullptr,
-                                             nb, n_q, bs, d, bs, s);
+                                             nullptr, 0, nb, n_q, bs, d, bs, s);
     case 2:
-      return launch<int8_t, 0, false>(ids, q, blocks, nullptr, nullptr, out_d, nullptr, nb, n_q,
-                                      bs, d, bs, s);
+      return launch<int8_t, 0, false>(ids, q, blocks, nullptr, nullptr, out_d, nullptr, nullptr,
+                                      0, nb, n_q, bs, d, bs, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+// pos: null for the full (NB, Q, k) output; else the pairs form, pos (NB,
+// Q) int16 the row of each query's probe list holding page i (-1: not
+// probed), out (Q, nbq, k), written at the probed pairs only (the caller
+// fills the rest).
 extern "C" int scan_batched_topk(const int* ids, const float* q,
                                  const void* blocks, int dtype,
                                  const float* bias, float* out_d, int* out_i,
                                  int nb, int n_q, int bs, int d, int k,
-                                 void* stream) {
-  if (bad_shape(bs, d, k)) return (int)cudaErrorInvalidValue;
+                                 const int16_t* pos, int nbq, void* stream) {
+  if (bad_shape(bs, d, k) || (pos && nbq < 1)) return (int)cudaErrorInvalidValue;
   if (n_q == 0 || nb == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   switch (dtype) {
     case 0:
-      return dispatch_k<float, false>(ids, q, blocks, bias, nullptr, out_d, out_i, nb, n_q, bs, d, k, s);
+      return dispatch_k<float, false>(ids, q, blocks, bias, nullptr, out_d, out_i, pos, nbq, nb,
+                                      n_q, bs, d, k, s);
     case 1:
-      return dispatch_k<__nv_bfloat16, false>(ids, q, blocks, bias, nullptr, out_d, out_i, nb, n_q,
-                                              bs, d, k, s);
+      return dispatch_k<__nv_bfloat16, false>(ids, q, blocks, bias, nullptr, out_d, out_i, pos,
+                                              nbq, nb, n_q, bs, d, k, s);
     case 2:
-      return dispatch_k<int8_t, false>(ids, q, blocks, bias, nullptr, out_d, out_i, nb, n_q, bs, d, k, s);
+      return dispatch_k<int8_t, false>(ids, q, blocks, bias, nullptr, out_d, out_i, pos, nbq, nb,
+                                       n_q, bs, d, k, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// int8 codes; sz (NB, 2) f32 per-unique-page (scale, zero).
+// int8 codes; sz (NB, 2) f32 per-unique-page (scale, zero); pos as above.
 extern "C" int scan_batched_topk_q8(const int* ids, const float* q,
                                     const int8_t* codes, const float* bias,
                                     const float* sz, float* out_d, int* out_i,
                                     int nb, int n_q, int bs, int d, int k,
-                                    void* stream) {
-  if (bad_shape(bs, d, k)) return (int)cudaErrorInvalidValue;
+                                    const int16_t* pos, int nbq, void* stream) {
+  if (bad_shape(bs, d, k) || (pos && nbq < 1)) return (int)cudaErrorInvalidValue;
   if (n_q == 0 || nb == 0) return 0;
-  return dispatch_k<int8_t, true>(ids, q, codes, bias, sz, out_d, out_i, nb, n_q, bs, d, k,
-                                  (cudaStream_t)stream);
+  return dispatch_k<int8_t, true>(ids, q, codes, bias, sz, out_d, out_i, pos, nbq, nb, n_q, bs,
+                                  d, k, (cudaStream_t)stream);
 }
 
 // The launchers' shared memory, without a launch (see query); a shape the

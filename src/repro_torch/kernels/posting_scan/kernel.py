@@ -15,6 +15,14 @@ memory and skips pairs whose every slot is dead.  For tensors on the CPU
 a wrapper runs the plain version; for CUDA tensors it launches the kernel
 or raises.
 
+``scan_batched_topk_pairs`` and ``scan_batched_topk_q8_pairs`` are the
+same two batched k-mins stored only where a query probed a page: given
+the inverse of the page dedup, ``page_pos (NB, Q)`` int16 (the row of
+query ``q``'s probe list that holds page ``i``, -1 none), they return
+``(Q, nbq, k)`` candidates in the probe lists' order, ``(BIG, -1)`` where
+no page was probed.  The kernel is the same (its pairs form), and so are
+the products; only the select and the stores shrink.
+
 Contract: ``BS <= 32`` (one lane per slot), ``k <= BS``, ``d % 4 == 0``;
 the payload is float32, bfloat16 or int8 (int8 codes for the ``_q8``
 forms); a per-query kernel refuses a page larger than a block's shared
@@ -40,6 +48,7 @@ LAUNCHES = {
     "scan_per_query": 0, "scan_batched": 0,
     "scan_per_query_topk": 0, "scan_batched_topk": 0,
     "scan_per_query_topk_q8": 0, "scan_batched_topk_q8": 0,
+    "scan_batched_topk_pairs": 0, "scan_batched_topk_q8_pairs": 0,
 }
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -118,6 +127,34 @@ def scan_batched_topk_q8_plain(unique_blocks, queries, codes, slot_bias, page_sz
     return _kmin(_batched_dist(queries, pages) + slot_bias[:, None, :], k)
 
 
+def _to_pairs(d, i, page_pos, nbq: int):
+    """Full ``(NB, Q, k)`` candidates → ``(Q, nbq, k)`` at the probed pairs
+    of ``page_pos (NB, Q)``, ``(BIG, -1)`` elsewhere."""
+    _, q_n, k = d.shape
+    out_d = torch.full((q_n, nbq, k), BIG, dtype=torch.float32, device=d.device)
+    out_i = torch.full((q_n, nbq, k), -1, dtype=torch.int32, device=d.device)
+    page, qi = torch.nonzero(page_pos >= 0, as_tuple=True)
+    row = page_pos[page, qi].long()
+    out_d[qi, row] = d[page, qi]
+    out_i[qi, row] = i[page, qi]
+    return out_d, out_i
+
+
+def scan_batched_topk_pairs_plain(unique_blocks, queries, blocks, slot_bias, page_pos, *,
+                                  nbq: int, k: int):
+    """:func:`scan_batched_topk_plain` at the probed pairs only:
+    ``(dists (Q, nbq, k), slots (Q, nbq, k))``."""
+    return _to_pairs(*scan_batched_topk_plain(unique_blocks, queries, blocks, slot_bias, k=k),
+                     page_pos, nbq)
+
+
+def scan_batched_topk_q8_pairs_plain(unique_blocks, queries, codes, slot_bias, page_sz,
+                                     page_pos, *, nbq: int, k: int):
+    """:func:`scan_batched_topk_q8_plain` at the probed pairs only."""
+    return _to_pairs(*scan_batched_topk_q8_plain(unique_blocks, queries, codes, slot_bias,
+                                                 page_sz, k=k), page_pos, nbq)
+
+
 def _check(ids, queries, blocks, k: int = 1, *, q8: bool = False, **f32):
     """The kernels' contract; ``f32`` names the float32 side inputs."""
     _, bs, dim = blocks.shape
@@ -149,20 +186,21 @@ def _on_cpu(blocks) -> bool:
     return blocks.device.type == "cpu"
 
 
-def _launch(fn_name, blocks, *args, cost, lib="posting_scan"):
+def _launch(fn_name, blocks, *args, cost, lib="posting_scan", name=None):
     """Call the C entry ``fn_name`` of library ``lib`` (tensors by pointer)
-    on the current stream, raise on its CUDA error code, count the launch.
-    On ``meta`` add ``cost`` (``(flops, bytes)``) to the open work counts
-    instead."""
+    on the current stream, raise on its CUDA error code, count the launch
+    under ``name`` (default ``fn_name``).  On ``meta`` add ``cost``
+    (``(flops, bytes)``) to the open work counts instead."""
+    name = name or fn_name
     if blocks.device.type == "meta":
-        work.add(fn_name, *cost)
+        work.add(name, *cost)
         return
     from repro_torch.kernels.build import check, library
 
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     stream = torch.cuda.current_stream(blocks.device).cuda_stream
-    check(getattr(library(lib), fn_name)(*ptrs, stream), fn_name)
-    LAUNCHES[fn_name] += 1
+    check(getattr(library(lib), fn_name)(*ptrs, stream), name)
+    LAUNCHES[name] += 1
 
 
 def _outputs(shape, blocks, with_idx=True):
@@ -175,6 +213,25 @@ def _outputs(shape, blocks, with_idx=True):
 def _check_shape(x, want, name):
     if tuple(x.shape) != tuple(want):
         raise ValueError(f"{name} shape {tuple(x.shape)}, want {tuple(want)}")
+
+
+def _check_pairs(page_pos, nb, q_n, nbq, blocks):
+    """The pairs form's contract: ``page_pos (NB, Q)`` int16, contiguous,
+    beside the pool; ``1 <= nbq <= 32767`` (its rows are int16)."""
+    _check_shape(page_pos, (nb, q_n), "page_pos")
+    if page_pos.dtype != torch.int16 or not page_pos.is_contiguous():
+        raise ValueError("page_pos must be contiguous int16")
+    if page_pos.device != blocks.device:
+        raise ValueError(f"page_pos is on {page_pos.device}, blocks on {blocks.device}")
+    if not 1 <= nbq <= 32767:
+        raise ValueError(f"pairs form: 1 <= nbq <= 32767 (nbq={nbq})")
+
+
+def _pairs_outputs(q_n, nbq, k, blocks):
+    """The pairs form's outputs, filled with ``(BIG, -1)``: the kernel
+    writes the probed pairs only."""
+    return (torch.full((q_n, nbq, k), BIG, dtype=torch.float32, device=blocks.device),
+            torch.full((q_n, nbq, k), -1, dtype=torch.int32, device=blocks.device))
 
 
 def scan_per_query(block_table, queries, blocks):
@@ -244,9 +301,35 @@ def scan_batched_topk(unique_blocks, queries, blocks, slot_bias, *, k: int):
         return scan_batched_topk_plain(unique_blocks, queries, blocks, slot_bias, k=k)
     out_d, out_i = _outputs((nb, q_n, k), blocks)
     _launch("scan_batched_topk", blocks, unique_blocks, queries, blocks,
-            _DTYPE_CODE[blocks.dtype], slot_bias, out_d, out_i, nb, q_n, bs, dim, k,
+            _DTYPE_CODE[blocks.dtype], slot_bias, out_d, out_i, nb, q_n, bs, dim, k, None, 0,
             lib="scan_batched_topk", cost=work.scan_batched(nb, q_n, bs, dim,
                                                             blocks.element_size(), k=k))
+    return out_d, out_i
+
+
+def scan_batched_topk_pairs(unique_blocks, queries, blocks, slot_bias, page_pos, *,
+                            nbq: int, k: int):
+    """:func:`scan_batched_topk` selected and stored only at the probed
+    (page, query) pairs: ``page_pos (NB, Q)`` int16, the row of query
+    ``q``'s ``nbq`` probed pages that holds page ``i`` (-1 none; a page at
+    most once a row) → ``(dists (Q, nbq, k), slots (Q, nbq, k))``, ``(BIG,
+    -1)`` at rows no page fills.  Every page is still scored against every
+    query."""
+    queries = queries.float().contiguous()
+    _check(unique_blocks, queries, blocks, k, slot_bias=slot_bias)
+    nb, q_n = unique_blocks.shape[0], queries.shape[0]
+    _, bs, dim = blocks.shape
+    _check_shape(slot_bias, (nb, bs), "slot_bias")
+    _check_pairs(page_pos, nb, q_n, nbq, blocks)
+    if _on_cpu(blocks):
+        return scan_batched_topk_pairs_plain(unique_blocks, queries, blocks, slot_bias,
+                                             page_pos, nbq=nbq, k=k)
+    out_d, out_i = _pairs_outputs(q_n, nbq, k, blocks)
+    _launch("scan_batched_topk", blocks, unique_blocks, queries, blocks,
+            _DTYPE_CODE[blocks.dtype], slot_bias, out_d, out_i, nb, q_n, bs, dim, k, page_pos,
+            nbq, lib="scan_batched_topk", name="scan_batched_topk_pairs",
+            cost=work.scan_batched(nb, q_n, bs, dim, blocks.element_size(), k=k,
+                                   pairs=q_n * nbq))
     return out_d, out_i
 
 
@@ -283,6 +366,28 @@ def scan_batched_topk_q8(unique_blocks, queries, codes, slot_bias, page_sz, *, k
         return scan_batched_topk_q8_plain(unique_blocks, queries, codes, slot_bias, page_sz, k=k)
     out_d, out_i = _outputs((nb, q_n, k), codes)
     _launch("scan_batched_topk_q8", codes, unique_blocks, queries, codes, slot_bias,
-            page_sz, out_d, out_i, nb, q_n, bs, dim, k, lib="scan_batched_topk",
+            page_sz, out_d, out_i, nb, q_n, bs, dim, k, None, 0, lib="scan_batched_topk",
             cost=work.scan_batched(nb, q_n, bs, dim, 1, k=k, q8=True))
+    return out_d, out_i
+
+
+def scan_batched_topk_q8_pairs(unique_blocks, queries, codes, slot_bias, page_sz, page_pos, *,
+                               nbq: int, k: int):
+    """:func:`scan_batched_topk_q8` at the probed pairs only, as
+    :func:`scan_batched_topk_pairs`."""
+    queries = queries.float().contiguous()
+    _check(unique_blocks, queries, codes, k, q8=True, slot_bias=slot_bias, page_sz=page_sz)
+    nb, q_n = unique_blocks.shape[0], queries.shape[0]
+    _, bs, dim = codes.shape
+    _check_shape(slot_bias, (nb, bs), "slot_bias")
+    _check_shape(page_sz, (nb, 2), "page_sz")
+    _check_pairs(page_pos, nb, q_n, nbq, codes)
+    if _on_cpu(codes):
+        return scan_batched_topk_q8_pairs_plain(unique_blocks, queries, codes, slot_bias,
+                                                page_sz, page_pos, nbq=nbq, k=k)
+    out_d, out_i = _pairs_outputs(q_n, nbq, k, codes)
+    _launch("scan_batched_topk_q8", codes, unique_blocks, queries, codes, slot_bias,
+            page_sz, out_d, out_i, nb, q_n, bs, dim, k, page_pos, nbq, lib="scan_batched_topk",
+            name="scan_batched_topk_q8_pairs",
+            cost=work.scan_batched(nb, q_n, bs, dim, 1, k=k, q8=True, pairs=q_n * nbq))
     return out_d, out_i

@@ -76,6 +76,18 @@ def scan_unique_blocks_topk(queries, unique_blocks, slot_live, blocks, *, k: int
     )
 
 
+def scan_unique_blocks_topk_pairs(queries, unique_blocks, slot_live, blocks, page_pos, *,
+                                  nbq: int, k: int):
+    """:func:`scan_unique_blocks_topk` selected and stored only where a
+    query probed the page: ``page_pos (NB, Q)`` from :func:`page_positions`
+    → ``(dists (Q, nbq, k), slots (Q, nbq, k))`` in each query's probe
+    order, ``(BIG, -1)`` where its row holds no kept page."""
+    return K.scan_batched_topk_pairs(
+        _clamped(unique_blocks), queries, blocks, _batched_bias(unique_blocks, slot_live),
+        page_pos, nbq=nbq, k=k,
+    )
+
+
 def _page_sz(page_scale, page_zero):
     return torch.stack([page_scale.float(), page_zero.float()], dim=-1).contiguous()
 
@@ -99,6 +111,39 @@ def scan_unique_blocks_topk_q8(queries, unique_blocks, slot_live, codes,
         _clamped(unique_blocks), queries, codes, _batched_bias(unique_blocks, slot_live),
         _page_sz(page_scale, page_zero), k=k,
     )
+
+
+def scan_unique_blocks_topk_q8_pairs(queries, unique_blocks, slot_live, codes, page_scale,
+                                     page_zero, page_pos, *, nbq: int, k: int):
+    """:func:`scan_unique_blocks_topk_q8` at the probed pairs only, as
+    :func:`scan_unique_blocks_topk_pairs`."""
+    return K.scan_batched_topk_q8_pairs(
+        _clamped(unique_blocks), queries, codes, _batched_bias(unique_blocks, slot_live),
+        _page_sz(page_scale, page_zero), page_pos, nbq=nbq, k=k,
+    )
+
+
+def page_positions(member_pos, budget: int):
+    """The inverse of the dedup's ``member_pos (Q, nbq)``: ``(budget, Q)``
+    int16, the row of query ``q``'s probe list that holds unique page
+    ``u``, -1 where none does.  One fill and one scatter, no read back:
+    a probe without a kept page (``member_pos`` -1) indexes row -1, a
+    spare row past the budget, which is cut.  A page sits at most once in
+    a query's row (a block belongs to one posting, and navigation returns
+    distinct postings); on the CPU that is checked."""
+    q_n, nbq = member_pos.shape
+    if nbq > 32767:
+        raise ValueError(f"page_positions: {nbq} probed pages a query, int16 holds 32767")
+    dev = member_pos.device
+    tgt = torch.add(torch.arange(q_n, dtype=member_pos.dtype, device=dev)[:, None], member_pos,
+                    alpha=q_n)
+    pos = torch.full(((budget + 1) * q_n,), -1, dtype=torch.int16, device=dev)
+    pos[tgt] = torch.arange(nbq, dtype=torch.int16, device=dev).expand(q_n, nbq)
+    if dev.type == "cpu":
+        kept = tgt[member_pos >= 0]
+        if kept.numel() and int(torch.bincount(kept).max()) > 1:
+            raise ValueError("page_positions: a page twice in one query's probed pages")
+    return pos[: budget * q_n].view(budget, q_n)
 
 
 def dedup_pages(pages, *, budget: int, num_blocks: int):

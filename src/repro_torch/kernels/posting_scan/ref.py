@@ -61,3 +61,28 @@ def scan_batched_topk_q8_ref(unique_blocks, queries, blocks, slot_bias, page_sz,
     diff = g[:, None, :, :] - queries.float()[None, :, None, :]
     d = torch.sum(diff * diff, dim=-1) + slot_bias[:, None, :]
     return _kmin_ref(d, k)
+
+
+def gather_pairs(d, i, member_pos):
+    """Full ``(NB, Q, k)`` candidates gathered through the dedup's
+    ``member_pos (Q, nbq)`` → ``(Q, nbq, k)``, ``(BIG, -1)`` where it is -1."""
+    mp = member_pos.long()
+    safe = torch.clamp(mp, min=0)
+    qi = torch.arange(mp.shape[0], device=mp.device)[:, None]
+    hit = (mp >= 0)[:, :, None]
+    return (torch.where(hit, d[safe, qi], 3.0e38),
+            torch.where(hit, i[safe, qi], -1).to(torch.int32))
+
+
+def scan_batched_topk_pairs_ref(unique_blocks, queries, blocks, slot_bias, member_pos, k: int):
+    """(Q, nbq, k) candidates of each query's own probed pages — the
+    batched oracle gathered back through ``member_pos``."""
+    return gather_pairs(*scan_batched_topk_ref(unique_blocks, queries, blocks, slot_bias, k),
+                         member_pos)
+
+
+def scan_batched_topk_q8_pairs_ref(unique_blocks, queries, blocks, slot_bias, page_sz,
+                                   member_pos, k: int):
+    """:func:`scan_batched_topk_pairs_ref` over int8 codes."""
+    return gather_pairs(*scan_batched_topk_q8_ref(unique_blocks, queries, blocks, slot_bias,
+                                                   page_sz, k), member_pos)

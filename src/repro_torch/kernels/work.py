@@ -82,17 +82,21 @@ def scan_per_query(q_n: int, nb: int, bs: int, d: int, item: int, *, k: int | No
 
 
 def scan_batched(nb: int, q_n: int, bs: int, d: int, item: int, *, k: int | None = None,
-                 q8: bool = False) -> tuple[float, float]:
+                 q8: bool = False, pairs: int | None = None) -> tuple[float, float]:
     """#3, #6, #7: each of the ``nb`` pages read once against every query,
     the ids, the queries and (with ``k``) the slot bias read, the distances
     written; with ``q8`` the per-page ``(scale, zero)`` read and each page
-    dequantised once."""
+    dequantised once.  With ``pairs`` (#6, #7's pairs form) the int16
+    ``(NB, Q)`` probe rows are read and ``pairs`` rows of ``k`` candidates
+    written, not ``NB x Q``."""
     flops = 2.0 * nb * q_n * bs * d
     nbytes = nb * bs * d * item + 4.0 * (nb + q_n * d)
     if k is None:
         nbytes += 4.0 * nb * q_n * bs
-    else:
+    elif pairs is None:
         nbytes += 4.0 * nb * bs + 8.0 * nb * q_n * k
+    else:
+        nbytes += 4.0 * nb * bs + 2.0 * nb * q_n + 8.0 * pairs * k
     if q8:
         flops += 2.0 * nb * bs * d
         nbytes += 8.0 * nb

@@ -176,6 +176,104 @@ def test_scan_batched_topk_kernel_dead_pages(card, dtype, bs, k):
     assert bool((kd[[3, 12], :, 0] < BIG / 2).all())
 
 
+@pytest.mark.parametrize("k", [4, 10, 16, 32])
+@pytest.mark.parametrize("form,d", [
+    (torch.float32, 100), (torch.bfloat16, 100), (torch.int8, 100), ("q8", 100),
+    (torch.float32, 256), (torch.bfloat16, 256), (torch.int8, 256), ("q8", 256),
+])
+def test_scan_batched_topk_pairs_kernel_equals_the_full_gathered(card, form, d, k):
+    """The pairs form of #6 and #7 bit for bit against the full kernel's
+    ``(NB, Q, k)`` output gathered through ``member_pos``, for every KMAX
+    and payload the search uses, in the default shape (d=100) and the wide
+    one (f32 and bf16 at d=256): a budget past its -1 padding rows and one
+    that overflows, dead pages, absent pages and invalid probes, Q across
+    two query tiles and the budget across two page runs."""
+    from repro_torch.kernels.posting_scan import ops, ref
+
+    gen = torch.Generator().manual_seed(d + k)
+    codes = form == "q8"
+    blocks = _blocks(gen, 160, 32, d, torch.int8 if codes else form, card)
+    q_n, nbq = 70, 24
+    q = (torch.randn(q_n, d, generator=gen) * (1 if form in (torch.float32, torch.bfloat16)
+                                               else 64)).to(card)
+    hot = torch.randperm(160, generator=gen)[:110]
+    table = torch.stack([hot[torch.randperm(110, generator=gen)[:nbq]] for _ in range(q_n)])
+    table[torch.rand(q_n, nbq, generator=gen) < 0.25] = -1
+    table = table.to(torch.int32).to(card)
+    for budget in (120, 90):                      # padding rows; 20 pages dropped
+        uniq, member_pos, n_unique, overflow = ops.dedup_pages(table.reshape(-1), budget=budget,
+                                                               num_blocks=160)
+        assert int(overflow) == max(0, int(n_unique) - budget)
+        mp = member_pos.reshape(q_n, nbq)
+        page_pos = ops.page_positions(mp, budget)
+        live = torch.rand(budget, 32, generator=gen).to(card) < 0.7
+        live[[0, 7, 50]] = False                  # dead pages
+        ids, bias = ops._clamped(uniq), ops._batched_bias(uniq, live)
+        sz = _page_sz(gen, budget).to(card)
+        name = "scan_batched_topk_q8" if codes else "scan_batched_topk"
+        args = (ids, q, blocks, bias, sz) if codes else (ids, q, blocks, bias)
+        before = SK.LAUNCHES[name + "_pairs"]
+        got = getattr(SK, name + "_pairs")(*args, page_pos, nbq=nbq, k=k)
+        full = getattr(SK, name)(*args, k=k)
+        torch.cuda.synchronize()
+        assert SK.LAUNCHES[name + "_pairs"] == before + 1
+        want = ref.gather_pairs(*full, mp)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert bool((got[1][mp < 0] == -1).all()) and bool((mp == 7).any())
+
+
+def _roofline_reader(name):
+    """The ``cardbench/metrics/<name>.py`` module (the benchmark's reader)."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    if str(root) not in sys.path:
+        sys.path.insert(0, str(root))
+    spec = importlib.util.spec_from_file_location(f"reader_{name}",
+                                                  root / "cardbench" / "metrics" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_batched_search_scan_names_satisfy_the_roofline_readers(card):
+    """A batched search at the cells' page geometry (d=100 bytes, BS=32,
+    k=10; the int8 codec's 40 candidates) under ``torch.profiler``: the
+    scan kernel's device names are the ones the benchmark's two roofline
+    readers find (``_is_scan``), each only by its own reader."""
+    from torch.profiler import ProfilerActivity, profile
+
+    six = _roofline_reader("scan_batched_topk_roofline")
+    seven = _roofline_reader("scan_batched_topk_q8_roofline")
+    rng = np.random.default_rng(6)
+    centers = rng.uniform(-90, 90, size=(24, 100))
+    base = np.clip(np.round(centers[rng.integers(0, 24, 6000)]
+                            + 12 * rng.normal(size=(6000, 100))), -127, 127).astype(np.float32)
+    q = base[rng.integers(0, 6000, 256)] + rng.normal(size=(256, 100)).astype(np.float32)
+    for codec, reader, other in (("fp32", six, seven), ("int8", seven, six)):
+        cfg = LireConfig(dim=100, block_size=32, max_blocks_per_posting=4, num_blocks=4096,
+                         num_postings_cap=1024, num_vectors_cap=16384, split_limit=96,
+                         merge_limit=12, replica_count=2, nprobe=16, vector_dtype="int8",
+                         codec=codec, rerank_factor=4 if codec == "int8" else 1,
+                         use_pallas_nav=True, use_pallas_scan=True, scan_schedule="batched",
+                         scan_page_budget=2048)
+        idx = SPFreshIndex.build(cfg, base, device="cuda")
+        idx.search(q, 10)                                     # built and warm
+        before = SK.LAUNCHES[("scan_batched_topk_q8" if codec == "int8"
+                              else "scan_batched_topk") + "_pairs"]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            idx.search(q, 10)
+            torch.cuda.synchronize()
+        names = {e.name() for e in prof.profiler.kineto_results.events()
+                 if str(e.device_type()).endswith("CUDA") and "scan_batched_topk" in e.name()}
+        assert names, f"no scan kernel in the {codec} search's trace"
+        assert all(reader._is_scan(n) and not other._is_scan(n) for n in names), names
+        assert SK.LAUNCHES[("scan_batched_topk_q8" if codec == "int8"
+                            else "scan_batched_topk") + "_pairs"] > before
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("bs,k", [(32, 10), (8, 8), (16, 1)])
 def test_scan_kernels_match_plain(card, dtype, bs, k):
@@ -917,7 +1015,7 @@ def test_retriever_on_the_card_matches_the_cpu(card):
             r.index.state = st.replace(cfg=dataclasses.replace(st.cfg, scan_schedule=sched))
         agree(cpu.retrieve(users), gpu.retrieve(users))
     assert SK.LAUNCHES["scan_per_query_topk"] > before["scan_per_query_topk"]
-    assert SK.LAUNCHES["scan_batched_topk"] > before["scan_batched_topk"]
+    assert SK.LAUNCHES["scan_batched_topk_pairs"] > before["scan_batched_topk_pairs"]
     fresh = np.arange(1500, 1564)
     gpu.add_items(fresh)
     _, v = gpu.index.search(gpu.embed_items(fresh), 10)
@@ -1213,7 +1311,7 @@ def test_index_cells_on_the_card_equal_the_calls_they_wrap(card):
     chip_smoke.fp32_index_cells(torch, out, state, torch.as_tensor(base[:64] + 0.01, device=card),
                                 torch.as_tensor(base[:96], device=card))
     chip_smoke.maintain_index_cell(torch, out, state)
-    assert out["serve_search_paged"]["launches"]["scan_batched_topk"] >= 1
+    assert out["serve_search_paged"]["launches"]["scan_batched_topk_pairs"] >= 1
     recs = chip_smoke.index_cells_records(torch, out)
     assert out["empty_config_state"]["card_delta"] == out["empty_config_state"]["meta_bytes_in_blocks"]
     assert all(r["status"] == "ok" for r in recs.values()) and len(recs) == 6

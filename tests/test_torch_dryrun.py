@@ -343,6 +343,35 @@ def test_kernel_meta_counts_equal_their_formulas():
     assert {n: (v["flops"], v["bytes"]) for n, v in w.by_kernel.items()} == want
     assert all(v["launches"] == 1 for v in w.by_kernel.values())
     assert w.flops == sum(f for f, _ in want.values())
+
+
+def test_pairs_meta_counts_equal_their_formulas():
+    """The pairs form of #6 and #7 on ``meta``: the same products as the
+    full form, the int16 ``(NB, Q)`` probe rows read, and ``Q x nbq`` rows
+    of ``k`` candidates written, not ``NB x Q``."""
+    from repro_torch.kernels.posting_scan import kernel as SK
+
+    def meta(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    q_n, d, nb, bs, kk, nbq, pages = 64, 100, 24, 32, 10, 16, 1000
+    ids, blocks = meta((nb,), torch.int32), meta((pages, bs, d), torch.int8)
+    pos = meta((nb, q_n), torch.int16)
+    before = dict(SK.LAUNCHES)
+    with work.counting() as w:
+        bd, bi = SK.scan_batched_topk_pairs(ids, meta((q_n, d)), blocks, meta((nb, bs)), pos,
+                                            nbq=nbq, k=kk)
+        assert bd.shape == bi.shape == (q_n, nbq, kk) and bi.dtype == torch.int32
+        SK.scan_batched_topk_q8_pairs(ids, meta((q_n, d)), blocks, meta((nb, bs)),
+                                      meta((nb, 2)), pos, nbq=nbq, k=kk)
+    assert SK.LAUNCHES == before
+    read = nb * bs * d + 4.0 * (nb + q_n * d + nb * bs) + 2.0 * nb * q_n
+    want = {
+        "scan_batched_topk_pairs": (2.0 * nb * q_n * bs * d, read + 8 * q_n * nbq * kk),
+        "scan_batched_topk_q8_pairs": (2.0 * nb * q_n * bs * d + 2.0 * nb * bs * d,
+                                       read + 8.0 * nb + 8 * q_n * nbq * kk),
+    }
+    assert {n: (v["flops"], v["bytes"]) for n, v in w.by_kernel.items()} == want
     with pytest.raises(ValueError, match="unsupported device"):
         SK._on_cpu(_Elsewhere())
 
@@ -399,7 +428,7 @@ def test_dryrun_index_and_lm_records(tmp_path):
             for mk in ("single", "multi", "card")}
     assert all(r["status"] == "ok" for r in recs.values())
     kw = recs["card"]["cost_analysis"]["kernel_work"]
-    assert set(kw) == {"scan_batched_topk"} and kw["scan_batched_topk"]["launches"] == 1
+    assert set(kw) == {"scan_batched_topk_pairs"} and kw["scan_batched_topk_pairs"]["launches"] == 1
     # one shard a device on every mesh: the same per-device count
     assert recs["single"]["cost_analysis"]["flops"] == recs["card"]["cost_analysis"]["flops"]
     assert recs["card"]["card_run"].startswith("cut: one shard")

@@ -23,7 +23,9 @@ from repro_torch import convert
 from repro_torch.core import index as tindex
 from repro_torch.core import lire as tlire
 from repro_torch.core.index import SPFreshIndex as TIndex
+from repro_torch.core.distance import MASK_DISTANCE
 from repro_torch.core.types import LireConfig as TConfig
+from repro_torch.kernels.posting_scan import ops as tops
 from repro_torch.storage import versionmap as tvm
 from repro_torch.utils.tree import clone_state
 from tests.conftest import make_clustered
@@ -164,13 +166,35 @@ def test_scan_page_stats_and_probe_histogram_match():
                                      scan_page_budget=budget)
         got = tlire.scan_page_stats(port, torch.as_tensor(queries), nprobe=8,
                                     scan_page_budget=budget)
-        assert {k: int(v) for k, v in got.items()} == {k: int(v) for k, v in want.items()}
+        assert {k: int(got[k]) for k in want} == {k: int(v) for k, v in want.items()}
+        assert set(got) == set(want) | {"n_pairs"}
     qvalid = np.arange(32) < 20
     *_, rh = rlire.search(idx.state, jnp.asarray(queries), k=10, nprobe=8,
                           with_access=True, qvalid=jnp.asarray(qvalid))
     *_, th = tlire.search(port, torch.as_tensor(queries), k=10, nprobe=8,
                           with_access=True, qvalid=torch.as_tensor(qvalid))
     np.testing.assert_array_equal(th.numpy(), np.asarray(rh))
+
+
+@pytest.mark.parametrize("budget", [0, 16])
+def test_scan_page_stats_counts_the_probed_pairs(budget):
+    """``n_pairs`` is the count of ``member_pos >= 0``: the (page, query)
+    pairs the batched scan's pairs form selects and stores, at most
+    ``n_pages`` and at most ``min(n_unique, budget) x Q``."""
+    idx, tcfg, queries = _churned()
+    port = _to_port(idx.state, tcfg)
+    q = torch.as_tensor(queries)
+    got = tlire.scan_page_stats(port, q, nprobe=8, scan_page_budget=budget)
+    nav_d, pids = tlire.navigate(port, q, 8)
+    flat = tlire._page_table(port, pids, nav_d < MASK_DISTANCE / 2)
+    cap = budget or min(flat.numel(), tcfg.num_blocks)
+    _, member_pos, n_unique, _ = tops.dedup_pages(flat.reshape(-1), budget=cap,
+                                                  num_blocks=tcfg.num_blocks)
+    assert int(got["n_pairs"]) == int((member_pos >= 0).sum())
+    assert 0 < int(got["n_pairs"]) <= int(got["n_pages"])
+    assert int(got["n_pairs"]) <= min(int(n_unique), cap) * q.shape[0]
+    if budget:
+        assert int(got["n_pairs"]) < int(got["n_pages"])
 
 
 def test_batched_budget_overflow_matches_reference():

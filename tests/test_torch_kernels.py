@@ -314,6 +314,109 @@ def test_scan_wrappers_enforce_the_kernel_contract(rng, bad):
 
 
 # ---------------------------------------------------------------------------
+# the pairs form of #6 and #7: candidates of the probed (page, query) pairs
+# only, in the (Q, nbq, k) layout of each query's probe list
+# ---------------------------------------------------------------------------
+
+def _probe_table(rng, q_n, nbq, n_blocks):
+    """Each query's probed pages, distinct within a row: a shared hot set
+    (so pages repeat across queries), absent pages and invalid probes
+    (-1), and query 0 with none at all."""
+    hot = rng.choice(n_blocks, size=min(n_blocks, 3 * nbq), replace=False)
+    table = np.stack([rng.choice(hot, size=nbq, replace=False) for _ in range(q_n)])
+    table[rng.random(size=table.shape) < 0.25] = -1
+    table[0] = -1
+    return table.astype(np.int32)
+
+
+@pytest.mark.parametrize("budget", ["ample", "overflow"])
+@pytest.mark.parametrize("k", [4, 10, 32])
+@pytest.mark.parametrize("dtype", DTYPES + ["q8"])
+def test_scan_batched_topk_pairs_equal_the_full_gathered(rng, dtype, k, budget):
+    """The pairs form (on the CPU its plain version) equals the full
+    ``(NB, Q, k)`` output gathered back through ``member_pos``, value for
+    value and slot for slot, and ``(BIG, -1)`` where a probe kept no page:
+    absent pages, invalid probes, pages past the budget.  Dead pages (every
+    slot dead) and the budget's -1 padding rows included; the plain-torch
+    oracle, gathered the same way, agrees within the tolerance."""
+    q_n, nbq, n_blocks, bs, d = 9, 12, 64, 32, 16
+    _, tblk, s = _payload(rng, (n_blocks, bs, d), "int8" if dtype == "q8" else dtype)
+    q = t((rng.normal(size=(q_n, d)) / s).astype(np.float32))
+    table = t(_probe_table(rng, q_n, nbq, n_blocks))
+    n_unique = len(np.unique(table.numpy()[table.numpy() >= 0]))
+    cap = n_unique + 3 if budget == "ample" else n_unique - 5
+    uniq, member_pos, _, overflow = tops.dedup_pages(table.reshape(-1), budget=cap,
+                                                     num_blocks=n_blocks)
+    assert int(overflow) == (0 if budget == "ample" else 5)
+    mp = member_pos.reshape(q_n, nbq)
+    page_pos = tops.page_positions(mp, cap)
+    live = t(rng.random(size=(cap, bs)) < 0.7)
+    live[1] = False                                     # a dead page
+    sz = t(np.stack([rng.uniform(0.05, 0.5, size=cap), 20 * rng.normal(size=cap)],
+                    axis=-1).astype(np.float32))
+    if dtype == "q8":
+        got = tops.scan_unique_blocks_topk_q8_pairs(q, uniq, live, tblk, sz[:, 0], sz[:, 1],
+                                                    page_pos, nbq=nbq, k=k)
+        full = tops.scan_unique_blocks_topk_q8(q, uniq, live, tblk, sz[:, 0], sz[:, 1], k=k)
+        bias = torch.where(live & (uniq >= 0)[:, None], 0.0, BIG)
+        want = tref.scan_batched_topk_q8_pairs_ref(torch.clamp(uniq, min=0), q, tblk, bias, sz,
+                                                   mp, k)
+    else:
+        got = tops.scan_unique_blocks_topk_pairs(q, uniq, live, tblk, page_pos, nbq=nbq, k=k)
+        full = tops.scan_unique_blocks_topk(q, uniq, live, tblk, k=k)
+        bias = torch.where(live & (uniq >= 0)[:, None], 0.0, BIG)
+        want = tref.scan_batched_topk_pairs_ref(torch.clamp(uniq, min=0), q, tblk, bias, mp, k)
+    assert got[0].shape == got[1].shape == (q_n, nbq, k) and got[1].dtype == torch.int32
+    gathered = tref.gather_pairs(*full, mp)
+    assert torch.equal(got[0], gathered[0]) and torch.equal(got[1], gathered[1])
+    off = mp < 0
+    assert bool(off[0].all()) and bool(off.any(dim=1)[1:].any())
+    assert bool((got[0][off] == BIG).all()) and bool((got[1][off] == -1).all())
+    assert torch.equal(want[1][off], got[1][off])
+    dead = mp == 1                                      # probes of the dead page
+    assert bool(dead.any()) and bool((got[0][dead] == BIG).all())
+    assert torch.equal(got[1][dead], torch.arange(k, dtype=torch.int32).expand(int(dead.sum()), k))
+    assert_tie_tolerant(want[0].numpy(), want[1].numpy(), got[0].numpy(), got[1].numpy())
+
+
+def test_page_positions_invert_member_pos(rng):
+    """``page_positions`` holds, for each kept page and query, the row of the
+    query's probe list that holds the page, -1 elsewhere; a page twice in
+    one row is refused on the CPU."""
+    table = _probe_table(rng, 11, 16, 80)
+    uniq, member_pos, n_unique, _ = tops.dedup_pages(t(table).reshape(-1), budget=40,
+                                                     num_blocks=80)
+    mp = member_pos.reshape(11, 16).numpy()
+    pos = tops.page_positions(member_pos.reshape(11, 16), 40)
+    assert pos.shape == (40, 11) and pos.dtype == torch.int16
+    want = np.full((40, 11), -1, np.int16)
+    for qi, j in zip(*np.nonzero(mp >= 0)):
+        want[mp[qi, j], qi] = j
+    np.testing.assert_array_equal(pos.numpy(), want)
+    assert int((pos >= 0).sum()) == int((member_pos >= 0).sum())
+    twice = torch.tensor([[0, 2, 0], [1, -1, 2]], dtype=torch.int32)
+    with pytest.raises(ValueError, match="twice"):
+        tops.page_positions(twice, 3)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "nbq"])
+def test_scan_batched_topk_pairs_enforce_their_contract(bad):
+    bs, d, nb, q_n = 8, 12, 3, 5
+    page_pos = torch.full((nb, q_n), -1, dtype=torch.int16)
+    nbq = 4
+    if bad == "dtype":
+        page_pos = page_pos.int()
+    elif bad == "shape":
+        page_pos = page_pos[:, :-1].contiguous()
+    else:
+        nbq = 40000
+    with pytest.raises(ValueError):
+        TK.scan_batched_topk_pairs(torch.zeros(nb, dtype=torch.int32), torch.zeros(q_n, d),
+                                   torch.zeros(4, bs, d), torch.zeros(nb, bs), page_pos,
+                                   nbq=nbq, k=4)
+
+
+# ---------------------------------------------------------------------------
 # unreduced scans (#2 scan_per_query, #3 scan_batched), every payload dtype
 # ---------------------------------------------------------------------------
 
